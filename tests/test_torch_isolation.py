@@ -1,0 +1,50 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of
+the reference package ``repro``, and it never runs on the CPU unasked."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.platform import Platform, PlatformSpec
+from repro_torch.platform import compute as pc
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.platform, repro_torch.kernels.ops\n"
+        "import repro_torch.data, repro_torch.core\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(PORT.parent)})
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import jax|from jax|from repro\.|"
+                         r"import repro\.|import repro$|from repro import)",
+                         re.MULTILINE)
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_default_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Platform(PlatformSpec())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pc.BlockArena(device="cuda")
