@@ -6,11 +6,13 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the ``subsample_stats`` CUDA kernel from ``src/repro_torch``.
-3. Holds the kernel against its plain PyTorch version on the card, at the
-   main path's shape and at shapes that take its other branches, and
-   times kernel, plain version and the byte bound.
-4. Runs the main path at real size: the full Netflix Prize catalogue
+2. Builds both CUDA kernels from ``src/repro_torch`` (``subsample_stats``
+   and ``rwkv6_chunked``), one nvcc each, started together, and prints
+   ptxas' registers, shared memory and spills.
+3. Holds each kernel against its plain PyTorch version on the card, at
+   the shapes its main path gives it and at shapes that take its other
+   branches, and times kernel, plain version and the bound.
+4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
    64-movie task block, threaded backend, waves of 16.  The launch count
@@ -23,6 +25,16 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    bit-identical; runs a 512-movie job on the threaded and the simulated
    backend and asserts they are bit-identical and agree with a float64
    numpy reference computed from the same draws.
+6. Serves ``rwkv6-7b`` at full width (32 layers, d_model 4096, bf16
+   weights from a seed) through ``ServingEngine.generate``: batch 4, a
+   1,000-token prompt, 32 new tokens; the launch counts are zeroed just
+   before and read just after, and prefill must launch ``rwkv6_chunked``
+   once per layer.  One ``torch.profiler`` pass over a prefill and one
+   over a decode step give the kernel's share of prefill device time and
+   the device's busy share of each.  Then, in float32 weights at
+   full width with the depth cut to 4 layers, decoding token x after
+   ``prefill(P)`` must give the logits of the last position of
+   ``prefill(P ++ [x])``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -37,13 +49,24 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-4        # kernel vs plain: same rows, fp32 sums
+# rwkv6_chunked vs its plain version: the same fp32 chunk form from the
+# same inputs, its products and sums added in other orders (the plain
+# version's cumsum is a parallel scan): outputs of order 10 agree to a few
+# ulps of the sums
+RW_TOL = 1e-4
+# decode after prefill(P) vs the last position of prefill(P ++ [x]), fp32
+# weights: the single-step formula against the chunk form (a padded second
+# chunk), over 4 layers of width 4,096 and a 65,536-way head
+INVARIANT_TOL = 1e-3
 
 
 def _require_card() -> None:
@@ -126,6 +149,238 @@ def check_kernel(ops, ref, prng):
           "is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _rwkv6_inputs(b, h, s, hd, gen, dtype=torch.bfloat16):
+    """bf16 r/k/v/u (the model's types), fp32 decays in [-2.5, -0.05] and a
+    non-zero fp32 state, drawn on the card from ``gen``."""
+    dev = torch.device("cuda")
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k, v = (normal(b, h, s, hd).to(dtype) for _ in range(3))
+    logw = -0.05 - 2.45 * torch.rand((b, h, s, hd), generator=gen,
+                                     device=dev)
+    u = normal(h, hd, scale=0.3).to(dtype)
+    state = normal(b, h, hd, hd, scale=0.5)
+    return r, k, v, logw, u, state
+
+
+def _rwkv6_bound(r, logw, chunk):
+    """Least time for one call: r/k/v/u/logw/state0 read once and
+    out/state_out written once, over 3.35 TB/s, against the chunk form's
+    operations over 495 TFLOP/s (TF32 dense).  Per (b, h) and chunk of C:
+    the three products (2·C·hd² for inter, hd·C(C+1) for A v over j <= i,
+    2·C·hd² for the state), the pairwise decays of A (5 per pair and
+    column over j < i: difference, exponential, two products, sum; 3 on
+    the diagonal) and about 10·C·hd + 3·hd² elementwise operations."""
+    b, h, s, hd = r.shape
+    esize = r.element_size()
+    nbytes = (3 * b * h * s * hd * esize + b * h * s * hd * logw.element_size()
+              + h * hd * esize + 2 * b * h * hd * hd * 4 + b * h * s * hd * 4)
+    c = chunk
+    per_chunk = (4 * c * hd * hd + hd * c * (c + 1)
+                 + 5 * hd * c * (c - 1) // 2 + 3 * c * hd
+                 + 10 * c * hd + 3 * hd * hd)
+    flops = per_chunk * b * h * (s // c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_rwkv6_kernel(ops, ref):
+    """Phase 3b: ``rwkv6_chunked`` against its plain version on the card,
+    ``out`` and ``state_out``, at the serving shape (one layer's prefill of
+    batch 4 at 1,024 tokens: 64 heads of 64, chunks of 64), a single short
+    chunk and hd = 32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(4, 64, 1024, 64, 64),     # the main path's shape
+             (2, 64, 13, 64, 64),       # one short chunk: C = S = 13
+             (4, 32, 256, 32, 32)]      # hd = 32
+    worst = 0.0
+    for b, h, s, hd, chunk in cases:
+        x = _rwkv6_inputs(b, h, s, hd, gen)
+        out, state = ops.rwkv6_chunked(*x[:5], chunk=chunk, state=x[5])
+        want, want_state = ref.rwkv6_chunk_form_ref(*x, min(chunk, s))
+        torch.cuda.synchronize()
+        err = max(float((out - want).abs().max()),
+                  float((state - want_state).abs().max()))
+        torch.testing.assert_close(out, want, rtol=RW_TOL, atol=RW_TOL)
+        torch.testing.assert_close(state, want_state, rtol=RW_TOL,
+                                   atol=RW_TOL)
+        worst = max(worst, err)
+        print(f"rwkv6 kernel check B={b} H={h} S={s} hd={hd} C={chunk}: "
+              f"max_abs_err={err!r} over out and state_out (tolerance "
+              f"{RW_TOL}: same fp32 chunk form, sums in another order)")
+        if (b, h, s, hd, chunk) == cases[0]:
+            main = (x, chunk)
+    x, chunk = main
+    ms = _time_ms(lambda: ops.rwkv6_chunked(*x[:5], chunk=chunk,
+                                            state=x[5]))
+    plain_ms = _time_ms(lambda: ref.rwkv6_chunk_form_ref(*x, chunk), reps=3)
+    bound_ms, bound_by = _rwkv6_bound(x[0], x[3], chunk)
+    print(f"rwkv6_chunked at [4, 64, 1024, 64] bf16 r/k/v/u, fp32 logw, "
+          f"C=64: kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}); no PyTorch call computes this "
+          "function, so library_ms is null")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _profiled(label, fn):
+    """``fn()`` once under ``torch.profiler``, closed by a synchronise:
+    its host wall time, the device time and the rwkv6_chunked kernel's
+    share of it, the device's busy share of the host wall time, and the
+    device operations by name.  Returns what ``fn`` returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        raise AssertionError(f"the profiler saw no device time in {label}")
+    total = sum(end - start for start, end, _ in dev)
+    kernel = sum(end - start for start, end, name in dev
+                 if "rwkv6_chunked" in name)
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, _ in dev:
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    by_name = {}
+    for start, end, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label} under the profiler: host wall {wall_us / 1e3!r} ms, "
+          f"{len(dev)} device operations, device time {total / 1e3!r} ms, "
+          f"rwkv6_chunked {kernel / 1e3!r} ms (share {kernel / total!r}); "
+          f"device busy {busy / 1e3!r} ms (share of the wall "
+          f"{busy / wall_us!r}); top device ms by name "
+          f"{json.dumps([[n[:60], round(t, 3)] for n, t in top])}")
+    return out
+
+
+def serve_full_width(ops):
+    """Phase 6: ``rwkv6-7b`` at full width, bf16 weights from a seed,
+    through ``ServingEngine.generate``; returns the rwkv6_chunked launch
+    count of the measured run."""
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine, grow_caches
+
+    cfg = get_config("rwkv6-7b")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"rwkv6-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.rwkv_num_heads} heads of {cfg.rwkv_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} bf16 parameters "
+          f"({cfg.param_count()} by the config's count, which leaves out "
+          f"the decay biases and the final norm) drawn on the card in "
+          f"{time.perf_counter() - t0!r} s")
+    engine = ServingEngine(model, params, max_new_tokens=32)
+    batch = model.make_inputs(ShapeConfig("serve", "prefill", 1000, 4),
+                              model.generator(1))
+    warm = engine.generate(batch, new_tokens=2)
+    print(f"warm-up generate (2 new tokens): prefill "
+          f"{warm.prefill_seconds!r} s, decode {warm.decode_seconds!r} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    out = engine.generate(batch, new_tokens=32)
+    launches = ops.launch_count("rwkv6_chunked")
+    other = ops.launch_count("subsample_stats")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving rwkv6-7b, batch 4, prompt 1000 (16 chunks of 64 after "
+          f"padding), 32 new tokens: prefill_seconds "
+          f"{out.prefill_seconds!r}, decode_seconds {out.decode_seconds!r}, "
+          f"tokens_per_second {out.tokens_per_second!r}, peak device "
+          f"memory {peak} bytes; rwkv6_chunked launches {launches}, "
+          f"subsample_stats launches {other}")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"prefill launched rwkv6_chunked {launches} "
+                             f"times, not once per layer ({cfg.num_layers})")
+    if out.tokens.shape != (4, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
+    with torch.inference_mode():
+        logits, caches = _profiled(
+            "prefill", lambda: model.prefill(params, batch))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        caches = model.prefill_to_decode(grow_caches(caches, 1001))
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        logits, _ = _profiled("one decode step", lambda: model.decode_step(
+            params, tok, caches, 1000))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("decode logits are not finite")
+    del caches
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves_with_path
+
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def decode_invariant():
+    """Phase 7: decoding token x after ``prefill(P)`` gives the logits of
+    the last position of ``prefill(P ++ [x])``: full width, float32
+    weights, depth cut to 4 layers; the token-shift mixes, decay bias and
+    bonus drawn away from their zero init so that every carried state is
+    read.  P is one chunk (64 tokens), so P ++ [x] pads a second."""
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import grow_caches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=4,
+                              dtype="float32")
+    model = Model(cfg, device="cuda")
+    gen = model.generator(2)
+    params = model.init(gen)
+    for block in params["blocks"]:
+        mix = block["mix"]
+        mix["mix"].uniform_(0.0, 1.0, generator=gen)
+        mix["decay_bias"].normal_(-1.0, 0.5, generator=gen)
+        mix["bonus_u"].normal_(0.0, 0.3, generator=gen)
+        block["ffn"]["mix"].uniform_(0.0, 1.0, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        _, caches = model.prefill(params, {"tokens": tokens[:, :64]})
+        caches = model.prefill_to_decode(grow_caches(caches, 65))
+        stepped, _ = model.decode_step(params, tokens[:, 64:], caches, 64)
+        whole, _ = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    err = float((stepped - whole).abs().max())
+    scale = float(whole.abs().max())
+    print(f"decode after prefill(P) vs prefill(P ++ [x]) at full width, 4 "
+          f"layers, fp32: max_abs_err {err!r} on logits up to {scale!r} "
+          f"(tolerance {INVARIANT_TOL}, relative and absolute)")
+    if not bool(torch.isfinite(whole).all()):
+        raise AssertionError("invariant logits are not finite")
+    torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
+                               atol=INVARIANT_TOL)
+    del params, caches
+    torch.cuda.empty_cache()
 
 
 def _host_ms(fn, reps: int = 10) -> float:
@@ -290,21 +545,30 @@ def main() -> None:
         __file__)), "src"))
     from repro_torch import prng
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import subsample_gather as sg
+    from repro_torch.kernels import rwkv6_scan, subsample_gather
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
-    # phase 2 — build
-    t0 = time.perf_counter()
-    sg.library()
-    print(f"kernel library ready in {time.perf_counter() - t0!r} s "
-          f"(nvcc {sg.build_info['seconds']!r} s): {sg.build_info['path']}")
-    for line in sg.build_info["log"].splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
-            print("  ptxas:", line.strip())
+    kernel_modules = (subsample_gather, rwkv6_scan)
 
-    # phase 3 — kernel against its plain version
+    # phase 2 — build, one nvcc for each source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:
+        for fut in [pool.submit(m.library) for m in kernel_modules]:
+            fut.result()
+    print(f"kernel libraries ready in {time.perf_counter() - t0!r} s")
+    for mod in kernel_modules:
+        info = mod.build_info
+        print(f"  {mod.SOURCE.name}: nvcc {info['seconds']!r} s, "
+              f"{info['path']}")
+        for line in info["log"].splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print("    ptxas:", line.strip())
+
+    # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng)
+    rw_timing = check_rwkv6_kernel(ops, ref)
 
     # phase 4 — the main path at real size
     t0 = time.perf_counter()
@@ -361,11 +625,22 @@ def main() -> None:
           "tasks; mean/var match a float64 numpy reference "
           f"(rtol={RTOL}, atol={ATOL})")
 
+    del small, small_months, thr, sim
+    torch.cuda.empty_cache()
+
+    # phase 6 — serving rwkv6-7b at full width; phase 7 — the invariant
+    rw_launches = serve_full_width(ops)
+    decode_invariant()
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:138",
-        "launches": launches, "library_ms": None, **timing}]}))
+        "launches": launches, "library_ms": None, **timing}, {
+        "name": "rwkv6_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:69",
+        "launches": rw_launches, "library_ms": None, **rw_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

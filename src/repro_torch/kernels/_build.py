@@ -1,0 +1,79 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
+interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library in ``build/kernels/`` at the root of the checkout, keyed
+by a hash of the source and the flags, and loaded with ``ctypes``.
+
+Nothing here runs at import: the CPU tests import the kernel modules on
+machines with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Optional
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc(source: Path) -> str:
+    found = shutil.which("nvcc")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    if found is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        found = os.path.join(home, "bin", "nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found: the CUDA kernel in {source} is built at first "
+            "use and needs the CUDA toolkit (sm_90a)")
+    return found
+
+
+class KernelLibrary:
+    """One kernel source, built once per source hash and loaded once per
+    process.  ``declare`` sets ``argtypes`` / ``restype`` on the loaded
+    library.  ``info`` holds the build's seconds, the compiler's log (with
+    ptxas' registers, shared memory and spills) and the library's path."""
+
+    def __init__(self, source: Path, declare: Callable[[ctypes.CDLL], None]):
+        self.source = source
+        self._declare = declare
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.info = {"seconds": None, "log": "", "path": None}
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            digest = hashlib.sha256(self.source.read_bytes()
+                                    + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            path = BUILD_DIR / f"{self.source.stem}_{digest[:16]}.so"
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [_nvcc(self.source), *NVCC_FLAGS, "-o", str(tmp),
+                     str(self.source)], capture_output=True, text=True)
+                self.info["seconds"] = time.perf_counter() - t0
+                self.info["log"] = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {self.source} (exit "
+                        f"{proc.returncode}):\n{self.info['log']}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            self._declare(lib)
+            self.info["path"] = str(path)
+            self._lib = lib
+            return lib

@@ -11,26 +11,37 @@ its main path went through the kernel.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import subsample_gather as _sg
 
+KERNELS = ("subsample_stats", "rwkv6_chunked")
+
 _count_lock = threading.Lock()
-_launches = 0            # subsample_stats kernel launches since the reset
+_launches = dict.fromkeys(KERNELS, 0)    # kernel launches since the reset
 
 
-def launch_count() -> int:
-    """Kernel launches of :func:`subsample_stats` since the last reset."""
+def launch_count(name: str = "subsample_stats") -> int:
+    """Launches of the kernel ``name`` (one of :data:`KERNELS`) since the
+    last reset."""
     with _count_lock:
-        return _launches
+        return _launches[name]
 
 
 def reset_launch_count() -> None:
-    global _launches
+    """Set every kernel's launch count to 0."""
     with _count_lock:
-        _launches = 0
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _counted(name: str) -> None:
+    with _count_lock:
+        _launches[name] += 1
 
 
 def _check_subsample_stats(data: torch.Tensor, indices: torch.Tensor,
@@ -63,13 +74,69 @@ def subsample_stats(data: torch.Tensor, indices: torch.Tensor, *,
     int32 → ``stats [B, 2, D]`` fp32, each task's (Σ row, Σ row²) over its
     gathered rows; no gathered array is written.  One launch per wave.
     Every index must lie in ``[0, N)``."""
-    global _launches
     _check_subsample_stats(data, indices, rows_per_step)
     if not data.is_cuda:
         return ref.subsample_stats_ref(data, indices,
                                        rows_per_step=rows_per_step)
     out = _sg.subsample_stats_wave(data, indices,
                                    rows_per_step=rows_per_step)
-    with _count_lock:
-        _launches += 1
+    _counted("subsample_stats")
+    return out
+
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_rwkv6(r, k, v, logw, u, state, chunk: int) -> None:
+    b, h, s, hd = r.shape
+    for name, t in (("k", k), ("v", v), ("logw", logw)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, r "
+                             f"{tuple(r.shape)}")
+    if tuple(u.shape) != (h, hd):
+        raise ValueError(f"u must be [H, hd] = {(h, hd)}, got "
+                         f"{tuple(u.shape)}")
+    if tuple(state.shape) != (b, h, hd, hd):
+        raise ValueError(f"state must be [B, H, hd, hd] = {(b, h, hd, hd)}, "
+                         f"got {tuple(state.shape)}")
+    if r.dtype not in _FLOATS or any(t.dtype != r.dtype for t in (k, v, u)):
+        raise TypeError("r, k, v and u take one type, fp32 or bf16; got "
+                        f"{[t.dtype for t in (r, k, v, u)]}")
+    if logw.dtype not in _FLOATS:
+        raise TypeError(f"logw takes fp32 or bf16, got {logw.dtype}")
+    if state.dtype != torch.float32:
+        raise TypeError(f"state takes fp32, got {state.dtype}")
+    if any(t.device != r.device for t in (k, v, logw, u, state)):
+        raise ValueError("r, k, v, logw, u and state must lie on one device")
+    if not all(t.is_contiguous() for t in (r, k, v, logw, u, state)):
+        raise ValueError("rwkv6_chunked takes contiguous tensors")
+    if s == 0 or not 1 <= chunk <= _rw.MAX_CHUNK or s % chunk:
+        raise ValueError(f"the chunk length must lie in [1, "
+                         f"{_rw.MAX_CHUNK}] and divide S; got chunk {chunk}, "
+                         f"S {s}")
+    if r.is_cuda and hd not in _rw.HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes hd in {_rw.HEAD_DIMS}, "
+                         f"got {hd}")
+
+
+def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                  state: Optional[torch.Tensor] = None):
+    """Chunked RWKV6 recurrence: ``r, k, v, logw [B, H, S, hd]`` (log decay
+    ≤ 0) and ``u [H, hd]`` → ``(out [B, H, S, hd] fp32, state_out [B, H,
+    hd, hd] fp32)``, carried from ``state`` (zeros when None), in chunks of
+    ``min(chunk, S)`` tokens; ``S`` must be a multiple of that."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_chunked takes r [B, H, S, hd]; got "
+                         f"{tuple(r.shape)}")
+    b, h, s, hd = r.shape
+    chunk = min(chunk, s)
+    if state is None:
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=r.device)
+    _check_rwkv6(r, k, v, logw, u, state, chunk)
+    if not r.is_cuda:
+        return ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk)
+    out = _rw.rwkv6_chunked(r, k, v, logw, u, state, chunk)
+    _counted("rwkv6_chunked")
     return out

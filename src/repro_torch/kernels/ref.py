@@ -44,3 +44,74 @@ def subsample_stats_ref(data: torch.Tensor, indices: torch.Tensor, *,
         acc = acc + gsum[:, s]
         acc2 = acc2 + gsq[:, s]
     return torch.stack([acc, acc2], dim=1)
+
+
+def rwkv6_chunked_ref(r, k, v, logw, u) -> torch.Tensor:
+    """Sequential (per-token) RWKV6 recurrence from a zero state;
+    ``r, k, v, logw [B, H, S, hd]``, ``u [H, hd]`` → ``out [B, H, S, hd]``
+    fp32.  The reference's ``ref.rwkv6_chunked_ref``."""
+    b, h, s, hd = r.shape
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    w = torch.exp(logw.float())
+    uf = u.float()
+    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(s):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]     # [B,H,hdk,hdv]
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, :, t],
+                                 state + uf[None, :, :, None] * kv))
+        state = w[:, :, t, :, None] * state + kv
+    return torch.stack(outs, dim=2)
+
+
+def chunk_body(r, k, v, logw, u, state):
+    """One chunk of the RWKV6 recurrence in closed form: the reference's
+    ``models/rwkv6.py::chunk_body``.  All inputs ``[B, H, C, hd]`` except
+    ``u [H, hd]`` and ``state [B, H, hd, hd]`` fp32; every input is widened
+    to fp32 first, as the kernel does.  Returns ``(out [B, H, C, hd] fp32,
+    new_state)``.  Every pairwise decay exponent is ≤ 0, and the pairs
+    ``j ≥ i`` are masked to ``-inf`` before the exponential."""
+    rf, kf, vf, lw = (t.float() for t in (r, k, v, logw))
+    c = r.shape[2]
+    # logP[i] = sum_{m<i} logw[m]  (exclusive cumsum)
+    logp = torch.cumsum(lw, dim=2) - lw                           # [B,H,C,hd]
+    logp_total = logp[:, :, -1, :] + lw[:, :, -1, :]              # [B,H,hd]
+
+    # inter-chunk: r_i ⊙ exp(logP_i) read the carried state
+    inter = torch.einsum("bhid,bhde->bhie", rf * torch.exp(logp), state)
+
+    # intra-chunk: A_ij = Σ_d r_i[d] k_j[d] exp(logP_i[d] − logP_{j+1}[d]), j<i
+    logp_j1 = logp + lw                                           # logP_{j+1}
+    dmat = logp[:, :, :, None, :] - logp_j1[:, :, None, :, :]     # [B,H,C,C,hd]
+    idx = torch.arange(c, device=r.device)
+    lower = idx[:, None] > idx[None, :]                           # strict
+    dmat = torch.where(lower[None, None, :, :, None], dmat,
+                       torch.full_like(dmat, float("-inf")))
+    amat = torch.einsum("bhid,bhjd,bhijd->bhij", rf, kf, torch.exp(dmat))
+    # diagonal bonus term: r_i · (u ⊙ k_i) v_i
+    diag = torch.einsum("bhid,hd,bhid->bhi", rf, u.float(), kf)
+    amat = amat + torch.eye(c, dtype=amat.dtype,
+                            device=r.device)[None, None] * diag[..., None]
+    intra = torch.einsum("bhij,bhje->bhie", amat, vf)
+
+    # state update: S' = exp(logP_C) ⊙_k S + Σ_j (exp(logP_C−logP_{j+1}) ⊙ k_j) v_jᵀ
+    k_dec = kf * torch.exp(logp_total[:, :, None, :] - logp_j1)
+    new_state = (torch.exp(logp_total)[..., None] * state
+                 + torch.einsum("bhjd,bhje->bhde", k_dec, vf))
+    return inter + intra, new_state
+
+
+def rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk: int):
+    """The ``rwkv6_chunked`` kernel's plain version: :func:`chunk_body`
+    chunk after chunk from ``state [B, H, hd, hd]`` fp32.  ``r, k, v, logw
+    [B, H, S, hd]`` with ``S`` a multiple of ``chunk``; ``u [H, hd]``.
+    Returns ``(out [B, H, S, hd] fp32, final_state [B, H, hd, hd] fp32)``."""
+    s = r.shape[2]
+    state = state.float()
+    outs = []
+    for c0 in range(0, s, chunk):
+        part = slice(c0, c0 + chunk)
+        out, state = chunk_body(r[:, :, part], k[:, :, part], v[:, :, part],
+                                logw[:, :, part], u, state)
+        outs.append(out)
+    return torch.cat(outs, dim=2), state

@@ -1,0 +1,240 @@
+"""Decoder assembly (the reference's ``repro.models.transformer``), for
+the layer kinds the port has: RWKV6.
+
+Layer stacks keep the reference's organisation: ``prefix`` (unrolled
+leading layers) + ``blocks`` (homogeneous pattern units whose parameters
+are stacked ``[n_blocks, ...]``, so that weights carry across one to one)
++ ``tail`` (the unrolled pattern remainder).  The reference scans the
+blocks with ``lax.scan``; the port loops over the block index in Python.
+
+Modes:
+  prefill  — full sequence, returns per-layer caches (recurrent state)
+  decode   — one token against caches
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.config.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RW
+from repro_torch.parallel.sharding import LAYERS, ParamDef
+from repro_torch.tree import tree_map
+
+_NOT_PORTED = {
+    LOCAL: "local attention comes with the RecurrentGemma-2B slice "
+           "(ROADMAP Queue 1, next item 1)",
+    RGLRU: "the RG-LRU block comes with the RecurrentGemma-2B slice "
+           "(ROADMAP Queue 1, next item 1)",
+    ATTN: "full attention comes with the LM substrate (ROADMAP Queue 1, "
+          "item 11)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot run yet,
+    naming the ROADMAP slice that ports what it lacks."""
+    for kind in sorted(set(cfg.layer_kinds())):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers "
+                                  "come with the LM substrate (ROADMAP "
+                                  "Queue 1, item 11)")
+    if cfg.frontend == "patch":
+        raise NotImplementedError(f"{cfg.name}: the patch frontend comes "
+                                  "with the LM substrate (ROADMAP Queue 1, "
+                                  "item 11)")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer definitions
+# ---------------------------------------------------------------------------
+
+
+def layer_defs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
+    check_supported(cfg)
+    d = cfg.d_model
+    return {"ln1": L.rms_norm_defs(d), "ln2": L.rms_norm_defs(d),
+            "mix": RW.time_mix_defs(cfg), "ffn": RW.channel_mix_defs(cfg)}
+
+
+def layer_cache_defs(cfg: ModelConfig, layer_idx: int, batch: int,
+                     seq: int, cache_dtype=None) -> Dict[str, Any]:
+    check_supported(cfg)
+    return RW.state_defs(cfg, batch)
+
+
+def _stack_defs(tree, n: int):
+    return tree_map(
+        lambda p: ParamDef((n,) + p.shape, (LAYERS,) + p.logical,
+                           dtype=p.dtype, init=p.init,
+                           init_scale=p.init_scale),
+        tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """How the depth dimension is organized into stacked blocks."""
+    prefix: Tuple[int, ...]          # unrolled leading layer indices
+    n_blocks: int                    # stacked pattern repetitions
+    pattern: Tuple[str, ...]         # kinds at each position in a block
+    pattern_idx: Tuple[int, ...]     # representative layer index per position
+    tail: Tuple[int, ...]            # unrolled trailing layer indices
+
+
+def stack_plan(cfg: ModelConfig) -> StackPlan:
+    pat = len(cfg.layer_pattern)
+    prefix_n = cfg.first_dense_layers
+    if not cfg.scan_layers:
+        return StackPlan(tuple(range(cfg.num_layers)), 0, (), (), ())
+    rest = cfg.num_layers - prefix_n
+    n_blocks, rem = divmod(rest, pat)
+    if n_blocks <= 1:   # not worth stacking
+        return StackPlan(tuple(range(cfg.num_layers)), 0, (), (), ())
+    pattern_idx = tuple(prefix_n + p for p in range(pat))
+    pattern = tuple(cfg.layer_kind(i) for i in pattern_idx)
+    tail = tuple(prefix_n + n_blocks * pat + i for i in range(rem))
+    return StackPlan(tuple(range(prefix_n)), n_blocks, pattern,
+                     pattern_idx, tail)
+
+
+def build_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    plan = stack_plan(cfg)
+    return {
+        "embed": L.embed_defs(cfg),
+        "final_norm": L.rms_norm_defs(cfg.d_model),
+        "prefix": [layer_defs(cfg, i) for i in plan.prefix],
+        "blocks": [_stack_defs(layer_defs(cfg, i), plan.n_blocks)
+                   for i in plan.pattern_idx],
+        "tail": [layer_defs(cfg, i) for i in plan.tail],
+    }
+
+
+def build_cache_defs(cfg: ModelConfig, batch: int, seq: int,
+                     cache_dtype=None, *, mode: str = "prefill"
+                     ) -> Dict[str, Any]:
+    """Prefill caches mirror the stacked parameter layout (``blocks``);
+    decode caches are flat per-layer trees (``blocks_flat``)."""
+    plan = stack_plan(cfg)
+    mk = lambda i: layer_cache_defs(cfg, i, batch, seq, cache_dtype)
+    out = {
+        "prefix": [mk(i) for i in plan.prefix],
+        "tail": [mk(i) for i in plan.tail],
+    }
+    if mode == "decode":
+        out["blocks_flat"] = [[mk(i) for i in plan.pattern_idx]
+                              for _ in range(plan.n_blocks)]
+    else:
+        out["blocks"] = [_stack_defs(mk(i), plan.n_blocks)
+                         for i in plan.pattern_idx]
+    return out
+
+
+def prefill_to_decode_caches(cfg: ModelConfig, caches):
+    """Re-home stacked prefill caches into the flat decode layout (views
+    of the stacked tensors, no copy)."""
+    plan = stack_plan(cfg)
+    out = {"prefix": caches["prefix"], "tail": caches["tail"],
+           "blocks_flat": []}
+    for bi in range(plan.n_blocks):
+        out["blocks_flat"].append([
+            tree_map(lambda x: x[bi], caches["blocks"][p])
+            for p in range(len(plan.pattern_idx))])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-layer application
+# ---------------------------------------------------------------------------
+
+
+def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
+                cache, mode: str) -> Tuple[torch.Tensor, Any]:
+    """Returns (x, new_cache).  The mixture-of-experts auxiliary loss of
+    the reference comes with the MoE layers."""
+    if kind != RWKV:
+        raise NotImplementedError(_NOT_PORTED.get(kind, kind))
+    h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
+    fn = RW.time_mix_decode if mode == "decode" else RW.time_mix_apply
+    state = cache if cache is not None else _zero_state(cfg, x.shape[0],
+                                                        x.device)
+    mix_out, new_cache = fn(cfg, params["mix"], h, state)
+    x = x + mix_out.to(x.dtype)
+
+    h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
+    ffn_out, new_cache = RW.channel_mix_apply(
+        cfg, params["ffn"], h, new_cache, mode == "decode")
+    return x + ffn_out.to(x.dtype), new_cache
+
+
+def _zero_state(cfg: ModelConfig, batch: int, device: torch.device):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                          device=device),
+                    RW.state_defs(cfg, batch))
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
+            mode: str) -> Tuple[torch.Tensor, Any]:
+    """hidden [B,S,D] → (hidden after the final norm, new caches)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}: the training forward "
+                                  "comes with the LM substrate (ROADMAP "
+                                  "Queue 1, item 11)")
+    plan = stack_plan(cfg)
+    x = hidden
+
+    new_prefix = []
+    for j, i in enumerate(plan.prefix):
+        c = None if caches is None else caches["prefix"][j]
+        x, nc = layer_apply(cfg, cfg.layer_kind(i), params["prefix"][j], x,
+                            cache=c, mode=mode)
+        new_prefix.append(nc)
+
+    per_block = []
+    for bi in range(plan.n_blocks):
+        ncs = []
+        for p, kind in enumerate(plan.pattern):
+            bp = tree_map(lambda t: t[bi], params["blocks"][p])
+            if caches is None:
+                c = None
+            elif mode == "decode":
+                c = caches["blocks_flat"][bi][p]
+            else:
+                c = tree_map(lambda t: t[bi], caches["blocks"][p])
+            x, nc = layer_apply(cfg, kind, bp, x, cache=c, mode=mode)
+            ncs.append(nc)
+        per_block.append(ncs)
+
+    new_tail = []
+    for j, i in enumerate(plan.tail):
+        c = None if caches is None else caches["tail"][j]
+        x, nc = layer_apply(cfg, cfg.layer_kind(i), params["tail"][j], x,
+                            cache=c, mode=mode)
+        new_tail.append(nc)
+
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if mode == "decode":
+        return x, {"prefix": new_prefix, "blocks_flat": per_block,
+                   "tail": new_tail}
+    # prefill: stack each pattern position's caches over the blocks, as
+    # the reference's scan does
+    blocks = [tree_map(lambda *ts: torch.stack(ts),
+                       *[per_block[bi][p] for bi in range(plan.n_blocks)])
+              for p in range(len(plan.pattern))]
+    return x, {"prefix": new_prefix, "blocks": blocks, "tail": new_tail}
+
+
+def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """tokens → hidden [B,S,D]."""
+    return L.embed_apply(cfg, params["embed"], batch["tokens"], dtype)

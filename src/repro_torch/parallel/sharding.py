@@ -1,0 +1,69 @@
+"""Parameter definitions, reduced to what a single card needs.
+
+A tree of :class:`ParamDef` describes every parameter and cache leaf of a
+model: shape, logical axis names, dtype and initializer, as in the
+reference's ``repro.parallel.sharding``.  The logical names are kept so
+that the trees compare one to one with the reference's; the mesh rules
+that map them onto devices wait for the multi-card slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import tree_map
+
+# -- logical axis names ------------------------------------------------------
+BATCH = "batch"          # activation batch
+SEQ = "seq"              # activation sequence
+EMBED = "embed"          # d_model dim of params (FSDP target)
+VOCAB = "vocab"          # vocab dim of embeddings / lm head
+HEADS = "heads"          # flattened q/kv head dims, ff dims, lru width
+EXPERT = "expert"        # MoE expert dim
+KV_SEQ = "kv_seq"        # KV-cache sequence dim (serve: sharded over model)
+LAYERS = "layers"        # stacked-layer leading dim (scan-over-layers)
+REPL = "repl"            # always replicated
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
+    dtype: Any = None                      # a torch dtype; None: the model's
+    init: str = "normal"                   # normal | zeros | ones
+    init_scale: float = 0.02
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
+
+
+def is_param_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def init_params(defs, dtype: torch.dtype, device: torch.device,
+                generator: torch.Generator) -> Any:
+    """Materialize a ParamDef tree on ``device``: ``normal × init_scale``,
+    zeros or ones per leaf, drawn in fp32 from ``generator`` (which lives
+    on ``device``) leaf after leaf in JAX's flatten order, then cast to the
+    leaf's dtype (``dtype`` where the leaf names none)."""
+    def make(p: ParamDef) -> torch.Tensor:
+        leaf_dtype = p.dtype or dtype
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=leaf_dtype, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=leaf_dtype, device=device)
+        t = torch.empty(p.shape, dtype=torch.float32, device=device)
+        return t.normal_(generator=generator).mul_(p.init_scale).to(leaf_dtype)
+
+    return tree_map(make, defs)
+
+
+def tree_shapes(tree) -> Any:
+    """The shape of every leaf (a ParamDef's or a tensor's) as a tuple."""
+    return tree_map(lambda x: tuple(x.shape), tree)

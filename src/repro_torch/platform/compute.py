@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.device import check_device
 from repro_torch.kernels import ops
 
 NEXT_SLICE = ("the torch engine for the paper's statistics "
@@ -86,17 +87,6 @@ class DispatchStats:
         dispatches never stop, so only the most recent
         ``max_wave_history`` wave sizes are retained."""
         return cls(wave_sizes=deque(maxlen=max_wave_history))
-
-
-def check_device(device) -> torch.device:
-    """The device an entry point was asked to run on.  Asking for the card
-    where there is none raises: nothing continues on the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but no CUDA device is "
-            "available; pass device='cpu' to run the plain versions")
-    return dev
 
 
 def wave_supported(engine: str) -> bool:

@@ -54,3 +54,76 @@ def test_kernel_rejects_cpu_indices_with_cuda_data(cuda):
     x, i = _inputs(1, 8, 16, 8, 0, cuda)
     with pytest.raises(ValueError):
         ops.subsample_stats(x, i.cpu())
+
+
+# -- rwkv6_chunked -----------------------------------------------------------
+
+# The kernel and its plain version (kernels.ref.rwkv6_chunk_form_ref) compute
+# the same fp32 chunk form from the same inputs, but add the products in
+# other orders and take the cumulative sum of the decays another way (the
+# plain version's torch.cumsum is a parallel scan on the card): outputs of
+# order 10 agree to a few ulps of the sums.
+RW_TOL = 1e-4
+
+
+def _rwkv_inputs(b, h, s, hd, dtype, logw_dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(
+        np.float32)).to(device, dtype) for _ in range(3))
+    logw = torch.from_numpy((-0.05 - 2.45 * rng.random((b, h, s, hd))).astype(
+        np.float32)).to(device, logw_dtype)
+    u = torch.from_numpy((0.3 * rng.standard_normal((h, hd))).astype(
+        np.float32)).to(device, dtype)
+    state = torch.from_numpy((0.5 * rng.standard_normal((b, h, hd, hd))
+                              ).astype(np.float32)).to(device)
+    return r, k, v, logw, u, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,hd,chunk,dtype,logw_dtype", [
+    (2, 4, 256, 64, 64, torch.bfloat16, torch.float32),   # the model's types
+    (1, 3, 13, 64, 64, torch.bfloat16, torch.float32),    # one short chunk
+    (2, 2, 96, 32, 32, torch.float32, torch.float32),     # hd = 32
+    (1, 2, 40, 64, 8, torch.float32, torch.bfloat16),     # bf16 decays
+    (3, 1, 21, 32, 7, torch.bfloat16, torch.bfloat16),    # odd chunk
+])
+def test_rwkv6_kernel_matches_plain_version(cuda, b, h, s, hd, chunk, dtype,
+                                            logw_dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, k, v, logw, u, state = _rwkv_inputs(b, h, s, hd, dtype, logw_dtype,
+                                           b * h + s, cuda)
+    before = ops.launch_count("rwkv6_chunked")
+    out, state_out = ops.rwkv6_chunked(r, k, v, logw, u, chunk=chunk,
+                                       state=state)
+    torch.cuda.synchronize()
+    assert ops.launch_count("rwkv6_chunked") == before + 1
+    want, want_state = ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state,
+                                                min(chunk, s))
+    torch.testing.assert_close(out, want, rtol=RW_TOL, atol=RW_TOL)
+    torch.testing.assert_close(state_out, want_state, rtol=RW_TOL,
+                               atol=RW_TOL)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_from_zero_state_matches_sequential_recurrence(cuda):
+    r, k, v, logw, u, _ = _rwkv_inputs(1, 2, 64, 64, torch.float32,
+                                       torch.float32, 9, cuda)
+    out, _ = ops.rwkv6_chunked(r, k, v, logw, u, chunk=16)
+    # chunked closed form vs sequential scan: the reference's 2e-3
+    torch.testing.assert_close(out, ref.rwkv6_chunked_ref(r, k, v, logw, u),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd16", "chunk128", "strided"])
+def test_rwkv6_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    hd = 16 if bad == "hd16" else 64
+    r, k, v, logw, u, _ = _rwkv_inputs(1, 2, 128, hd, torch.float32,
+                                       torch.float32, 0, cuda)
+    chunk = 128 if bad == "chunk128" else 64
+    if bad == "strided":                   # same shape, not contiguous
+        r = torch.cat([r, r], dim=-1)[..., :hd]
+    before = ops.launch_count("rwkv6_chunked")
+    with pytest.raises(ValueError):
+        ops.rwkv6_chunked(r, k, v, logw, u, chunk=chunk)
+    assert ops.launch_count("rwkv6_chunked") == before

@@ -10,8 +10,12 @@ import sys
 import pytest
 import torch
 
+from repro_torch.config import get_config
+from repro_torch.launch import serve
+from repro_torch.models import Model
 from repro_torch.platform import Platform, PlatformSpec
 from repro_torch.platform import compute as pc
+from repro_torch.serving import ServingEngine
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -21,6 +25,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys\n"
         "import repro_torch, repro_torch.platform, repro_torch.kernels.ops\n"
         "import repro_torch.data, repro_torch.core\n"
+        "import repro_torch.config, repro_torch.configs.rwkv6_7b\n"
+        "import repro_torch.models, repro_torch.models.convert\n"
+        "import repro_torch.serving, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.rwkv6_scan\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
@@ -48,3 +56,10 @@ def test_default_device_without_a_card_raises():
         Platform(PlatformSpec())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pc.BlockArena(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(get_config("rwkv6-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(Model(serve.reduced_variant(get_config("rwkv6-7b"))),
+                      params=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-7b", "--reduced"])
