@@ -6,12 +6,14 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds both CUDA kernels from ``src/repro_torch`` (``subsample_stats``
-   and ``rwkv6_chunked``), one nvcc each, started together, and prints
+2. Builds the four CUDA kernels from ``src/repro_torch``
+   (``subsample_stats``, ``rwkv6_chunked``, ``rglru_scan`` and
+   ``flash_attention``), one nvcc each, started together, and prints
    ptxas' registers, shared memory and spills.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
-   branches, and times kernel, plain version and the bound.
+   branches, and times kernel, plain version, the bound and, where one
+   PyTorch call computes the same function, that call.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -35,6 +37,16 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    full width with the depth cut to 4 layers, decoding token x after
    ``prefill(P)`` must give the logits of the last position of
    ``prefill(P ++ [x])``.
+8. Serves ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU and 8
+   local attention with a 2,048 window, d_model 2560, bf16 weights from a
+   seed) through ``ServingEngine.generate``: batch 4, a 4,096-token prompt
+   (longer than the window, so the cache roll and the window mask both
+   run), 32 new tokens; prefill must launch ``rglru_scan`` 18 times and
+   ``flash_attention`` 8 times.  One ``torch.profiler`` pass over a
+   prefill and one over a decode step.
+9. The decode ≡ prefill invariant for ``recurrentgemma-2b``: full width,
+   depth cut to 8 layers, float32 weights, at P = 64 (shorter than the
+   window) and P = 2,112 (longer).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -57,6 +69,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-4        # kernel vs plain: same rows, fp32 sums
 # rwkv6_chunked vs its plain version: the same fp32 chunk form from the
 # same inputs, its products and sums added in other orders (the plain
@@ -67,6 +80,12 @@ RW_TOL = 1e-4
 # weights: the single-step formula against the chunk form (a padded second
 # chunk), over 4 layers of width 4,096 and a 65,536-way head
 INVARIANT_TOL = 1e-3
+# flash_attention vs its plain version: the same fp32 scores and softmax
+# from the same (exactly widened) inputs, products and the online softmax's
+# rescaled partial sums added in other orders, so fp32 outputs of order 1
+# agree to ~1e-5; a bf16 output is one rounding of such a value, so the two
+# may part by one bf16 step (2^-8 relative, under 1e-2)
+FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-4)}
 
 
 def _require_card() -> None:
@@ -229,11 +248,11 @@ def check_rwkv6_kernel(ops, ref):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _profiled(label, fn):
+def _profiled(label, fn, kernels=("rwkv6_chunked",)):
     """``fn()`` once under ``torch.profiler``, closed by a synchronise:
-    its host wall time, the device time and the rwkv6_chunked kernel's
-    share of it, the device's busy share of the host wall time, and the
-    device operations by name.  Returns what ``fn`` returned."""
+    its host wall time, the device time and each of ``kernels``' share of
+    it, the device's busy share of the host wall time, and the device
+    operations by name.  Returns what ``fn`` returned."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -249,8 +268,8 @@ def _profiled(label, fn):
     if not dev:
         raise AssertionError(f"the profiler saw no device time in {label}")
     total = sum(end - start for start, end, _ in dev)
-    kernel = sum(end - start for start, end, name in dev
-                 if "rwkv6_chunked" in name)
+    shares = {k: sum(end - start for start, end, name in dev if k in name)
+              for k in kernels}
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, _ in dev:
         if cur_end is None or start > cur_end:
@@ -263,9 +282,11 @@ def _profiled(label, fn):
     for start, end, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    kernel_text = ", ".join(f"{k} {t / 1e3!r} ms (share {t / total!r})"
+                            for k, t in shares.items())
     print(f"{label} under the profiler: host wall {wall_us / 1e3!r} ms, "
           f"{len(dev)} device operations, device time {total / 1e3!r} ms, "
-          f"rwkv6_chunked {kernel / 1e3!r} ms (share {kernel / total!r}); "
+          f"{kernel_text}; "
           f"device busy {busy / 1e3!r} ms (share of the wall "
           f"{busy / wall_us!r}); top device ms by name "
           f"{json.dumps([[n[:60], round(t, 3)] for n, t in top])}")
@@ -379,6 +400,260 @@ def decode_invariant():
         raise AssertionError("invariant logits are not finite")
     torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
                                atol=INVARIANT_TOL)
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def _rglru_bound(a):
+    """Least time for one call: a and b read once, h0 read once and out
+    written once over 3.35 TB/s, against 2 fp32 operations an element over
+    67 TFLOP/s."""
+    b, s, w = a.shape
+    nbytes = 3 * b * s * w * 4 + b * w * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * s * w / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_rglru_kernel(ops, ref):
+    """Phase 3c: ``rglru_scan`` against its sequential plain version on the
+    card, at the serving shape (one RG-LRU layer's prefill of batch 4 at
+    4,096 tokens, width 2,560) with a non-zero h0, and at a ragged shape.
+    Both round a·h, then add b, one step after another: equal bit for
+    bit."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for b, s, w in [(4, 4096, 2560), (2, 13, 100)]:
+        a = 0.2 + 0.79 * torch.rand((b, s, w), generator=gen, device="cuda")
+        x = 0.5 * torch.randn((b, s, w), generator=gen, device="cuda")
+        h0 = torch.randn((b, w), generator=gen, device="cuda")
+        out = ops.rglru_scan(a, x, h0)
+        want = ref.linear_scan_ref(a, x, h0)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        if not torch.equal(out, want):
+            raise AssertionError(f"rglru_scan != its plain version at "
+                                 f"{(b, s, w)}: max_abs_err {err!r}")
+        worst = max(worst, err)
+        print(f"rglru kernel check B={b} S={s} W={w}: max_abs_err {err!r} "
+              "(bit for bit, as required)")
+        if s == 4096:
+            main = (a, x, h0)
+    a, x, h0 = main
+    ms = _time_ms(lambda: ops.rglru_scan(a, x, h0))
+    plain_ms = _time_ms(lambda: ref.linear_scan_ref(a, x, h0), reps=3)
+    bound_ms, bound_by = _rglru_bound(a)
+    print(f"rglru_scan at [4, 4096, 2560] fp32: kernel {ms!r} ms, plain "
+          f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); no PyTorch "
+          "call computes a linear recurrence with a decay per element, so "
+          "library_ms is null")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _flash_bound(q, k, causal, window, group):
+    """Least time for one call: q, k and v read once and out written once
+    over 3.35 TB/s, against 4·HD operations for every (query, key) pair
+    this call's mask leaves (two products of HD multiply-adds) over the
+    tensor-core rate of the inputs' type (bf16 989, else TF32 495
+    TFLOP/s)."""
+    from repro_torch.kernels import ref
+
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    esize = q.element_size()
+    nbytes = (2 * bh * sq * hd + 2 * (bh // group) * skv * hd) * esize
+    pairs = int(ref.attention_mask(sq, skv, causal=causal, window=window,
+                                   device=q.device).sum()) * bh
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * hd * pairs / rate * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, pairs
+
+
+def _sdpa_ms(q, k, v, causal, window, group):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the same inputs, k and v expanded to every query head and the mask
+    given as a boolean tensor."""
+    from repro_torch.kernels import ref
+
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    mask = ref.attention_mask(sq, skv, causal=causal, window=window,
+                              device=q.device)
+    qs = q.view(bh // group, group, sq, hd)
+    ks = k.view(bh // group, 1, skv, hd).expand(-1, group, -1, -1)
+    vs = v.view(bh // group, 1, skv, hd).expand(-1, group, -1, -1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), reps=10)
+
+
+def check_flash_kernel(ops, ref):
+    """Phase 3d: ``flash_attention`` against its plain version on the card:
+    at the serving shape (one local layer's prefill of batch 4 at 4,096
+    tokens: 40 query heads of 256 on 4 KV heads, window 2,048, bf16), at
+    window 0 and group 1 causal and not (the TPU kernel's function), at
+    HD 32 with a ragged Sq = Skv = 1,000, and in fp32 at HD 256."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [  # bh, sq, skv, hd, causal, window, group, dtype
+        (40, 4096, 4096, 256, True, 2048, 10, torch.bfloat16),
+        (8, 2048, 2048, 128, True, 0, 1, torch.bfloat16),
+        (8, 2048, 2048, 128, False, 0, 1, torch.bfloat16),
+        (16, 1000, 1000, 32, True, 0, 1, torch.float32),
+        (16, 1000, 1000, 32, True, 256, 4, torch.bfloat16),
+        (20, 577, 577, 256, True, 128, 10, torch.float32),
+    ]
+    worst = 0.0
+    for bh, sq, skv, hd, causal, window, group, dtype in cases:
+        q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((bh // group, skv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  group=group)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       group=group)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        rtol, atol = FA_TOL[dtype]
+        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+        worst = max(worst, err)
+        print(f"flash kernel check BH={bh} Sq={sq} Skv={skv} HD={hd} "
+              f"causal={causal} window={window} group={group} "
+              f"{str(dtype).split('.')[-1]}: max_abs_err {err!r} (rtol "
+              f"{rtol}, atol {atol})")
+        if (bh, sq) == (40, 4096):
+            main = (q, k, v, causal, window, group)
+    q, k, v, causal, window, group = main
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                              window=window, group=group),
+                  reps=10)
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window, group=group), reps=3)
+    (bound_ms, bound_by), pairs = _flash_bound(q, k, causal, window, group)
+    library_ms = _sdpa_ms(q, k, v, causal, window, group)
+    print(f"flash_attention at q [40, 4096, 256] bf16, k, v [4, 4096, 256], "
+          f"window 2048, group 10 ({pairs} query-key pairs): kernel {ms!r} "
+          f"ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}), "
+          f"scaled_dot_product_attention with a boolean mask {library_ms!r}"
+          " ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def serve_recurrentgemma(ops):
+    """Phase 8: ``recurrentgemma-2b`` at full width, bf16 weights from a
+    seed, through ``ServingEngine.generate``; returns the launch counts of
+    the measured run."""
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine, grow_caches
+
+    cfg = get_config("recurrentgemma-2b")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    kinds = cfg.layer_kinds()
+    print(f"recurrentgemma-2b: {cfg.num_layers} layers "
+          f"({kinds.count('rglru')} RG-LRU, {kinds.count('local')} local "
+          f"attention, window {cfg.local_window}), d_model {cfg.d_model}, "
+          f"{cfg.num_heads} query heads of {cfg.head_dim} on "
+          f"{cfg.num_kv_heads} KV head, lru width {cfg.lru_width}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} bf16 parameters "
+          f"({cfg.param_count()} by the config's count) drawn on the card "
+          f"in {time.perf_counter() - t0!r} s")
+    engine = ServingEngine(model, params, max_new_tokens=32)
+    batch = model.make_inputs(ShapeConfig("serve", "prefill", 4096, 4),
+                              model.generator(1))
+    warm = engine.generate(batch, new_tokens=2)
+    print(f"warm-up generate (2 new tokens): prefill "
+          f"{warm.prefill_seconds!r} s, decode {warm.decode_seconds!r} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    out = engine.generate(batch, new_tokens=32)
+    launches = {name: ops.launch_count(name) for name in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving recurrentgemma-2b, batch 4, prompt 4096, 32 new tokens: "
+          f"prefill_seconds {out.prefill_seconds!r}, decode_seconds "
+          f"{out.decode_seconds!r}, tokens_per_second "
+          f"{out.tokens_per_second!r}, peak device memory {peak} bytes; "
+          f"launches {json.dumps(launches)}")
+    if (launches["rglru_scan"], launches["flash_attention"]) != (18, 8):
+        raise AssertionError(f"prefill launched rglru_scan "
+                             f"{launches['rglru_scan']} and flash_attention "
+                             f"{launches['flash_attention']} times, not 18 "
+                             "and 8")
+    if out.tokens.shape != (4, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
+    kernels = ("rglru_scan", "flash_attention")
+    with torch.inference_mode():
+        logits, caches = _profiled(
+            "recurrentgemma-2b prefill", lambda: model.prefill(params, batch),
+            kernels)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        caches = model.prefill_to_decode(
+            grow_caches(caches, 4097, cfg.local_window))
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        logits, _ = _profiled(
+            "recurrentgemma-2b decode step",
+            lambda: model.decode_step(params, tok, caches, 4096), kernels)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("decode logits are not finite")
+    del caches, engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rg_decode_invariant():
+    """Phase 9: for ``recurrentgemma-2b`` at full width, float32 weights
+    and the depth cut to 8 layers (2 blocks and the tail), decoding token
+    x after ``prefill(P)`` gives the logits of the last position of
+    ``prefill(P ++ [x])``; P = 64 is shorter than the 2,048 window, P =
+    2,112 longer, so the cache roll runs.  Λ, the gate biases and the
+    conv bias are drawn away from their one/zero inits."""
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import grow_caches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=8,
+                              dtype="float32")
+    model = Model(cfg, device="cuda")
+    gen = model.generator(5)
+    params = model.init(gen)
+    for block in params["blocks"] + params["tail"]:
+        mix = block["mix"]
+        if "lam" in mix:
+            mix["lam"].normal_(1.0, 0.3, generator=gen)
+            for name in ("gate_a_b", "gate_x_b", "conv_b"):
+                mix[name].normal_(0.0, 0.1, generator=gen)
+    for p in (64, 2112):
+        tokens = torch.randint(0, cfg.vocab_size, (2, p + 1), generator=gen,
+                               device="cuda")
+        with torch.inference_mode():
+            _, caches = model.prefill(params, {"tokens": tokens[:, :p]})
+            caches = model.prefill_to_decode(
+                grow_caches(caches, p + 1, cfg.local_window))
+            stepped, _ = model.decode_step(params, tokens[:, p:], caches, p)
+            whole, _ = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        err = float((stepped - whole).abs().max())
+        scale = float(whole.abs().max())
+        print(f"recurrentgemma-2b decode after prefill(P) vs prefill(P ++ "
+              f"[x]) at full width, 8 layers, fp32, P={p}: max_abs_err "
+              f"{err!r} on logits up to {scale!r} (tolerance "
+              f"{INVARIANT_TOL}, relative and absolute)")
+        if not bool(torch.isfinite(whole).all()):
+            raise AssertionError("invariant logits are not finite")
+        torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
+                                   atol=INVARIANT_TOL)
     del params, caches
     torch.cuda.empty_cache()
 
@@ -545,11 +820,13 @@ def main() -> None:
         __file__)), "src"))
     from repro_torch import prng
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import rwkv6_scan, subsample_gather
+    from repro_torch.kernels import (flash_attention, rglru_scan, rwkv6_scan,
+                                     subsample_gather)
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
-    kernel_modules = (subsample_gather, rwkv6_scan)
+    kernel_modules = (subsample_gather, rwkv6_scan, rglru_scan,
+                      flash_attention)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -569,6 +846,8 @@ def main() -> None:
     # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng)
     rw_timing = check_rwkv6_kernel(ops, ref)
+    rg_timing = check_rglru_kernel(ops, ref)
+    fa_timing = check_flash_kernel(ops, ref)
 
     # phase 4 — the main path at real size
     t0 = time.perf_counter()
@@ -632,6 +911,11 @@ def main() -> None:
     rw_launches = serve_full_width(ops)
     decode_invariant()
 
+    # phase 8 — serving recurrentgemma-2b at full width; phase 9 — its
+    # decode ≡ prefill invariant
+    rg_launches = serve_recurrentgemma(ops)
+    rg_decode_invariant()
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
@@ -640,7 +924,16 @@ def main() -> None:
         "name": "rwkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:69",
-        "launches": rw_launches, "library_ms": None, **rw_timing}]}))
+        "launches": rw_launches, "library_ms": None, **rw_timing}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:47",
+        "launches": rg_launches["rglru_scan"], "library_ms": None,
+        **rg_timing}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": rg_launches["flash_attention"], **fa_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,59 @@
+"""The ``flash_attention`` Hopper kernel: build, load and launch.
+
+The kernel itself is CUDA C++ in ``csrc/flash_attention.cu`` (its header
+says what it replaces, what bounds it and how it is laid out).
+``kernels._build`` compiles it with ``nvcc`` at first use; this module
+declares its C interface and launches it on PyTorch's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import KernelLibrary
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (32, 64, 128, 256)   # the head sizes the kernel is built for
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5
+        + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = KernelLibrary(SOURCE, _declare)
+library = LIBRARY.load
+build_info = LIBRARY.info
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, group: int) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors already checked by
+    ``ops.flash_attention``: ``q [BH, Sq, HD]``, ``k, v [BH / group, Skv,
+    HD]``, one type (fp32 or bf16).  Returns ``out [BH, Sq, HD]`` in q's
+    type, allocated here, on PyTorch's current stream, without
+    synchronising."""
+    lib = library()
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            skv, hd, group, int(causal), window,
+            int(q.dtype == torch.bfloat16), stream)
+    if code != 0:
+        raise RuntimeError(
+            "flash_attention launch failed: "
+            f"{lib.flash_attention_error_string(code).decode()} "
+            f"(BH={bh}, Sq={sq}, Skv={skv}, HD={hd}, group={group}, "
+            f"causal={causal}, window={window})")
+    return out

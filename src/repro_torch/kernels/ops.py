@@ -15,11 +15,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import subsample_gather as _sg
 
-KERNELS = ("subsample_stats", "rwkv6_chunked")
+KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
+           "flash_attention")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)    # kernel launches since the reset
@@ -139,4 +142,82 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk)
     out = _rw.rwkv6_chunked(r, k, v, logw, u, state, chunk)
     _counted("rwkv6_chunked")
+    return out
+
+
+def _check_rglru(a, b, h0) -> None:
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"rglru_scan takes a, b [B, S, W] of one shape; "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if tuple(h0.shape) != (a.shape[0], a.shape[2]):
+        raise ValueError(f"h0 must be [B, W] = {(a.shape[0], a.shape[2])}, "
+                         f"got {tuple(h0.shape)}")
+    if any(t.dtype != torch.float32 for t in (a, b, h0)):
+        raise TypeError("rglru_scan takes fp32 a, b and h0; got "
+                        f"{[t.dtype for t in (a, b, h0)]}")
+    if any(t.device != a.device for t in (b, h0)):
+        raise ValueError("a, b and h0 must lie on one device")
+    if not all(t.is_contiguous() for t in (a, b, h0)):
+        raise ValueError("rglru_scan takes contiguous tensors")
+    if a.shape[1] == 0:
+        raise ValueError("rglru_scan takes S >= 1")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU linear recurrence ``h_t = a_t ⊙ h_{t−1} + b_t`` from
+    ``h_{−1} = h0``: ``a, b [B, S, W]`` and ``h0 [B, W]``, all fp32, →
+    ``[B, S, W]`` fp32.  Any ``S >= 1`` and any ``W``: the reference's
+    tiling arguments (``chunk``, ``width_block``) have no counterpart."""
+    _check_rglru(a, b, h0)
+    if not a.is_cuda:
+        return ref.linear_scan_ref(a, b, h0)
+    out = _rg.rglru_scan(a, b, h0)
+    _counted("rglru_scan")
+    return out
+
+
+def _check_flash(q, k, v, causal: bool, window: int, group: int) -> None:
+    if q.dim() != 3 or k.dim() != 3 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError("flash_attention takes q [BH, Sq, HD] and k, v "
+                         "[BH / group, Skv, HD]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, sq, hd = q.shape
+    if group < 1 or bh % group or k.shape[0] != bh // group:
+        raise ValueError(f"{bh} query heads in groups of {group} need "
+                         f"{bh // max(group, 1)} key/value heads, got "
+                         f"{k.shape[0]}")
+    if k.shape[2] != hd:
+        raise ValueError(f"q has HD {hd}, k and v {k.shape[2]}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.dtype not in _FLOATS or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError("q, k and v take one type, fp32 or bf16; got "
+                        f"{[t.dtype for t in (q, k, v)]}")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("q, k and v must lie on one device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention takes contiguous tensors")
+    if q.is_cuda and hd not in _fa.HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes HD in {_fa.HEAD_DIMS}, "
+                         f"got {hd}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    group: int = 1) -> torch.Tensor:
+    """Softmax attention: ``q [BH, Sq, HD]``, ``k, v [BH / group, Skv,
+    HD]`` (fp32 or bf16, one type) → ``[BH, Sq, HD]`` in q's type.  Query
+    head ``bh`` reads key/value head ``bh // group``; key ``j`` is seen by
+    query ``i`` when ``j <= i`` (if ``causal``) and ``i − j < window`` (if
+    ``window`` > 0).  Any ``Sq`` and ``Skv``: the reference's tiling
+    arguments (``block_q``, ``block_k``) have no counterpart."""
+    _check_flash(q, k, v, causal, window, group)
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       group=group)
+    out = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                              group=group)
+    _counted("flash_attention")
     return out

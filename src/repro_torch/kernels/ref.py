@@ -8,6 +8,8 @@ the CPU the wrapper can run this version instead.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -115,3 +117,57 @@ def rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk: int):
                                 logw[:, :, part], u, state)
         outs.append(out)
     return torch.cat(outs, dim=2), state
+
+
+def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t ⊙ h_{t−1} + b_t`` from ``h_{−1} = h0``, one step after
+    another in fp32: ``a, b [B, S, W]``, ``h0 [B, W]`` → ``[B, S, W]`` fp32.
+    Each step rounds the product before the sum, as the ``rglru_scan``
+    kernel does, so the two agree bit for bit.  The reference's
+    ``ref.linear_scan_ref`` computes the same recurrence as an associative
+    scan, whose other order of operations agrees to rounding."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty_like(af)
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window: int,
+                   device=None) -> torch.Tensor:
+    """``[Sq, Skv]`` bool: key ``j`` is seen by query ``i`` when
+    ``j <= i`` (if causal) and ``i − j < window`` (if ``window`` > 0)."""
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= (i - j) < window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        group: int = 1) -> torch.Tensor:
+    """Plain masked softmax attention in fp32: ``q [BH, Sq, HD]``, ``k, v
+    [BH / group, Skv, HD]`` → ``[BH, Sq, HD]`` in q's type.  Query head
+    ``bh`` reads key/value head ``bh // group``; the mask is
+    :func:`attention_mask`, applied as a score of −1e30 (the reference's
+    ``ref.flash_attention_ref``).  A query row that sees no key at all
+    (only when ``Sq > Skv + window − 1``) gives zeros, as the kernel does,
+    where a −1e30 row would average every value."""
+    _, sq, hd = q.shape
+    skv = k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bid,bjd->bij", q.float(), kf) * scale
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device)
+    s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1) * mask.any(dim=1)[None, :, None]
+    return torch.einsum("bij,bjd->bid", p, vf).to(q.dtype)

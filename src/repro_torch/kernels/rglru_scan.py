@@ -1,0 +1,53 @@
+"""The ``rglru_scan`` Hopper kernel: build, load and launch.
+
+The kernel itself is CUDA C++ in ``csrc/rglru_scan.cu`` (its header says
+what it replaces, what bounds it and how it is laid out).
+``kernels._build`` compiles it with ``nvcc`` at first use; this module
+declares its C interface and launches it on PyTorch's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import KernelLibrary
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.rglru_scan_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+    lib.rglru_scan_launch.restype = ctypes.c_int
+    lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_scan_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = KernelLibrary(SOURCE, _declare)
+library = LIBRARY.load
+build_info = LIBRARY.info
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors already checked by
+    ``ops.rglru_scan``: ``a, b [B, S, W]`` and ``h0 [B, W]``, all fp32.
+    Returns ``out [B, S, W]`` fp32 allocated here, on PyTorch's current
+    stream, without synchronising."""
+    lib = library()
+    bsz, s, w = a.shape
+    out = torch.empty((bsz, s, w), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        code = lib.rglru_scan_launch(a.data_ptr(), b.data_ptr(),
+                                     h0.data_ptr(), out.data_ptr(), bsz, s,
+                                     w, stream)
+    if code != 0:
+        raise RuntimeError(
+            f"rglru_scan launch failed: "
+            f"{lib.rglru_scan_error_string(code).decode()} "
+            f"(B={bsz}, S={s}, W={w})")
+    return out

@@ -1,21 +1,40 @@
-"""Shared layer primitives, the part RWKV6 needs: RMS norm, embedding and
-the LM head (the reference's ``repro.models.layers``).
+"""Shared layer primitives (the reference's ``repro.models.layers``): RMS
+norm, RoPE, causal and sliding-window attention with its decode cache, the
+gated MLP, embedding and the LM head.
 
 Parameters are nested dicts of tensors made from ``ParamDef`` trees
 (``repro_torch.parallel.sharding``).  Activations keep the reference's
-layouts: tokens ``[B, S]`` int, hidden ``[B, S, D]`` in the model's dtype.
-Attention, RoPE, the MLP and cross-entropy come with the RecurrentGemma
-slice.
+layouts:
+
+  tokens      [B, S]              int
+  hidden      [B, S, D]           the model's dtype
+  q           [B, S, KV, G, HD]   (GQA grouping explicit)
+  k, v        [B, S, KV, HD]
+  KV cache    [B, S_max, KV, HD]  (a rolling buffer of the window for LOCAL)
+
+Prefill attention runs through ``kernels.ops.flash_attention``: the
+hand-written CUDA kernel on the card, its plain version on the CPU.  The
+kernel keeps the softmax probabilities in fp32 where the reference's
+``_attend_block`` rounds them to v's type before the product with v.
+Decode attention is torch ops over the cache, as in the reference.  The
+int8 KV cache (``transformer.check_supported`` refuses it) and
+cross-entropy wait for later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.parallel.sharding import EMBED, HEADS, REPL, VOCAB, ParamDef
+from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import (
+    BATCH, EMBED, HEADS, KV_SEQ, REPL, VOCAB, ParamDef,
+)
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -33,6 +52,161 @@ def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)                       # [HD/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, ..., HD]; positions [S] or [B, S]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                # [HD/2]
+    if positions.dim() == 1:
+        positions = positions[None, :]                     # [1, S]
+    angles = positions[..., None].float() * freqs          # [B?,S,HD/2]
+    for _ in range(x.dim() - 3):                           # head dims
+        angles = angles[:, :, None]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (causal / sliding-window prefill, decode against a cache)
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    defs = {
+        "wq": ParamDef((d, qd), (EMBED, HEADS)),
+        "wk": ParamDef((d, kvd), (EMBED, HEADS)),
+        "wv": ParamDef((d, kvd), (EMBED, HEADS)),
+        "wo": ParamDef((qd, d), (HEADS, EMBED)),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((qd,), (HEADS,), init="zeros")
+        defs["bk"] = ParamDef((kvd,), (HEADS,), init="zeros")
+        defs["bv"] = ParamDef((kvd,), (HEADS,), init="zeros")
+    return defs
+
+
+def _qkv(cfg: ModelConfig, params, x: torch.Tensor):
+    b, s, _ = x.shape
+    kv, g, hd = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                 cfg.head_dim)
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    return (q.reshape(b, s, kv, g, hd), k.reshape(b, s, kv, hd),
+            v.reshape(b, s, kv, hd))
+
+
+def attention_apply(
+    cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor, *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal (optionally windowed) self-attention for prefill, through the
+    ``flash_attention`` kernel.  Returns (output [B,S,D], cache {k, v}):
+    the full-sequence K/V, which *is* the prefill KV cache."""
+    b, s, _ = x.shape
+    kv, g, hd = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                 cfg.head_dim)
+    q, k, v = _qkv(cfg, params, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    # heads first: q [B·KV·G, S, HD] reads k, v [B·KV, S, HD] in groups of G
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, hd)
+    kh = k.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    vh = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    out = ops.flash_attention(qh, kh, vh, causal=True, window=window,
+                              group=g)
+    out = out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, s, cfg.q_dim) @ params["wo"]
+    return out, {"k": k, "v": v}
+
+
+def attention_decode(
+    cfg: ModelConfig, params, x: torch.Tensor,
+    cache: Dict[str, torch.Tensor], pos: int, *, window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode.  x [B,1,D]; cache k/v [B,S_max,KV,HD]; ``pos``
+    the current length.  For windowed layers the cache is a rolling buffer
+    written at ``pos % window``; slots past the write are masked until the
+    buffer has wrapped.  The cache is not written in place: the new one is
+    returned, as the reference's is."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"attention_decode takes one token, got {s}")
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k, v = _qkv(cfg, params, x)
+    where = torch.tensor([pos], device=x.device)
+    q = apply_rope(q, where, cfg.rope_theta)
+    k = apply_rope(k, where, cfg.rope_theta)
+
+    s_max = cache["k"].shape[1]
+    write_at = pos % window if window else pos
+    if write_at >= s_max:
+        raise ValueError(f"decode writes slot {write_at} of a {s_max}-slot "
+                         "cache: grow it first (serving.grow_caches)")
+    ck = cache["k"].clone()
+    cv = cache["v"].clone()
+    ck[:, write_at] = k[:, 0].to(ck.dtype)
+    cv[:, write_at] = v[:, 0].to(cv.dtype)
+
+    scores = torch.einsum("bikgd,bjkd->bkgj", q.float(), ck.float()) * scale
+    slot = torch.arange(s_max, device=x.device)
+    if window:
+        valid = (slot <= write_at) | (pos >= window)
+    else:
+        valid = slot <= pos
+    scores = torch.where(valid[None, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgj,bjkd->bkgd", probs.to(cv.dtype), cv)
+    out = out.reshape(b, 1, cfg.q_dim) @ params["wo"]
+    return out, {"k": ck, "v": cv}
+
+
+def attention_cache_defs(cfg: ModelConfig, batch: int, seq: int,
+                         dtype=None) -> Dict[str, ParamDef]:
+    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    logical = (BATCH, KV_SEQ, None, None)
+    return {"k": ParamDef(shape, logical, dtype=dtype, init="zeros"),
+            "v": ParamDef(shape, logical, dtype=dtype, init="zeros")}
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(d: int, ff: int) -> Dict[str, ParamDef]:
+    return {
+        "wi": ParamDef((d, ff), (EMBED, HEADS)),
+        "wg": ParamDef((d, ff), (EMBED, HEADS)),
+        "wd": ParamDef((ff, d), (HEADS, EMBED)),
+    }
+
+
+def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+    h = (x @ params["wi"]) * F.silu(x @ params["wg"])
+    return h @ params["wd"]
 
 
 # ---------------------------------------------------------------------------

@@ -69,18 +69,20 @@ class Model:
         """tokens [B,S] → (last-token logits [B,V] fp32, caches)."""
         cfg = self.cfg
         h = T.embed_inputs(cfg, params, batch, self.dtype)
-        x, caches = T.forward(cfg, params, h, caches=None, mode="prefill")
+        positions = torch.arange(h.shape[1], device=h.device)
+        x, caches = T.forward(cfg, params, h, caches=None, mode="prefill",
+                              positions=positions)
         logits = L.head_apply(cfg, params["embed"], x[:, -1:])[:, 0]
         return logits, caches
 
     def decode_step(self, params, tokens: torch.Tensor, caches, pos: int):
         """tokens [B,1], ``pos`` the current length (read by attention
-        caches; RWKV layers carry their state) → (logits [B,V] fp32, new
-        caches)."""
+        layers; recurrent layers carry their state) → (logits [B,V] fp32,
+        new caches)."""
         cfg = self.cfg
         h = L.embed_apply(cfg, params["embed"], tokens, self.dtype)
         x, new_caches = T.forward(cfg, params, h, caches=caches,
-                                  mode="decode")
+                                  mode="decode", pos=int(pos))
         logits = L.head_apply(cfg, params["embed"], x)[:, 0]
         return logits, new_caches
 

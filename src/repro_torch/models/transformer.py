@@ -1,44 +1,44 @@
 """Decoder assembly (the reference's ``repro.models.transformer``), for
-the layer kinds the port has: RWKV6.
+the layer kinds the port has: RWKV6, RG-LRU and local (sliding-window)
+attention, each RG-LRU and local layer with the dense gated MLP.
 
 Layer stacks keep the reference's organisation: ``prefix`` (unrolled
 leading layers) + ``blocks`` (homogeneous pattern units whose parameters
 are stacked ``[n_blocks, ...]``, so that weights carry across one to one)
-+ ``tail`` (the unrolled pattern remainder).  The reference scans the
-blocks with ``lax.scan``; the port loops over the block index in Python.
++ ``tail`` (the unrolled pattern remainder, e.g. RecurrentGemma's
+26 = 8·(R,R,L) + 2·R).  The reference scans the blocks with ``lax.scan``;
+the port loops over the block index in Python.
 
 Modes:
-  prefill  — full sequence, returns per-layer caches (recurrent state)
-  decode   — one token against caches
+  prefill  — full sequence, returns per-layer caches (KV / recurrent state)
+  decode   — one token against caches (``pos`` = current length)
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import LAYERS, ParamDef
 from repro_torch.tree import tree_map
 
 _NOT_PORTED = {
-    LOCAL: "local attention comes with the RecurrentGemma-2B slice "
-           "(ROADMAP Queue 1, next item 1)",
-    RGLRU: "the RG-LRU block comes with the RecurrentGemma-2B slice "
-           "(ROADMAP Queue 1, next item 1)",
-    ATTN: "full attention comes with the LM substrate (ROADMAP Queue 1, "
-          "item 11)",
+    ATTN: "full attention comes with the dense models (ROADMAP Queue 1, "
+          "next item 2)",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet,
-    naming the ROADMAP slice that ports what it lacks."""
-    for kind in sorted(set(cfg.layer_kinds())):
+    naming the ROADMAP item that ports what it lacks."""
+    kinds = set(cfg.layer_kinds())
+    for kind in sorted(kinds):
         if kind in _NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
     if cfg.family == "moe":
@@ -49,6 +49,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the patch frontend comes "
                                   "with the LM substrate (ROADMAP Queue 1, "
                                   "item 11)")
+    if LOCAL in kinds and cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(f"{cfg.name}: the int8 KV cache comes "
+                                  "after full attention (ROADMAP Queue 1, "
+                                  "next item 3)")
 
 
 # ---------------------------------------------------------------------------
@@ -58,14 +62,29 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def layer_defs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
     check_supported(cfg)
+    kind = cfg.layer_kind(layer_idx)
     d = cfg.d_model
-    return {"ln1": L.rms_norm_defs(d), "ln2": L.rms_norm_defs(d),
-            "mix": RW.time_mix_defs(cfg), "ffn": RW.channel_mix_defs(cfg)}
+    defs: Dict[str, Any] = {"ln1": L.rms_norm_defs(d),
+                            "ln2": L.rms_norm_defs(d)}
+    if kind == RWKV:
+        defs["mix"] = RW.time_mix_defs(cfg)
+        defs["ffn"] = RW.channel_mix_defs(cfg)
+        return defs
+    defs["mix"] = (RG.rglru_defs(cfg) if kind == RGLRU
+                   else L.attention_defs(cfg))
+    defs["ffn"] = L.mlp_defs(d, cfg.d_ff)
+    return defs
 
 
 def layer_cache_defs(cfg: ModelConfig, layer_idx: int, batch: int,
                      seq: int, cache_dtype=None) -> Dict[str, Any]:
     check_supported(cfg)
+    kind = cfg.layer_kind(layer_idx)
+    if kind == LOCAL:
+        w = min(cfg.local_window or seq, seq)
+        return L.attention_cache_defs(cfg, batch, w, cache_dtype)
+    if kind == RGLRU:
+        return RG.rglru_state_defs(cfg, batch)
     return RW.state_defs(cfg, batch)
 
 
@@ -154,28 +173,58 @@ def prefill_to_decode_caches(cfg: ModelConfig, caches):
 
 
 def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
-                cache, mode: str) -> Tuple[torch.Tensor, Any]:
+                positions: Optional[torch.Tensor], cache, mode: str,
+                pos: Optional[int]) -> Tuple[torch.Tensor, Any]:
     """Returns (x, new_cache).  The mixture-of-experts auxiliary loss of
     the reference comes with the MoE layers."""
-    if kind != RWKV:
-        raise NotImplementedError(_NOT_PORTED.get(kind, kind))
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[kind])
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
-    fn = RW.time_mix_decode if mode == "decode" else RW.time_mix_apply
-    state = cache if cache is not None else _zero_state(cfg, x.shape[0],
-                                                        x.device)
-    mix_out, new_cache = fn(cfg, params["mix"], h, state)
+    decode = mode == "decode"
+
+    if kind == LOCAL:
+        window = cfg.local_window
+        if decode:
+            mix_out, new_cache = L.attention_decode(
+                cfg, params["mix"], h, cache, pos, window=window)
+        else:
+            mix_out, new_cache = L.attention_apply(
+                cfg, params["mix"], h, positions, window=window)
+            s = h.shape[1]
+            if window and window < s:
+                # roll the tail of the sequence into the circular buffer
+                slots = torch.arange(s - window, s, device=x.device) % window
+                rolled = {}
+                for n in ("k", "v"):
+                    buf = torch.zeros_like(new_cache[n][:, :window])
+                    buf[:, slots] = new_cache[n][:, -window:]
+                    rolled[n] = buf
+                new_cache = rolled
+    else:
+        state = cache if cache is not None else _zero_state(
+            cfg, kind, x.shape[0], x.device)
+        if kind == RGLRU:
+            fn = RG.rglru_decode if decode else RG.rglru_apply
+        else:
+            fn = RW.time_mix_decode if decode else RW.time_mix_apply
+        mix_out, new_cache = fn(cfg, params["mix"], h, state)
     x = x + mix_out.to(x.dtype)
 
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
-    ffn_out, new_cache = RW.channel_mix_apply(
-        cfg, params["ffn"], h, new_cache, mode == "decode")
+    if kind == RWKV:
+        ffn_out, new_cache = RW.channel_mix_apply(
+            cfg, params["ffn"], h, new_cache, decode)
+    else:
+        ffn_out = L.mlp_apply(params["ffn"], h)
     return x + ffn_out.to(x.dtype), new_cache
 
 
-def _zero_state(cfg: ModelConfig, batch: int, device: torch.device):
+def _zero_state(cfg: ModelConfig, kind: str, batch: int,
+                device: torch.device):
+    defs = (RG.rglru_state_defs(cfg, batch) if kind == RGLRU
+            else RW.state_defs(cfg, batch))
     return tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
-                                          device=device),
-                    RW.state_defs(cfg, batch))
+                                          device=device), defs)
 
 
 # ---------------------------------------------------------------------------
@@ -184,8 +233,11 @@ def _zero_state(cfg: ModelConfig, batch: int, device: torch.device):
 
 
 def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
-            mode: str) -> Tuple[torch.Tensor, Any]:
-    """hidden [B,S,D] → (hidden after the final norm, new caches)."""
+            mode: str, positions: Optional[torch.Tensor] = None,
+            pos: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    """hidden [B,S,D] → (hidden after the final norm, new caches).
+    ``positions [S]`` are the prefill's token positions, ``pos`` the
+    decode step's (the current length); attention layers read them."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r}: the training forward "
                                   "comes with the LM substrate (ROADMAP "
@@ -197,7 +249,7 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
     for j, i in enumerate(plan.prefix):
         c = None if caches is None else caches["prefix"][j]
         x, nc = layer_apply(cfg, cfg.layer_kind(i), params["prefix"][j], x,
-                            cache=c, mode=mode)
+                            positions=positions, cache=c, mode=mode, pos=pos)
         new_prefix.append(nc)
 
     per_block = []
@@ -211,7 +263,8 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
                 c = caches["blocks_flat"][bi][p]
             else:
                 c = tree_map(lambda t: t[bi], caches["blocks"][p])
-            x, nc = layer_apply(cfg, kind, bp, x, cache=c, mode=mode)
+            x, nc = layer_apply(cfg, kind, bp, x, positions=positions,
+                                cache=c, mode=mode, pos=pos)
             ncs.append(nc)
         per_block.append(ncs)
 
@@ -219,7 +272,7 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
     for j, i in enumerate(plan.tail):
         c = None if caches is None else caches["tail"][j]
         x, nc = layer_apply(cfg, cfg.layer_kind(i), params["tail"][j], x,
-                            cache=c, mode=mode)
+                            positions=positions, cache=c, mode=mode, pos=pos)
         new_tail.append(nc)
 
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

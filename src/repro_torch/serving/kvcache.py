@@ -5,7 +5,14 @@ Prefill produces caches sized exactly to the prompt; decode needs head-room
 for generated tokens.  ``grow_caches`` pads every *sequence-indexed* cache
 (attention k/v, ``[.., B, S, KV, HD]``) to the target length with zeros;
 recurrent states (RWKV wkv/shift, RG-LRU h/conv) are fixed-size and pass
-through, as do windowed (local-attention) rolling buffers.
+through.  With a ``window`` (a model whose attention layers are all
+local), a cache grows to ``min(window, target_len)``: the rolling buffer
+that decode writes at ``pos % window``.
+
+This differs from the reference, whose windowed buffer stays at its prompt
+length ``s`` whenever ``s <= window``: decode then writes slot ``s`` past
+the end of the buffer, which ``dynamic_update_slice`` clamps onto slot
+``s − 1``, the last prompt token's K/V (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ def _grow_leaf(path, leaf: torch.Tensor, target_len: int,
     if not any(key in path for key in _SEQ_KEYS):
         return leaf
     # attention cache [.., B, S, KV, HD] (leading stacked-layer dim
-    # possible); window buffers stay at window length
+    # possible); window buffers grow up to the window's length
     seq_axis = leaf.dim() - 3
     s = leaf.shape[seq_axis]
-    if (window and s <= window) or s >= target_len:
+    if window:
+        target_len = min(window, target_len)
+    if s >= target_len:
         return leaf
     pad = [0, 0] * (leaf.dim() - seq_axis - 1) + [0, target_len - s]
     return F.pad(leaf, pad)

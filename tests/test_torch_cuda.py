@@ -127,3 +127,99 @@ def test_rwkv6_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         ops.rwkv6_chunked(r, k, v, logw, u, chunk=chunk)
     assert ops.launch_count("rwkv6_chunked") == before
+
+
+# -- rglru_scan --------------------------------------------------------------
+
+
+def _scan_inputs(b, s, w, seed, device):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.2, 0.99, (b, s, w)).astype(np.float32)
+    bb = (0.5 * rng.standard_normal((b, s, w))).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (a, bb, h0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", [(4, 512, 2560), (2, 13, 100), (1, 1, 7),
+                                   (3, 67, 64)])
+def test_rglru_kernel_equals_plain_version(cuda, b, s, w):
+    """Both round a·h, then add b, step by step: equal bit for bit."""
+    a, bb, h0 = _scan_inputs(b, s, w, b + s + w, cuda)
+    before = ops.launch_count("rglru_scan")
+    out = ops.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert ops.launch_count("rglru_scan") == before + 1
+    assert torch.equal(out, ref.linear_scan_ref(a, bb, h0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["bf16", "strided"])
+def test_rglru_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    a, bb, h0 = _scan_inputs(2, 16, 32, 0, cuda)
+    if bad == "bf16":
+        a = a.to(torch.bfloat16)
+    else:
+        a = torch.cat([a, a], dim=-1)[..., :32]
+    before = ops.launch_count("rglru_scan")
+    with pytest.raises((ValueError, TypeError)):
+        ops.rglru_scan(a, bb, h0)
+    assert ops.launch_count("rglru_scan") == before
+
+
+# -- flash_attention ---------------------------------------------------------
+
+# The kernel and its plain version compute the same fp32 scores and softmax
+# from the same inputs (bf16 inputs are widened exactly), but add the
+# products and the online softmax's rescaled partial sums in other orders:
+# fp32 outputs of order 1 agree to ~1e-5; a bf16 output is one rounding of
+# such a value, so the two may differ by one bf16 ulp (2^-8 relative).
+FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _attn_inputs(bh, sq, skv, hd, group, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((bh, sq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((bh // group, skv, hd)).astype(np.float32)
+            for _ in range(2))
+    return tuple(torch.from_numpy(x).to(device, dtype) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,hd,causal,window,group,dtype", [
+    (20, 300, 300, 256, True, 128, 10, torch.bfloat16),  # the model's form
+    (4, 256, 256, 64, True, 0, 1, torch.float32),        # the TPU function
+    (4, 256, 256, 64, False, 0, 1, torch.bfloat16),      # not causal
+    (6, 100, 100, 32, True, 16, 3, torch.float32),       # HD 32, ragged
+    (2, 70, 150, 128, True, 0, 2, torch.float32),        # Sq < Skv
+    (3, 1, 1, 256, True, 0, 1, torch.float32),           # one token
+])
+def test_flash_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
+                                            window, group, dtype):
+    q, k, v = _attn_inputs(bh, sq, skv, hd, group, dtype, bh + sq + hd, cuda)
+    before = ops.launch_count("flash_attention")
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              group=group)
+    torch.cuda.synchronize()
+    assert ops.launch_count("flash_attention") == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   group=group)
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd48", "strided", "group"])
+def test_flash_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    hd = 48 if bad == "hd48" else 64
+    q, k, v = _attn_inputs(4, 32, 32, hd, 1, torch.float32, 0, cuda)
+    kwargs = {}
+    if bad == "strided":
+        q = torch.cat([q, q], dim=-1)[..., :hd]
+    elif bad == "group":
+        kwargs["group"] = 3
+    before = ops.launch_count("flash_attention")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, **kwargs)
+    assert ops.launch_count("flash_attention") == before

@@ -245,7 +245,7 @@ def test_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-72b", "deepseek-7b", "arctic-480b",
                                   "deepseek-moe-16b", "llava-next-34b",
-                                  "musicgen-medium", "recurrentgemma-2b"])
+                                  "musicgen-medium"])
 def test_unported_arch_raises_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch), device="cpu")
