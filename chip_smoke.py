@@ -6,14 +6,15 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the four CUDA kernels from ``src/repro_torch``
-   (``subsample_stats``, ``rwkv6_chunked``, ``rglru_scan`` and
-   ``flash_attention``), one nvcc each, started together, and prints
-   ptxas' registers, shared memory and spills.
+2. Builds the five CUDA kernels from ``src/repro_torch``
+   (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
+   ``rglru_scan`` and ``flash_attention``), one nvcc each, started
+   together, and prints ptxas' registers, shared memory and spills.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
-   PyTorch call computes the same function, that call.
+   PyTorch call computes the same function, that call (``index_select``
+   beside ``subsample_gather`` is a floor for its gather alone).
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -22,7 +23,10 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    each stage of one wave, and the per-task path's block build and
    upload, on the host; and reruns the job traced (telemetry and
    ``torch.profiler``) for each wave's host time inside the job and the
-   device's busy share.
+   device's busy share.  Then it drives ``ops.subsample_gather`` on one
+   real 64-movie block of that catalogue with the 512 rows a task draws,
+   the launch counts zeroed just before and read just after, and holds
+   its stats against ``ops.subsample_stats`` on the same block and rows.
 5. Reruns that job per task (``wave="off"``) and asserts the result is
    bit-identical; runs a 512-movie job on the threaded and the simulated
    backend and asserts they are bit-identical and agree with a float64
@@ -168,6 +172,108 @@ def check_kernel(ops, ref, prng):
           "is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _gather_bound(data: torch.Tensor, idx: torch.Tensor, n_valid: int):
+    """Least time for one ``subsample_gather`` call: the distinct rows this
+    run's indices touch read once, the indices and n_valid read once, the
+    ``[T, D]`` gathered rows and the ``[2, D]`` stats written once, over
+    3.35 TB/s; against 3 fp32 operations for every element of the rows
+    that count, over 67 TFLOP/s."""
+    _, d = data.shape
+    t = idx.shape[0]
+    esize = data.element_size()
+    rows = int(torch.unique(idx).numel())
+    nbytes = rows * d * esize + t * 4 + 4 + t * d * esize + 2 * d * 4
+    flops = 3.0 * min(max(n_valid, 0), t) * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_gather_kernel(ops, ref):
+    """Phase 3e: ``subsample_gather`` against its plain version on the
+    card, gathered rows and stats equal bit for bit: at the main path's
+    shape (one moments task's block, 64 movies wide, padded to 65,536
+    ratings, 8 draws x 64 rows) in fp32 and bf16, with a masked padded
+    tail (T = 13, n_valid = 9), at T = 1, and at D = 1,030 (scalar
+    loads)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [  # n, d, t, n_valid, dtype
+        (64, 65536, 512, 512, torch.float32),     # the main path's shape
+        (64, 65536, 512, 512, torch.bfloat16),
+        (40, 96, 13, 9, torch.float32),            # masked padded tail
+        (40, 96, 13, 9, torch.bfloat16),
+        (64, 4096, 1, 1, torch.float32),           # T = 1
+        (17, 1030, 21, 21, torch.float32),         # D % 4 != 0: scalar
+        (17, 1030, 21, 15, torch.bfloat16),
+    ]
+    worst = 0.0
+    for n, d, t, n_valid, dtype in cases:
+        data = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, n, (t,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        nv = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+        gathered, stats = ops._subsample_gather_padded(data, idx, nv)
+        want_g, want_s = ref.subsample_gather_ref(data, idx, nv)
+        torch.cuda.synchronize()
+        err = float((stats - want_s).abs().max())
+        if not (torch.equal(gathered, data[idx.long()])
+                and torch.equal(gathered, want_g)
+                and torch.equal(stats, want_s)):
+            raise AssertionError(
+                f"subsample_gather != its plain version at {(n, d, t)} "
+                f"n_valid={n_valid} {dtype}: stats max_abs_err {err!r}")
+        worst = max(worst, err)
+        print(f"gather kernel check N={n} D={d} T={t} n_valid={n_valid} "
+              f"{str(dtype).split('.')[-1]}: gathered == data[idx] and "
+              f"stats == plain bit for bit (max_abs_err {err!r})")
+        if (d, t, dtype) == (65536, 512, torch.float32):
+            main = (data, idx, nv)
+    data, idx, nv = main
+    ms = _time_ms(lambda: ops._subsample_gather_padded(data, idx, nv))
+    plain_ms = _time_ms(lambda: ref.subsample_gather_ref(data, idx, nv),
+                        reps=3)
+    bound_ms, bound_by = _gather_bound(data, idx, int(nv[0]))
+    idx_long = idx.long()
+    select_ms = _time_ms(lambda: torch.index_select(data, 0, idx_long))
+    print(f"subsample_gather at [64, 65536] fp32, T=512: kernel {ms!r} ms, "
+          f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
+          f"torch.index_select alone {select_ms!r} ms (a floor for the "
+          "gather without the stats); no single PyTorch call computes "
+          "gathered rows and stats, so library_ms is null")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def netflix_block_gather(ops, prng, block: np.ndarray) -> int:
+    """Step 4's gather path: ``ops.subsample_gather`` on one real task
+    block of the catalogue with the 512 rows the wave draws for seed 0,
+    the launch counts zeroed just before and read just after.  Its stats
+    must be ``allclose`` to ``ops.subsample_stats`` on the same block and
+    rows (only the order of summation differs) and its rows equal
+    ``block[idx]``.  Returns the launch count."""
+    data = torch.from_numpy(block).to("cuda")
+    seeds = torch.zeros(1, dtype=torch.int32, device="cuda")
+    idx = prng.randint(prng.PRNGKey(seeds), (512,), 0, data.shape[0])
+    ops.reset_launch_count()
+    gathered, stats = ops.subsample_gather(data, idx[0])
+    launches = ops.launch_count("subsample_gather")
+    want = ops.subsample_stats(data[None], idx)[0]
+    torch.cuda.synchronize()
+    err = float((stats - want).abs().max())
+    print(f"netflix block {tuple(data.shape)} {data.dtype}, T=512: "
+          f"subsample_gather launches {launches}; stats vs subsample_stats "
+          f"max_abs_err {err!r} (rtol {RTOL}, atol {ATOL}), gathered == "
+          f"block[idx] {torch.equal(gathered, data[idx[0].long()])}")
+    if launches < 1:
+        raise AssertionError("the gather path launched no subsample_gather "
+                             "kernel")
+    if not torch.equal(gathered, data[idx[0].long()]):
+        raise AssertionError("subsample_gather rows != block[idx]")
+    torch.testing.assert_close(stats, want, rtol=RTOL, atol=ATOL)
+    return launches
 
 
 def _rwkv6_inputs(b, h, s, hd, gen, dtype=torch.bfloat16):
@@ -825,18 +931,19 @@ def main() -> None:
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
-    kernel_modules = (subsample_gather, rwkv6_scan, rglru_scan,
-                      flash_attention)
+    libraries = (subsample_gather.LIBRARY, subsample_gather.GATHER_LIBRARY,
+                 rwkv6_scan.LIBRARY, rglru_scan.LIBRARY,
+                 flash_attention.LIBRARY)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernel_modules)) as pool:
-        for fut in [pool.submit(m.library) for m in kernel_modules]:
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libraries]:
             fut.result()
     print(f"kernel libraries ready in {time.perf_counter() - t0!r} s")
-    for mod in kernel_modules:
-        info = mod.build_info
-        print(f"  {mod.SOURCE.name}: nvcc {info['seconds']!r} s, "
+    for lib in libraries:
+        info = lib.info
+        print(f"  {lib.source.name}: nvcc {info['seconds']!r} s, "
               f"{info['path']}")
         for line in info["log"].splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -848,6 +955,7 @@ def main() -> None:
     rw_timing = check_rwkv6_kernel(ops, ref)
     rg_timing = check_rglru_kernel(ops, ref)
     fa_timing = check_flash_kernel(ops, ref)
+    sg_timing = check_gather_kernel(ops, ref)
 
     # phase 4 — the main path at real size
     t0 = time.perf_counter()
@@ -877,6 +985,11 @@ def main() -> None:
                  lambda: pc.build_block(samples, months, ids, range(64), 64,
                                         longest))
     traced_wave_run(Platform, _spec(samples), samples, months, MOMENTS)
+    block, _ = pc.build_block(samples, months, ids, range(64), 64, longest)
+    if block.shape != (64, n_cols):
+        raise AssertionError(f"task block {block.shape} != (64, {n_cols})")
+    sg_launches = netflix_block_gather(ops, prng, block)
+    del block
 
     # phase 5 — invariants on the card
     t0 = time.perf_counter()
@@ -933,7 +1046,11 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": rg_launches["flash_attention"], **fa_timing}]}))
+        "launches": rg_launches["flash_attention"], **fa_timing}, {
+        "name": "subsample_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
+        "replaces": "src/repro/kernels/subsample_gather.py:64",
+        "launches": sg_launches, "library_ms": None, **sg_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

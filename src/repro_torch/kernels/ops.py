@@ -22,7 +22,7 @@ from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import subsample_gather as _sg
 
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
-           "flash_attention")
+           "flash_attention", "subsample_gather")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)    # kernel launches since the reset
@@ -88,6 +88,57 @@ def subsample_stats(data: torch.Tensor, indices: torch.Tensor, *,
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check_subsample_gather(data: torch.Tensor, indices: torch.Tensor,
+                            n_valid: torch.Tensor) -> None:
+    if data.dim() != 2 or indices.dim() != 1:
+        raise ValueError(
+            "subsample_gather takes data [N, D] and indices [T]; got "
+            f"{tuple(data.shape)} and {tuple(indices.shape)}")
+    if tuple(n_valid.shape) != (1,):
+        raise ValueError(f"n_valid must be [1], got {tuple(n_valid.shape)}")
+    if data.dtype not in _FLOATS:
+        raise TypeError(
+            f"subsample_gather takes fp32 or bf16 data, got {data.dtype}")
+    if indices.dtype != torch.int32 or n_valid.dtype != torch.int32:
+        raise TypeError("subsample_gather takes int32 indices and n_valid; "
+                        f"got {indices.dtype} and {n_valid.dtype}")
+    if indices.device != data.device or n_valid.device != data.device:
+        raise ValueError(f"data on {data.device}, indices on "
+                         f"{indices.device}, n_valid on {n_valid.device}")
+    if not all(t.is_contiguous() for t in (data, indices, n_valid)):
+        raise ValueError("subsample_gather takes contiguous tensors")
+    if indices.numel() and data.shape[0] == 0:
+        raise ValueError("subsample_gather has indices but no data rows")
+
+
+def _subsample_gather_padded(data: torch.Tensor, indices: torch.Tensor,
+                             n_valid: torch.Tensor):
+    """The TPU kernel's own contract: ``data [N, D]`` fp32 or bf16,
+    ``indices [T]`` int32 and ``n_valid [1]`` int32 (on the data's device)
+    → ``(gathered [T, D]`` in the data's type``, stats [2, D]`` fp32``)``.
+    Every row is gathered; only the rows ``t < n_valid`` count in
+    ``stats = (Σ row, Σ row²)``.  Every index must lie in ``[0, N)``."""
+    _check_subsample_gather(data, indices, n_valid)
+    if not data.is_cuda:
+        return ref.subsample_gather_ref(data, indices, n_valid)
+    out = _sg.subsample_gather(data, indices, n_valid)
+    _counted("subsample_gather")
+    return out
+
+
+def subsample_gather(data: torch.Tensor, indices: torch.Tensor):
+    """``(gathered [T, D], stats [2, D])`` for random row ids ``indices``:
+    ``data [N, D]`` fp32 or bf16, ``indices [T]`` int32, every index in
+    ``[0, N)``; stats = ``(Σ row, Σ row²)`` in fp32 over all T rows.
+
+    The reference pads T to a power of two so that XLA compiles one kernel
+    per padded length.  The CUDA kernel takes T at run time from one
+    build, so the port launches it with ``n_valid = T`` and no padding."""
+    n_valid = torch.full((1,), indices.numel(), dtype=torch.int32,
+                         device=indices.device)
+    return _subsample_gather_padded(data, indices, n_valid)
 
 
 def _check_rwkv6(r, k, v, logw, u, state, chunk: int) -> None:

@@ -48,6 +48,29 @@ def subsample_stats_ref(data: torch.Tensor, indices: torch.Tensor, *,
     return torch.stack([acc, acc2], dim=1)
 
 
+def subsample_gather_ref(data: torch.Tensor, indices: torch.Tensor,
+                         n_valid: torch.Tensor):
+    """``data [N, D]`` (fp32 or bf16) + ``indices [T]`` int + ``n_valid
+    [1]`` int → ``(gathered [T, D]`` in the data's type``, stats [2, D]``
+    fp32``)``: ``gathered[t] = data[indices[t]]`` for every t, and stats =
+    ``(Σ row, Σ row²)`` over the rows ``t < n_valid`` only, each widened to
+    fp32.
+
+    The order of summation is the kernel's: one row after another in t
+    order into one fp32 accumulator, every square rounded before it is
+    added (no fused multiply-add).  Reads ``n_valid`` on the host."""
+    gathered = data[indices.to(torch.int64)]
+    rows = gathered.float()
+    n_rows = min(max(int(n_valid.reshape(-1)[0]), 0), rows.shape[0])
+    acc = torch.zeros(data.shape[1], dtype=torch.float32, device=data.device)
+    acc2 = torch.zeros_like(acc)
+    for t in range(n_rows):                   # rows past n_valid: masked
+        r = rows[t]
+        acc = acc + r
+        acc2 = acc2 + r * r
+    return gathered, torch.stack([acc, acc2])
+
+
 def rwkv6_chunked_ref(r, k, v, logw, u) -> torch.Tensor:
     """Sequential (per-token) RWKV6 recurrence from a zero state;
     ``r, k, v, logw [B, H, S, hd]``, ``u [H, hd]`` → ``out [B, H, S, hd]``

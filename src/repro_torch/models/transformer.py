@@ -30,7 +30,7 @@ from repro_torch.tree import tree_map
 
 _NOT_PORTED = {
     ATTN: "full attention comes with the dense models (ROADMAP Queue 1, "
-          "next item 2)",
+          "next item 6)",
 }
 
 
@@ -52,7 +52,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if LOCAL in kinds and cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(f"{cfg.name}: the int8 KV cache comes "
                                   "after full attention (ROADMAP Queue 1, "
-                                  "next item 3)")
+                                  "next item 7)")
 
 
 # ---------------------------------------------------------------------------

@@ -223,3 +223,63 @@ def test_flash_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, **kwargs)
     assert ops.launch_count("flash_attention") == before
+
+
+# -- subsample_gather --------------------------------------------------------
+
+
+def _gather_inputs(n, d, t, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    idx = rng.integers(0, n, t).astype(np.int32)
+    return (torch.from_numpy(data).to(device, dtype),
+            torch.from_numpy(idx).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 1030, 65536])
+@pytest.mark.parametrize("t", [1, 13, 512])
+def test_gather_kernel_equals_plain_version(cuda, dtype, d, t):
+    """Both add row after row into fp32, the square rounded first: equal
+    bit for bit, with n_valid below, at and above T."""
+    x, i = _gather_inputs(64, d, t, dtype, d + t, cuda)
+    for n_valid in (t // 2, t, t + 5):
+        nv = torch.full((1,), n_valid, dtype=torch.int32, device=cuda)
+        before = ops.launch_count("subsample_gather")
+        gathered, stats = ops._subsample_gather_padded(x, i, nv)
+        torch.cuda.synchronize()
+        assert ops.launch_count("subsample_gather") == before + 1
+        want_g, want_s = ref.subsample_gather_ref(x, i, nv)
+        assert gathered.dtype == dtype and stats.dtype == torch.float32
+        assert torch.equal(gathered, x[i.long()])
+        assert torch.equal(gathered, want_g)
+        assert torch.equal(stats, want_s)
+
+
+@pytest.mark.cuda
+def test_gather_op_counts_one_launch_a_call(cuda):
+    x, i = _gather_inputs(64, 4096, 512, torch.float32, 0, cuda)
+    before = ops.launch_count("subsample_gather")
+    for k in range(3):
+        ops.subsample_gather(x, i)
+        assert ops.launch_count("subsample_gather") == before + k + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["strided", "int64", "cpu_n_valid", "fp16"])
+def test_gather_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    x, i = _gather_inputs(16, 64, 8, torch.float32, 0, cuda)
+    nv = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    if bad == "strided":
+        x = torch.cat([x, x], dim=-1)[:, :64]
+    elif bad == "int64":
+        i = i.long()
+    elif bad == "cpu_n_valid":
+        nv = nv.cpu()
+    else:
+        x = x.half()
+    before = ops.launch_count("subsample_gather")
+    with pytest.raises((ValueError, TypeError)):
+        ops._subsample_gather_padded(x, i, nv)
+    assert ops.launch_count("subsample_gather") == before

@@ -30,6 +30,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.models, repro_torch.models.convert\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.kernels.rwkv6_scan\n"
+        "import repro_torch.kernels.subsample_gather\n"
         "import repro_torch.kernels.rglru_scan\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.rglru\n"
