@@ -14,7 +14,9 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
    PyTorch call computes the same function, that call (``index_select``
-   beside ``subsample_gather`` is a floor for its gather alone).
+   beside ``subsample_gather`` is a floor for its gather alone);
+   ``flash_attention`` also gives its TFLOP/s and share of its bound, and
+   a second launch at the serving shape must equal the first.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -84,11 +86,16 @@ RW_TOL = 1e-4
 # weights: the single-step formula against the chunk form (a padded second
 # chunk), over 4 layers of width 4,096 and a 65,536-way head
 INVARIANT_TOL = 1e-3
-# flash_attention vs its plain version: the same fp32 scores and softmax
-# from the same (exactly widened) inputs, products and the online softmax's
-# rescaled partial sums added in other orders, so fp32 outputs of order 1
-# agree to ~1e-5; a bf16 output is one rounding of such a value, so the two
-# may part by one bf16 step (2^-8 relative, under 1e-2)
+# flash_attention vs its plain version.  fp32 (CUDA cores): the same fp32
+# scores and softmax, products and the online softmax's rescaled partial
+# sums added in other orders, so outputs of order 1 agree to ~1e-5.  bf16
+# (tensor cores): products of bf16 values are exact in fp32, so the scores
+# differ only in the order of summation; P enters P V as a bf16 high and low
+# part, each weight kept to about 2^-17 (one bf16 term alone would err by
+# up to 2^-9 of each weight, ~1e-4 on outputs near zero at the serving
+# shape); so the fp32 output agrees to ~1e-5 again, and the bf16 output is
+# one rounding of it: the two may part by one bf16 step (2^-8 relative,
+# under 1e-2)
 FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-4)}
 
 
@@ -600,21 +607,30 @@ def check_flash_kernel(ops, ref):
     at the serving shape (one local layer's prefill of batch 4 at 4,096
     tokens: 40 query heads of 256 on 4 KV heads, window 2,048, bf16), at
     window 0 and group 1 causal and not (the TPU kernel's function), at
-    HD 32 with a ragged Sq = Skv = 1,000, and in fp32 at HD 256."""
+    HD 32 with a ragged Sq = Skv = 1,000, and in fp32 at HD 256; then bf16
+    (the tensor-core body) at HD 32 with Sq < Skv, at HD 64 with a window
+    below one tile and Sq > Skv, at Sq = 1 against 1,000 keys, and with q
+    and k scaled by 8 (large score gaps for the online rescale).  At the
+    serving shape a second launch must equal the first bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [  # bh, sq, skv, hd, causal, window, group, dtype
-        (40, 4096, 4096, 256, True, 2048, 10, torch.bfloat16),
-        (8, 2048, 2048, 128, True, 0, 1, torch.bfloat16),
-        (8, 2048, 2048, 128, False, 0, 1, torch.bfloat16),
-        (16, 1000, 1000, 32, True, 0, 1, torch.float32),
-        (16, 1000, 1000, 32, True, 256, 4, torch.bfloat16),
-        (20, 577, 577, 256, True, 128, 10, torch.float32),
+    cases = [  # bh, sq, skv, hd, causal, window, group, dtype, q and k scale
+        (40, 4096, 4096, 256, True, 2048, 10, torch.bfloat16, 1),
+        (8, 2048, 2048, 128, True, 0, 1, torch.bfloat16, 1),
+        (8, 2048, 2048, 128, False, 0, 1, torch.bfloat16, 1),
+        (16, 1000, 1000, 32, True, 0, 1, torch.float32, 1),
+        (16, 1000, 1000, 32, True, 256, 4, torch.bfloat16, 1),
+        (20, 577, 577, 256, True, 128, 10, torch.float32, 1),
+        (8, 577, 1000, 32, False, 0, 2, torch.bfloat16, 1),
+        (8, 1000, 577, 64, True, 16, 1, torch.bfloat16, 1),
+        (6, 1, 1000, 256, False, 0, 3, torch.bfloat16, 1),
+        (8, 1000, 1000, 256, True, 300, 2, torch.bfloat16, 8),
     ]
     worst = 0.0
-    for bh, sq, skv, hd, causal, window, group, dtype in cases:
-        q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
+    for bh, sq, skv, hd, causal, window, group, dtype, scale in cases:
+        q = torch.randn((bh, sq, hd), generator=gen, device="cuda")
         k, v = (torch.randn((bh // group, skv, hd), generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
+                            device="cuda") for _ in range(2))
+        q, k, v = q.mul(scale).to(dtype), k.mul(scale).to(dtype), v.to(dtype)
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   group=group)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -626,11 +642,16 @@ def check_flash_kernel(ops, ref):
         worst = max(worst, err)
         print(f"flash kernel check BH={bh} Sq={sq} Skv={skv} HD={hd} "
               f"causal={causal} window={window} group={group} "
-              f"{str(dtype).split('.')[-1]}: max_abs_err {err!r} (rtol "
-              f"{rtol}, atol {atol})")
+              f"{str(dtype).split('.')[-1]} q, k x{scale}: max_abs_err "
+              f"{err!r} (rtol {rtol}, atol {atol})")
         if (bh, sq) == (40, 4096):
-            main = (q, k, v, causal, window, group)
-    q, k, v, causal, window, group = main
+            main = (q, k, v, causal, window, group, out)
+    q, k, v, causal, window, group, first = main
+    again = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                group=group)
+    if not torch.equal(first, again):
+        raise AssertionError("two flash_attention launches on the serving "
+                             "shape's inputs differ")
     ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                               window=window, group=group),
                   reps=10)
@@ -638,11 +659,13 @@ def check_flash_kernel(ops, ref):
         q, k, v, causal=causal, window=window, group=group), reps=3)
     (bound_ms, bound_by), pairs = _flash_bound(q, k, causal, window, group)
     library_ms = _sdpa_ms(q, k, v, causal, window, group)
+    tflops = 4.0 * q.shape[2] * pairs / ms / 1e9
     print(f"flash_attention at q [40, 4096, 256] bf16, k, v [4, 4096, 256], "
           f"window 2048, group 10 ({pairs} query-key pairs): kernel {ms!r} "
-          f"ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}), "
-          f"scaled_dot_product_attention with a boolean mask {library_ms!r}"
-          " ms")
+          f"ms ({tflops!r} TFLOP/s, {bound_ms / ms!r} of its bound; a "
+          f"second launch equal bit for bit), plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}), scaled_dot_product_attention "
+          f"with a boolean mask {library_ms!r} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}

@@ -3,7 +3,8 @@
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library in ``build/kernels/`` at the root of the checkout, keyed
-by a hash of the source and the flags, and loaded with ``ctypes``.
+by a hash of the source, the local headers it includes and the flags, and
+loaded with ``ctypes``.
 
 Nothing here runs at import: the CPU tests import the kernel modules on
 machines with no ``nvcc`` and no card.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,28 @@ from typing import Callable, Optional
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def build_key(source: Path) -> str:
+    """Hash of ``source``, of every header it includes with ``#include
+    "..."`` (found beside the including file, followed transitively), and
+    of the nvcc flags: a library built from other bytes is never reused."""
+    digest = hashlib.sha256()
+    seen, todo = set(), [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.is_file():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(path.name.encode() + b"\0" + text)
+        todo += [(path.parent / name).resolve() for name in
+                 _LOCAL_INCLUDE.findall(text.decode(errors="replace"))]
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()
 
 
 def _nvcc(source: Path) -> str:
@@ -55,9 +79,8 @@ class KernelLibrary:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            digest = hashlib.sha256(self.source.read_bytes()
-                                    + " ".join(NVCC_FLAGS).encode()).hexdigest()
-            path = BUILD_DIR / f"{self.source.stem}_{digest[:16]}.so"
+            path = (BUILD_DIR
+                    / f"{self.source.stem}_{build_key(self.source)[:16]}.so")
             if not path.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")

@@ -18,14 +18,49 @@
 // of k and v.  A query row that sees no key at all gives zeros.
 //
 // Types: q, k and v fp32 or bf16 (one type); the output is in q's type.
-// Scores, the softmax state (m, l) and the accumulator are fp32, and the
-// probabilities stay fp32 in the product with v.  HD is 32, 64, 128 or 256
-// (a template argument); Sq and Skv are any lengths: the ragged edge of a
-// tile is masked here, where the TPU kernel asserts that its blocks divide
-// the sequence.
+// HD is 32, 64, 128 or 256 (a template argument); Sq and Skv are any
+// lengths: the ragged edge of a tile is masked here, where the TPU kernel
+// asserts that its blocks divide the sequence.  The input type picks one
+// of two bodies.
 //
-// Design (simple first).  One CTA of 256 threads per (query head, block of
-// 64 query rows); it loops over the 64-key tiles that the causal window
+// Bound: operations.  At the serving shape (q [40, 4096, 256] bf16, k, v
+// [4, 4096, 256], window 2,048, group 10) the window leaves 251.7 M
+// (query, key) pairs, 4 * 256 operations each: 257.7 GFLOP, 0.261 ms at
+// the bf16 tensor-core rate of 989 TFLOP/s; the 184 MB read and written
+// take 0.055 ms.
+//
+// bf16: the tensor cores (flash_attention_wgmma_kernel).  One CTA of three
+// warpgroups per (query head, block of 128 query rows).  Warpgroup 0 is
+// the producer: one thread loads the q block once and then the 64-key k
+// and v tiles, from the first key the block's first row sees to the last
+// key its last row sees, into a ring of 2 (HD 256) or 3 stages, by TMA
+// (cp.async.bulk.tensor, 3-D maps [heads, rows, HD] built on the host, so
+// rows past Sq or Skv read as zeros), each stage guarded by a "full" and
+// an "empty" mbarrier.  Warpgroups 1 and 2 each own 64 query rows and run
+// both products with wgmma, fp32 accumulators in registers:
+//   S = Q K^T   m64n64k16, A (q) and B (k) K-major in shared memory;
+//   O += P V    m64nHDk16, A (p) in registers, B (v) MN-major (the
+//               transpose flag) in shared memory.
+// Tiles are bf16, 64 (HD 32: 32) columns a box, 128-byte (64-byte) rows
+// swizzled by TMA as wgmma reads them: q 128 x HD, k and v 64 x HD a
+// stage, 192 KB at HD 256.  setmaxnreg moves registers from the producer
+// (24) to the consumers (240), which hold O (HD / 2 fp32 a thread, 128 at
+// HD 256), S (32) and the two halves of P.  Scores, the running max m, the
+// sum l and O are fp32; exp2f with scale * log2(e) folded in; l sums the
+// fp32 p.  P enters the product as two bf16 terms, p_hi = bf16(p) and
+// p_lo = bf16(p - p_hi), so P V keeps p to about 2^-17: one bf16 term
+// alone would err by up to 2^-9 of each weight, which at the serving shape
+// is 1e-4 on outputs near zero, more than the tolerance.  Only the tiles
+// at the ends of a warpgroup's key range (the causal edge, the window's
+// far edge, the ragged Skv) apply the element mask; keys past Skv score
+// -inf.  Each consumer writes O / l as bf16 over its own (spent) q rows in
+// shared memory and stores them with one TMA store a box, which drops
+// rows past Sq.  No atomics: one CTA owns each output tile, so two
+// launches on the same inputs are equal bit for bit.
+//
+// fp32: the CUDA cores (flash_attention_kernel), exact to 1e-4 of the
+// plain version.  One CTA of 256 threads per (query head, block of 64
+// query rows); it loops over the 64-key tiles that the causal window
 // leaves, from the first key the block's first row sees to the last key
 // its last row sees, so fully masked tiles at both ends are never loaded.
 // The q block and each k and v tile are staged in shared memory as fp32,
@@ -38,19 +73,12 @@
 // r + 16 i over HD / 16 columns, its fp32 accumulator (64 floats at
 // HD = 256) in registers.  The 16 threads of a row are one half-warp, so
 // the row max and sum of the online softmax are shuffles.  Both products
-// run on the CUDA cores in fp32.
-//
-// Bound: operations.  At the serving shape (q [40, 4096, 256] bf16, k, v
-// [4, 4096, 256], window 2,048, group 10) the window leaves 251.7 M
-// (query, key) pairs, 4 * 256 operations each: 257.7 GFLOP, 0.261 ms at
-// the bf16 tensor-core rate of 989 TFLOP/s; the 184 MB read and written
-// take 0.055 ms.  This kernel runs its products on the CUDA cores (67
-// TFLOP/s fp32 at most) from shared memory, one CTA per SM: it cannot come
-// near the bound.  Tensor-core tiles (mma.sync, then wgmma with TMA) are
-// later work.
+// run on the CUDA cores in fp32, probabilities unrounded.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -64,13 +92,7 @@ constexpr int kKeysPerThread = kBlockK / 16;  // 4
 constexpr int kLdP = kBlockK + 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -266,6 +288,508 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16: the tensor cores ------------------------------------------------
+
+constexpr int kTcThreads = 384;  // a producer and two consumer warpgroups
+constexpr int kTcBlockQ = 128;   // 64 query rows a consumer warpgroup
+constexpr int kTcBlockK = 64;    // keys a tile
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared-memory geometry of one head size.  Every TMA box is 64 rows by C
+// columns; its rows are SW bytes, swizzled in 16-byte chunks as wgmma's
+// SW-byte layout expects.
+template <int HD>
+struct Tile {
+  static constexpr int C = HD < 64 ? HD : 64;
+  static constexpr int SW = 2 * C;                  // 64 or 128 bytes
+  static constexpr int NCB = HD / C;                // boxes across HD
+  static constexpr uint32_t BOX = 64 * SW;          // bytes of one box
+  static constexpr int STAGES = HD == 256 ? 2 : 3;
+  static constexpr uint32_t Q_BYTES = 2 * NCB * BOX;   // 128 x HD
+  static constexpr uint32_t KV_BYTES = NCB * BOX;      // 64 x HD, k or v
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor swizzle
+  // 1024 bytes of slack to align the tiles, then q, k, v and 1 + 2 STAGES
+  // mbarriers
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching registers that an asynchronous wgmma
+// still reads or writes: every use after the wait depends on these.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap to,
+                             int64_t sq, int64_t skv, int group, int causal,
+                             int64_t window, float scale_log2) {
+  using T = Tile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;  // [2 halves][NCB] boxes
+  const uint32_t s_k = s_q + T::Q_BYTES;       // [STAGES][NCB] boxes
+  const uint32_t s_v = s_k + T::STAGES * T::KV_BYTES;
+  const uint32_t bar_q = s_v + T::STAGES * T::KV_BYTES;
+  const uint32_t bar_full = bar_q + 8;                   // [STAGES]
+  const uint32_t bar_empty = bar_full + 8 * T::STAGES;   // [STAGES]
+
+  const int bh = blockIdx.x;
+  // the heaviest query blocks (last, under a causal mask) start first
+  const int64_t q0 =
+      static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kTcBlockQ;
+  const int g = bh / group;
+  // keys [lo, hi) hold every key some row of this block sees
+  const int64_t q_last = min64(q0 + kTcBlockQ, sq) - 1;
+  const int64_t hi = causal ? min64(skv, q_last + 1) : skv;
+  const int64_t lo = window > 0 && q0 - window + 1 > 0 ? q0 - window + 1 : 0;
+  const int tiles =
+      hi > lo ? static_cast<int>((hi - lo + kTcBlockK - 1) / kTcBlockK) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && tiles > 0) {
+      mbar_expect_tx(bar_q, T::Q_BYTES);
+      for (int h = 0; h < 2; ++h)
+        for (int cb = 0; cb < T::NCB; ++cb)
+          tma_load(s_q + (h * T::NCB + cb) * T::BOX, &tq, cb * T::C,
+                   static_cast<int>(q0 + 64 * h), bh, bar_q);
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % T::STAGES;
+        const int round = t / T::STAGES;
+        // the consumers have released this stage's previous tile
+        if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * T::KV_BYTES);
+        const int k0 = static_cast<int>(lo + static_cast<int64_t>(t) *
+                                                 kTcBlockK);
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          const uint32_t off = (st * T::NCB + cb) * T::BOX;
+          tma_load(s_k + off, &tk, cb * T::C, k0, g, full);
+          tma_load(s_v + off, &tv, cb * T::C, k0, g, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 + h owns rows q0 + 64 h ... + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int h = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int64_t rows = q0 + 64 * h;                 // the half's first row
+    const int64_t row = rows + 16 * warp + lane / 4;  // and row + 8
+    const int col = 2 * (lane % 4);                   // and col + 1, + 8 j
+    const uint32_t qh = s_q + h * T::NCB * T::BOX;
+
+    float o[HD / 2];  // O [64 x HD]: o[4 j + e] at row + 8 (e / 2),
+                      // column 8 j + col + e % 2
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+    float l[2] = {0.f, 0.f};              // this thread's share of the sum
+
+    if (tiles > 0) mbar_wait(bar_q, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % T::STAGES;
+      const int64_t k0 = lo + static_cast<int64_t>(t) * kTcBlockK;
+      mbar_wait(bar_full + 8 * st, (t / T::STAGES) & 1);
+
+      // S = Q K^T over HD in steps of 16: s[4 j + e] at row + 8 (e / 2),
+      // key k0 + 8 j + col + e % 2
+      float s[32];
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < T::NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < T::C / 16; ++kk)
+          wgmma_ss(s,
+                   desc(qh + cb * T::BOX + 32 * kk, 16, 8 * T::SW, T::LAYOUT),
+                   desc(s_k + (st * T::NCB + cb) * T::BOX + 32 * kk, 16,
+                        8 * T::SW, T::LAYOUT),
+                   cb + kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+
+      // the element mask, on the tiles at the ends of the range only
+      const bool edge = k0 + kTcBlockK > skv ||
+                        (causal && k0 + kTcBlockK - 1 > rows) ||
+                        (window > 0 && rows + 63 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t r = row + 8 * (e / 2);
+            const int64_t key = k0 + 8 * j + col + e % 2;
+            const bool seen = key < skv && (!causal || key <= r) &&
+                              (window <= 0 || r - key < window);
+            if (!seen) s[4 * j + e] = -INFINITY;
+          }
+      }
+
+      // online softmax; a row's 64 scores lie in the 4 threads of a quad
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      float mu[2], corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        mu[r] = m_new == -INFINITY ? 0.f : m_new;  // no -inf - -inf
+        corr[r] = exp2f(m[r] - mu[r]);
+        m[r] = m_new;
+      }
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        s[i] = exp2f(fmaf(s[i], scale_log2, -mu[r]));  // -inf -> 0
+        ls[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
+
+      // P as wgmma's A fragments, keys 16 kt ... + 15: the accumulator
+      // layout of S is the register layout of A
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = s[8 * kt + 2 * i], b = s[8 * kt + 2 * i + 1];
+          const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, b);
+          p_hi[kt][i] = *reinterpret_cast<const uint32_t*>(&hi2);
+          p_lo[kt][i] = pack_bf16(a - __low2float(hi2), b - __high2float(hi2));
+        }
+
+      // O += P V: v's rows are keys, HD contiguous, so B is MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        const uint64_t dv = desc(s_v + st * T::KV_BYTES + kt * 16 * T::SW,
+                                 T::BOX, 8 * T::SW, T::LAYOUT);
+        wgmma_rs(o, p_hi[kt], dv);
+        wgmma_rs(o, p_lo[kt], dv);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // O / l as bf16 over this half's q rows, laid out as TMA swizzles
+    // them, then one TMA store a box (rows past Sq are dropped)
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int c = 8 * j + col;
+        const uint32_t off =
+            (16 * warp + lane / 4 + 8 * r) * T::SW + (c % T::C) * 2;
+        const uint32_t swz = off ^ (((off >> 7) & (T::SW / 16 - 1)) << 4);
+        const uint32_t v = pack_bf16(o[4 * j + 2 * r] * inv[r],
+                                     o[4 * j + 2 * r + 1] * inv[r]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         qh + (c / T::C) * T::BOX + swz),
+                     "r"(v)
+                     : "memory");
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int cb = 0; cb < T::NCB; ++cb)
+        tma_store(&to, qh + cb * T::BOX, cb * T::C, static_cast<int>(rows),
+                  bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int64_t bh, int64_t sq, int64_t skv, int group,
@@ -285,24 +809,108 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the process has loaded, so that
+// the library links against nothing but the CUDA runtime
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* driver = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return driver ? reinterpret_cast<EncodeTiled>(
+                        dlsym(driver, "cuTensorMapEncodeTiled"))
+                  : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 [heads, rows, HD] tensor as a 3-D map, 64-row by C-column boxes,
+// swizzled; reads past `rows` give zeros and writes past it are dropped
+template <int HD>
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                int64_t heads, int64_t rows) {
+  using T = Tile<HD>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(rows) * HD * 2};
+  const cuuint32_t box[3] = {T::C, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int64_t bh, int64_t sq, int64_t skv,
+                         int group, int causal, int64_t window,
+                         cudaStream_t stream) {
+  if (skv == 0)  // no key at all: every row gives zeros
+    return cudaMemsetAsync(out, 0, static_cast<size_t>(bh * sq * HD) * 2,
+                           stream);
+  for (const void* p : {q, k, v, static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;  // TMA needs 16-byte alignment
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv, to;
+  if (!tensor_map<HD>(encode, &tq, q, bh, sq) ||
+      !tensor_map<HD>(encode, &tk, k, bh / group, skv) ||
+      !tensor_map<HD>(encode, &tv, v, bh / group, skv) ||
+      !tensor_map<HD>(encode, &to, out, bh, sq))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attention_wgmma_kernel<HD>;
+  constexpr size_t bytes = Tile<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(bh),
+                  static_cast<unsigned>((sq + kTcBlockQ - 1) / kTcBlockQ));
+  kern<<<grid, kTcThreads, bytes, stream>>>(
+      tq, tk, tv, to, sq, skv, group, causal, window,
+      1.4426950408889634f / sqrtf(static_cast<float>(HD)));
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
+                      void* out, int64_t bh, int64_t sq, int64_t skv,
+                      int group, int causal, int64_t window,
+                      cudaStream_t s) {
+  return bf16 ? launch_wgmma<HD>(q, k, v, out, bh, sq, skv, group, causal,
+                                 window, s)
+              : launch<HD, float>(q, k, v, out, bh, sq, skv, group, causal,
+                                  window, s);
+}
+
+cudaError_t dispatch_hd(int64_t hd, bool bf16, const void* q, const void* k,
                         const void* v, void* out, int64_t bh, int64_t sq,
                         int64_t skv, int group, int causal, int64_t window,
                         cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<32, T>(q, k, v, out, bh, sq, skv, group, causal, window,
-                           s);
+      return launch_hd<32>(bf16, q, k, v, out, bh, sq, skv, group, causal,
+                           window, s);
     case 64:
-      return launch<64, T>(q, k, v, out, bh, sq, skv, group, causal, window,
-                           s);
+      return launch_hd<64>(bf16, q, k, v, out, bh, sq, skv, group, causal,
+                           window, s);
     case 128:
-      return launch<128, T>(q, k, v, out, bh, sq, skv, group, causal, window,
-                            s);
+      return launch_hd<128>(bf16, q, k, v, out, bh, sq, skv, group, causal,
+                            window, s);
     case 256:
-      return launch<256, T>(q, k, v, out, bh, sq, skv, group, causal, window,
-                            s);
+      return launch_hd<256>(bf16, q, k, v, out, bh, sq, skv, group, causal,
+                            window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -314,8 +922,8 @@ cudaError_t dispatch_hd(int64_t hd, const void* q, const void* k,
 // pointers to contiguous q and out [bh, sq, hd] and k, v [bh / group, skv,
 // hd], all of one type (bf16 when `bf16`, else fp32); the caller has
 // checked shapes, types and contiguity.  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a shape the kernel does not
-// take.
+// the launch, cudaErrorInvalidValue for a shape the kernel does not take,
+// or cudaErrorMisalignedAddress for a bf16 pointer off 16 bytes (TMA).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int64_t bh,
                                       int64_t sq, int64_t skv, int64_t hd,
@@ -324,18 +932,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (bh < 0 || sq < 0 || skv < 0 || window < 0 || group < 1 ||
       group > 0x7fffffff || bh % group != 0 || bh > 0x7fffffff ||
-      (sq + kBlockQ - 1) / kBlockQ > 65535) {
+      skv > 0x7fffffff || (sq + kBlockQ - 1) / kBlockQ > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(group);
-  cudaError_t err =
-      bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, bh, sq, skv, g,
-                                        causal, window, s)
-           : dispatch_hd<float>(hd, q, k, v, out, bh, sq, skv, g, causal,
-                                window, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_hd(hd, bf16 != 0, q, k, v, out, bh, sq,
+                                      skv, g, causal, window, s));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,7 +1,9 @@
 """The ``flash_attention`` Hopper kernel: build, load and launch.
 
 The kernel itself is CUDA C++ in ``csrc/flash_attention.cu`` (its header
-says what it replaces, what bounds it and how it is laid out).
+says what it replaces, what bounds it and how it is laid out): bf16 inputs
+run on the tensor cores (``wgmma``, tiles copied by TMA), fp32 inputs on
+the CUDA cores.
 ``kernels._build`` compiles it with ``nvcc`` at first use; this module
 declares its C interface and launches it on PyTorch's current stream.
 """
@@ -37,9 +39,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, group: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors already checked by
     ``ops.flash_attention``: ``q [BH, Sq, HD]``, ``k, v [BH / group, Skv,
-    HD]``, one type (fp32 or bf16).  Returns ``out [BH, Sq, HD]`` in q's
-    type, allocated here, on PyTorch's current stream, without
-    synchronising."""
+    HD]``, one type (fp32 or bf16; bf16 tensors must start on 16 bytes, as
+    TMA reads them).  Returns ``out [BH, Sq, HD]`` in q's type, allocated
+    here, on PyTorch's current stream, without synchronising."""
     lib = library()
     bh, sq, hd = q.shape
     skv = k.shape[1]

@@ -169,11 +169,14 @@ def test_rglru_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
 
 # -- flash_attention ---------------------------------------------------------
 
-# The kernel and its plain version compute the same fp32 scores and softmax
-# from the same inputs (bf16 inputs are widened exactly), but add the
-# products and the online softmax's rescaled partial sums in other orders:
-# fp32 outputs of order 1 agree to ~1e-5; a bf16 output is one rounding of
-# such a value, so the two may differ by one bf16 ulp (2^-8 relative).
+# fp32 runs on the CUDA cores: the same fp32 scores and softmax as the plain
+# version, products and the online softmax's rescaled partial sums added in
+# other orders, so outputs of order 1 agree to ~1e-5.  bf16 runs on the
+# tensor cores: products of bf16 values are exact in fp32, so the scores
+# differ from the plain version's only in the order of summation, and P
+# enters P V as a bf16 high and low part, which keeps each weight to about
+# 2^-17; the fp32 output agrees to ~1e-5 again, and the bf16 output is one
+# rounding of it, so the two may differ by one bf16 ulp (2^-8 relative).
 FA_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
@@ -193,6 +196,15 @@ def _attn_inputs(bh, sq, skv, hd, group, dtype, seed, device):
     (6, 100, 100, 32, True, 16, 3, torch.float32),       # HD 32, ragged
     (2, 70, 150, 128, True, 0, 2, torch.float32),        # Sq < Skv
     (3, 1, 1, 256, True, 0, 1, torch.float32),           # one token
+    # bf16, the tensor-core body: every HD, ragged lengths, both windows
+    (4, 577, 1000, 32, False, 0, 2, torch.bfloat16),     # HD 32, Sq < Skv
+    (4, 1000, 577, 64, True, 16, 1, torch.bfloat16),     # window < a tile
+    (20, 1000, 1000, 128, True, 300, 10, torch.bfloat16),  # window > a tile
+    (10, 577, 577, 256, False, 0, 10, torch.bfloat16),   # group 10, not causal
+    (2, 70, 150, 256, True, 0, 2, torch.bfloat16),       # Sq < Skv, causal
+    (4, 1000, 577, 64, True, 300, 1, torch.bfloat16),    # rows that see no key
+    (3, 1, 1, 256, True, 0, 1, torch.bfloat16),          # one token
+    (3, 1, 1000, 128, False, 0, 1, torch.bfloat16),      # Sq = 1, many keys
 ])
 def test_flash_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
                                             window, group, dtype):
@@ -207,6 +219,32 @@ def test_flash_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
                                    group=group)
     rtol, atol = FA_TOL[dtype]
     torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_kernel_bf16_with_large_score_gaps(cuda, hd):
+    """q and k scaled by 8: scores spread over hundreds, so the running max
+    moves by large steps from tile to tile and the online rescale runs on
+    weights that underflow to 0 in between."""
+    q, k, v = _attn_inputs(8, 700, 700, hd, 2, torch.float32, hd, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q * 8, k * 8, v))
+    out = ops.flash_attention(q, k, v, causal=True, window=0, group=2)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=0, group=2)
+    assert torch.isfinite(out.float()).all()
+    rtol, atol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_repeats_bit_for_bit(cuda, dtype):
+    """No atomics, one CTA an output tile: two launches on the same inputs
+    are equal."""
+    q, k, v = _attn_inputs(20, 1000, 1000, 256, 10, dtype, 7, cuda)
+    first = ops.flash_attention(q, k, v, causal=True, window=300, group=10)
+    second = ops.flash_attention(q, k, v, causal=True, window=300, group=10)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
