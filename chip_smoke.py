@@ -6,10 +6,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the five CUDA kernels from ``src/repro_torch``
+2. Builds the six CUDA kernels from ``src/repro_torch``
    (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
-   ``rglru_scan`` and ``flash_attention``), one nvcc each, started
-   together, and prints ptxas' registers, shared memory and spills.
+   ``rglru_scan``, ``flash_attention`` and ``subsample_grid``), one nvcc
+   each, started together, and prints ptxas' registers, shared memory and
+   spills.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
@@ -30,9 +31,20 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    the launch counts zeroed just before and read just after, and holds
    its stats against ``ops.subsample_stats`` on the same block and rows.
 5. Reruns that job per task (``wave="off"``) and asserts the result is
-   bit-identical; runs a 512-movie job on the threaded and the simulated
-   backend and asserts they are bit-identical and agree with a float64
-   numpy reference computed from the same draws.
+   bit-identical.  Then the paper's own workloads on ``subsample_grid``:
+   phase 3f holds the kernel against its plain version on real task
+   blocks of EAGLET at the thesis' scale (400 families, 131,072 markers on
+   average, 230.5 MB) and of the Netflix catalogue, and at its other
+   branches, and one task against float64 numpy; step 4c runs the
+   catalogue through ``Platform.run`` as NETFLIX_LOW (``wave="auto"``) and
+   NETFLIX_HIGH (waves and per task, bit-identical); step 4b runs EAGLET
+   the same way.  Each of those jobs runs under ``torch.profiler``, the
+   launch counts zeroed just before and read just after (waves or tasks
+   plus one warm-up a block shape).  Then a 512-movie ``moments`` job on
+   the threaded and the simulated backend, bit-identical and agreeing
+   with a float64 numpy reference computed from the same draws; and
+   EAGLET (48 families) and NETFLIX_LOW (512 movies) threaded ≡ simulated
+   bit for bit.
 6. Serves ``rwkv6-7b`` at full width (32 layers, d_model 4096, bf16
    weights from a seed) through ``ServingEngine.generate``: batch 4, a
    1,000-token prompt, 32 new tokens; the launch counts are zeroed just
@@ -858,17 +870,35 @@ def traced_wave_run(Platform, spec, samples, months, workload):
         rep = plat.run(samples, months, workload)
     wave_s = sorted(e.fields["seconds"]
                     for e in plat.telemetry.events("wave_dispatched"))
+    window_ms, busy_ms, by_kind = _execute_window(prof, "subsample_stats")
+    print(f"traced run: makespan {rep.makespan!r} s, {len(wave_s)} waves, "
+          f"host seconds per wave median {wave_s[len(wave_s) // 2]!r} max "
+          f"{wave_s[-1]!r}; execute window {window_ms!r} ms, device busy "
+          f"{busy_ms!r} ms (share {busy_ms / window_ms!r}), device "
+          f"ms by kind {json.dumps(by_kind)}")
+
+
+def _execute_window(prof, kernel, names=None):
+    """The device's work over a job's execute phase in a profiler trace:
+    the window from the end of the first device→host copy (the warm-up's
+    result) to the end of the last, the device's busy ms inside it (its
+    intervals merged), and its ms by kind (``kernel``, whose device
+    functions' names hold one of ``names``; copies; other)."""
+    names = names or (kernel,)
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     d2h = [end for _, end, name in dev if "DtoH" in name]
+    if len(d2h) < 2:
+        raise AssertionError(f"the profiler saw {len(d2h)} device-to-host "
+                             "copies: no execute window")
     lo, hi = d2h[0], d2h[-1]
     busy, cur_start, cur_end = 0.0, None, None
-    by_kind = {"subsample_stats": 0.0, "memcpy": 0.0, "other": 0.0}
+    by_kind = {kernel: 0.0, "memcpy": 0.0, "other": 0.0}
     for start, end, name in dev:
         if start < lo or end > hi:
             continue
-        kind = ("subsample_stats" if "subsample_stats" in name
+        kind = (kernel if any(k in name for k in names)
                 else "memcpy" if "Memcpy" in name else "other")
         by_kind[kind] += (end - start) / 1e3
         if cur_end is None or start > cur_end:
@@ -877,12 +907,42 @@ def traced_wave_run(Platform, spec, samples, months, workload):
         else:
             cur_end = max(cur_end, end)
     busy += 0.0 if cur_end is None else cur_end - cur_start
-    window_ms = (hi - lo) / 1e3
-    print(f"traced run: makespan {rep.makespan!r} s, {len(wave_s)} waves, "
-          f"host seconds per wave median {wave_s[len(wave_s) // 2]!r} max "
-          f"{wave_s[-1]!r}; execute window {window_ms!r} ms, device busy "
-          f"{busy / 1e3!r} ms (share {busy / 1e3 / window_ms!r}), device "
-          f"ms by kind {json.dumps(by_kind)}")
+    return (hi - lo) / 1e3, busy / 1e3, by_kind
+
+
+def _eaglet_thesis_scale():
+    """The thesis' EAGLET dataset: 400 families of 131,072 markers on
+    average (57.6 M markers, 230.5 MB of fp32), the 15x outlier at
+    1,966,080 markers."""
+    from repro_torch.data import EagletSpec, eaglet_dataset
+
+    t0 = time.perf_counter()
+    samples, months = eaglet_dataset(EagletSpec(n_families=400,
+                                                mean_markers=131072))
+    n = sum(a.shape[0] for a in samples.values())
+    print(f"eaglet: 400 families, {n} markers, {n * 4} bytes of fp32, "
+          f"largest {max(a.shape[0] for a in samples.values())}, made in "
+          f"{time.perf_counter() - t0!r} s")
+    return samples, months
+
+
+def _real_blocks(dataset, workload, count):
+    """``count`` task blocks of one padded shape, as the torch engine's job
+    partition (64 samples a task) builds them: the first tasks of the
+    shape most tasks have, or task 0 alone for ``count`` 1."""
+    from repro_torch.platform.driver import plan_job
+
+    samples, months = dataset
+    mean = float(np.mean([a.nbytes for a in samples.values()]))
+    plan = plan_job(samples, months, workload, sizing="kneepoint",
+                    engine="torch", n_exec=2, knee_bytes=64 * mean)
+    if count == 1:
+        return [plan.build_block(plan.tasks[0])]
+    by_shape = {}
+    for task in plan.tasks:
+        by_shape.setdefault(plan.task_shape(task), []).append(task)
+    group = max(by_shape.values(), key=len)[:count]
+    return [plan.build_block(task) for task in group]
 
 
 def _netflix(n_movies: int):
@@ -891,13 +951,14 @@ def _netflix(n_movies: int):
     return netflix_dataset(NetflixSpec(n_movies=n_movies, mean_ratings=5654))
 
 
-def _spec(samples, *, wave="on", backend="threaded", device="cuda"):
+def _spec(samples, *, wave="on", backend="threaded", device="cuda",
+          knee_count=64):
     from repro_torch.platform import PlatformSpec, WaveOptions
 
     mean_bytes = float(np.mean([a.nbytes for a in samples.values()]))
     return PlatformSpec(platform="BTS", n_workers=2, backend=backend,
                         waves=WaveOptions(wave=wave, max_wave=16),
-                        knee_bytes=64 * mean_bytes, device=device)
+                        knee_bytes=knee_count * mean_bytes, device=device)
 
 
 def _assert_bitwise(a, b, what):
@@ -941,6 +1002,288 @@ def _numpy_reference(samples, knee_count, n_cols, seed, prng):
     return mean, np.maximum(total_sq / n - mean * mean, 0.0)
 
 
+# subsample_grid vs its plain version: the same elements binned into the same
+# cells, so the counts are equal; the sums are fp32 sums of the same terms
+# (for alod, scores from a mean and a std also summed) in another order:
+# relative 2e-5, with an absolute floor of 1e-5 of the largest sum for bins
+# that nearly cancel.  The float64 host check holds the kernel to the same.
+GRID_RTOL, GRID_ATOL_SCALE = 2e-5, 1e-5
+
+
+def _grid_close(got, want, what):
+    """Counts equal, sums within the stated tolerance; returns the sums'
+    max_abs_err."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    if not torch.equal(got[:, 1], want[:, 1]):
+        raise AssertionError(f"{what}: counts differ")
+    atol = GRID_ATOL_SCALE * float(want[:, 0].abs().max())
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=GRID_RTOL,
+                               atol=atol, msg=what)
+    return float((got[:, 0] - want[:, 0]).abs().max())
+
+
+def _grid_bound(data, rows, idx, grid, statistic):
+    """Least time for one ``subsample_grid`` call: the indices and the slot
+    vector read once, each distinct element this run's indices touch read
+    once from the block (and from the months), the ``[B, 2, grid]`` output
+    written once, over 3.35 TB/s; against the fp32 operations an element
+    needs (alod: the mean, the deviation, its square, the score's divide
+    and absolute value, the cell's divide and multiply, the bin's add: 10;
+    monthly_mean: the bin's add) over 67 TFLOP/s."""
+    _, ns, sl = data.shape
+    b, draws, _, ds = idx.shape
+    key = ((rows.long()[:, None, None, None] * ns
+            + torch.arange(ns, device=idx.device)[None, None, :, None]) * sl
+           + idx.long())
+    touched = int(torch.unique(key).numel())
+    planes = 2 if statistic == "monthly_mean" else 1
+    nbytes = idx.numel() * 4 + b * 4 + touched * 4 * planes + b * 2 * 4 * grid
+    flops = (10.0 if statistic == "alod" else 1.0) * idx.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grid_f64(block, months, idx, grid, statistic):
+    """One task's partial in numpy float64 from the kernel's indices: the
+    cells in the reference's fp32 arithmetic (so they are the same cells),
+    the scores and sums in float64."""
+    draws, ns, ds = idx.shape
+    sl = block.shape[1]
+    rows = np.arange(ns)[None, :, None]
+    x = block[rows, idx].astype(np.float64)               # [draws, ns, ds]
+    if statistic == "alod":
+        pos = idx.astype(np.float32) / np.float32(sl)
+        cell = np.clip((pos * np.float32(grid)).astype(np.int32), 0,
+                       grid - 1)
+        mean = x.mean(axis=2, keepdims=True)
+        value = np.abs((x - mean) / (x.std(axis=2, keepdims=True) + 1e-6))
+    else:
+        cell = np.clip(months[rows, idx], 0, grid - 1)
+        value = x
+    sums = np.zeros(grid)
+    np.add.at(sums, cell.reshape(-1), value.reshape(-1))
+    counts = np.bincount(cell.reshape(-1), minlength=grid).astype(np.float64)
+    return np.stack([sums, counts])[None]
+
+
+def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
+    """Phase 3f: ``subsample_grid`` against its plain version on the card.
+    The workloads' real blocks: EAGLET on one task block of the 400-family
+    dataset (64 families, padded to 2,097,152 markers by its 15x outlier),
+    NETFLIX_HIGH and NETFLIX_LOW on one 64-movie block of the catalogue;
+    then ns = 1, a draw size that is not a multiple of 32, grid 64 and 120
+    for both statistics, and months below 0 and past the grid (clipped).
+    Each case: counts equal, sums within tolerance, two launches equal bit
+    for bit, and each task of a wave of 16 (slots of an arena, seeds 0-15)
+    equal bit for bit to itself launched as a wave of one.  Then one
+    task's partial against a float64 numpy recomputation from the same
+    indices, and the times."""
+    dev = torch.device("cuda")
+    eb, em = (torch.from_numpy(a).to(dev)[None] for a in eaglet_block)
+    nb = torch.from_numpy(np.stack([b for b, _ in netflix_blocks])).to(dev)
+    nm = torch.from_numpy(np.stack([m for _, m in netflix_blocks])).to(dev)
+    wl = ss.SubsampleWorkload
+    cases = [  # label, data, months, workload
+        ("EAGLET", eb, em, ss.EAGLET),
+        ("NETFLIX_HIGH", nb, nm, ss.NETFLIX_HIGH),
+        ("NETFLIX_LOW", nb, nm, ss.NETFLIX_LOW),
+        ("alod ns=1", eb[:, :1].contiguous(), em[:, :1].contiguous(),
+         ss.EAGLET),
+        ("monthly ns=1", nb[:, :1].contiguous(), nm[:, :1].contiguous(),
+         ss.NETFLIX_HIGH),
+        ("alod ds=77 grid=120", eb, em, wl("a", "alod", 7, 77, 120)),
+        ("monthly ds=77 grid=64, months shifted by -10",
+         nb, (nm - 10).contiguous(), wl("m", "monthly_mean", 7, 77, 64)),
+        ("alod grid=64 on the netflix block", nb, nm,
+         wl("a", "alod", 8, 256, 64)),
+    ]
+    worst, timed = 0.0, {}
+    for label, data, months, w in cases:
+        n_slots = data.shape[0]
+        rows = torch.arange(16, dtype=torch.int32, device=dev) % n_slots
+        seeds = torch.arange(16, dtype=torch.int32, device=dev)
+        idx = ss.draw_indices(prng.PRNGKey(seeds), data.shape[1],
+                              data.shape[2], draws=w.draws,
+                              draw_size=w.draw_size)
+        kw = dict(grid=w.grid, statistic=w.statistic)
+        got = ops.subsample_grid(data, months, rows, idx, **kw)
+        want = ref.subsample_grid_ref(data, months, rows, idx, **kw)
+        torch.cuda.synchronize()
+        err = _grid_close(got, want, label)
+        if not torch.equal(got, ops.subsample_grid(data, months, rows, idx,
+                                                   **kw)):
+            raise AssertionError(f"{label}: two launches differ")
+        for b in range(16):
+            one = ops.subsample_grid(data, months, rows[b:b + 1],
+                                     idx[b:b + 1], **kw)
+            if not torch.equal(one[0], got[b]):
+                raise AssertionError(f"{label}: task {b} of a wave of 16 "
+                                     "!= the task as a wave of one")
+        worst = max(worst, err)
+        print(f"grid kernel check {label}: data {tuple(data.shape)}, "
+              f"{w.statistic} draws {w.draws} x {w.draw_size}, grid "
+              f"{w.grid}, wave of 16: counts equal, sums max_abs_err "
+              f"{err!r} (rtol {GRID_RTOL}, atol {GRID_ATOL_SCALE} x max "
+              "|sum|); two launches equal; each task == itself alone")
+        if label in ("EAGLET", "NETFLIX_HIGH", "NETFLIX_LOW"):
+            host = _grid_f64(data[0].cpu().numpy(), months[0].cpu().numpy(),
+                             idx[0].cpu().numpy(), w.grid, w.statistic)
+            err64 = _grid_close(got[:1].double().cpu(),
+                                torch.from_numpy(host), f"{label} float64")
+            print(f"  {label}: task 0 against float64 numpy from the same "
+                  f"indices, max_abs_err {err64!r}")
+            timed[label] = (data, months, rows, idx, kw)
+    rows_ms = {}
+    for label, (data, months, rows, idx, kw) in timed.items():
+        ms = _time_ms(lambda: ops.subsample_grid(data, months, rows, idx,
+                                                 **kw))
+        bound_ms, bound_by = _grid_bound(data, rows, idx, **kw)
+        rows_ms[label] = (ms, bound_ms, bound_by)
+        print(f"subsample_grid {label} wave of 16 on "
+              f"{tuple(data.shape)}, idx {tuple(idx.shape)}: kernel {ms!r} "
+              f"ms, bound {bound_ms!r} ms ({bound_by}), share of the bound "
+              f"{bound_ms / ms!r}")
+    data, months, rows, idx, kw = timed["NETFLIX_HIGH"]
+    plain_ms = _time_ms(lambda: ref.subsample_grid_ref(data, months, rows,
+                                                       idx, **kw), reps=3)
+    ms, bound_ms, bound_by = rows_ms["NETFLIX_HIGH"]
+    print(f"subsample_grid at NETFLIX_HIGH's wave of 16: kernel {ms!r} ms, "
+          f"plain {plain_ms!r} ms; no single PyTorch call computes these "
+          "binned sums in a fixed order (index_add_ and a weighted bincount "
+          "add with atomics), so library_ms is null")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _plan_shapes(samples, months, workload, knee_bytes):
+    """The distinct padded block shapes of the job's task partition (the
+    warm-up launches one wave, or one task, per shape) with the number of
+    tasks of each."""
+    from repro_torch.platform.driver import plan_job
+
+    plan = plan_job(samples, months, workload, sizing="kneepoint",
+                    engine="torch", n_exec=2, knee_bytes=knee_bytes)
+    shapes = {}
+    for task in plan.tasks:
+        shape = plan.task_shape(task)
+        shapes[shape] = shapes.get(shape, 0) + 1
+    return dict(sorted(shapes.items()))
+
+
+def grid_job(ops, Platform, label, samples, months, workload, *, wave,
+             backend="threaded", knee_count=64):
+    """One job of the paper's workloads through ``Platform.run`` on the
+    card, under ``torch.profiler``, the launch counts zeroed just before
+    and read just after.  Prints its makespan, compile phase, waves,
+    launches (which must be waves or tasks plus one warm-up per block
+    shape), arena bytes and the device's busy share of the execute
+    window; checks the result.  Returns the report and the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = _spec(samples, wave=wave, backend=backend, knee_count=knee_count)
+    shapes = _plan_shapes(samples, months, workload, spec.knee_bytes)
+    warm_ups, ns = len(shapes), next(iter(shapes))[0]
+    torch.cuda.synchronize()
+    ops.reset_launch_count()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep = Platform(spec).run(samples, months, workload)
+        torch.cuda.synchronize()
+    launches = ops.launch_count("subsample_grid")
+    waved = bool(rep.wave_sizes)
+    dispatched = len(rep.wave_sizes) if waved else rep.n_tasks
+    window_ms, busy_ms, by_kind = _execute_window(
+        prof, "subsample_grid", ("grid_partial_kernel", "sum_samples_kernel"))
+    print(f"{label}: {workload.name} ({workload.statistic}), wave="
+          f"{wave!r}, {backend}: {rep.n_tasks} tasks, makespan "
+          f"{rep.makespan!r} s (under the profiler), compile "
+          f"{rep.phases.get('compile')!r} s, block shapes (tasks) "
+          f"{json.dumps([[list(k), v] for k, v in shapes.items()])}, "
+          f"{len(rep.wave_sizes)} waves "
+          f"{list(rep.wave_sizes)}, subsample_grid launches {launches} "
+          f"({dispatched} {'waves' if waved else 'tasks'} + {warm_ups} "
+          f"warm-ups), arena/uploaded {rep.bytes_uploaded!r} bytes; execute "
+          f"window {window_ms!r} ms, device busy {busy_ms!r} ms (share "
+          f"{busy_ms / window_ms!r}), device ms by kind "
+          f"{json.dumps(by_kind)}")
+    if backend == "threaded" and launches != dispatched + warm_ups:
+        raise AssertionError(f"{label}: {launches} launches != "
+                             f"{dispatched} + {warm_ups} warm-ups")
+    if launches < 1:
+        raise AssertionError(f"{label}: no subsample_grid launch")
+    res = rep.result
+    if workload.statistic == "alod":
+        curve = np.asarray(res["alod"])
+        if curve.shape != (workload.grid,) or not np.all(np.isfinite(curve)):
+            raise AssertionError(f"{label}: alod curve {curve.shape}")
+        if float(res["n"]) != rep.n_tasks * ns * workload.draws:
+            raise AssertionError(f"{label}: n {res['n']}")
+    else:
+        mean = np.asarray(res["monthly_mean"])
+        count = np.asarray(res["count"])
+        seen = count > 0
+        if (mean.shape != (workload.grid,) or not np.all(np.isfinite(mean))
+                or not seen.any()
+                or not np.all((mean[seen] >= 1) & (mean[seen] <= 5))):
+            raise AssertionError(f"{label}: monthly means out of [1, 5]")
+        if float(count.sum()) != (rep.n_tasks * ns * workload.draws
+                                  * workload.draw_size):
+            raise AssertionError(f"{label}: count {count.sum()}")
+    return rep, launches
+
+
+def paper_workload_jobs(ops, Platform, ss, samples, months, eaglet):
+    """Steps 4c and 4b: the Netflix catalogue as NETFLIX_LOW (wave
+    "auto", which waves) and NETFLIX_HIGH (wave on and off, bitwise
+    equal); EAGLET at the thesis' 400 families x 131,072 markers (wave on
+    and off, bitwise equal).  Returns the launches of the five jobs."""
+    t0 = time.perf_counter()
+    launches = 0
+    _, n = grid_job(ops, Platform, "step 4c", samples, months,
+                    ss.NETFLIX_LOW, wave="auto")
+    launches += n
+    on, n = grid_job(ops, Platform, "step 4c", samples, months,
+                     ss.NETFLIX_HIGH, wave="on")
+    launches += n
+    off, n = grid_job(ops, Platform, "step 4c", samples, months,
+                      ss.NETFLIX_HIGH, wave="off")
+    launches += n
+    _assert_bitwise(on.result, off.result, "NETFLIX_HIGH wave vs per-task")
+    print(f"step 4c: NETFLIX_HIGH wave == per-task bitwise "
+          f"({time.perf_counter() - t0!r} s for step 4c)")
+    t0 = time.perf_counter()
+    e_samples, e_months = eaglet
+    on, n = grid_job(ops, Platform, "step 4b", e_samples, e_months,
+                     ss.EAGLET, wave="on")
+    launches += n
+    off, n = grid_job(ops, Platform, "step 4b", e_samples, e_months,
+                      ss.EAGLET, wave="off")
+    launches += n
+    _assert_bitwise(on.result, off.result, "EAGLET wave vs per-task")
+    print(f"step 4b: EAGLET wave == per-task bitwise "
+          f"({time.perf_counter() - t0!r} s for step 4b)")
+    return launches
+
+
+def paper_workload_invariants(ops, Platform, ss):
+    """Threaded ≡ simulated bitwise for EAGLET (48 families at 2,048
+    markers, 8 a task) and NETFLIX_LOW (the 512-movie catalogue)."""
+    from repro_torch.data import EagletSpec, eaglet_dataset
+
+    eag = eaglet_dataset(EagletSpec(n_families=48, mean_markers=2048))
+    for label, (smp, mo), wl, knee in (
+            ("EAGLET 48 families", eag, ss.EAGLET, 8),
+            ("NETFLIX_LOW 512 movies", _netflix(512), ss.NETFLIX_LOW, 64)):
+        thr, _ = grid_job(ops, Platform, label, smp, mo, wl, wave="on",
+                          knee_count=knee)
+        sim = Platform(_spec(smp, wave="off", backend="simulated",
+                             knee_count=knee)).run(smp, mo, wl)
+        _assert_bitwise(thr.result, sim.result, f"{label}: threaded vs "
+                        "simulated")
+        print(f"{label}: threaded (waves) == simulated bitwise over "
+              f"{thr.n_tasks} tasks")
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -948,15 +1291,16 @@ def main() -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch import prng
+    from repro_torch.core import subsample as ss
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import (flash_attention, rglru_scan, rwkv6_scan,
-                                     subsample_gather)
+                                     subsample_gather, subsample_grid)
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
     libraries = (subsample_gather.LIBRARY, subsample_gather.GATHER_LIBRARY,
                  rwkv6_scan.LIBRARY, rglru_scan.LIBRARY,
-                 flash_attention.LIBRARY)
+                 flash_attention.LIBRARY, subsample_grid.LIBRARY)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -1021,7 +1365,23 @@ def main() -> None:
     print(f"per-task run: {per.n_tasks} tasks, makespan {per.makespan!r} s, "
           f"phases {per.phases}, device_dispatches {per.device_dispatches}; "
           f"bit-identical to the wave run ({time.perf_counter() - t0!r} s)")
-    del samples, months, wave, per
+    del wave, per
+
+    # phase 3f — subsample_grid on real blocks of the paper's datasets;
+    # steps 4c and 4b — the paper's workloads through Platform.run
+    t0 = time.perf_counter()
+    eaglet = _eaglet_thesis_scale()
+    e_block = _real_blocks(eaglet, ss.EAGLET, 1)[0]
+    n_blocks = _real_blocks((samples, months), ss.NETFLIX_HIGH, 4)
+    grid_timing = check_grid_kernel(ops, ref, prng, ss, e_block, n_blocks)
+    del e_block, n_blocks
+    torch.cuda.empty_cache()
+    print(f"phase 3f: {time.perf_counter() - t0!r} s with the EAGLET "
+          "dataset's generation")
+    grid_launches = paper_workload_jobs(ops, Platform, ss, samples, months,
+                                        eaglet)
+    del samples, months, eaglet
+    torch.cuda.empty_cache()
 
     small, small_months = _netflix(512)
     thr = Platform(_spec(small)).run(small, small_months, MOMENTS)
@@ -1041,6 +1401,10 @@ def main() -> None:
           f"(rtol={RTOL}, atol={ATOL})")
 
     del small, small_months, thr, sim
+    t0 = time.perf_counter()
+    paper_workload_invariants(ops, Platform, ss)
+    print(f"paper workloads' threaded == simulated: "
+          f"{time.perf_counter() - t0!r} s")
     torch.cuda.empty_cache()
 
     # phase 6 — serving rwkv6-7b at full width; phase 7 — the invariant
@@ -1073,7 +1437,11 @@ def main() -> None:
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:64",
-        "launches": sg_launches, "library_ms": None, **sg_timing}]}))
+        "launches": sg_launches, "library_ms": None, **sg_timing}, {
+        "name": "subsample_grid", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/subsample_grid.cu",
+        "replaces": "src/repro/core/subsample.py:55",
+        "launches": grid_launches, "library_ms": None, **grid_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

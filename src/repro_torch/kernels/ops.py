@@ -20,9 +20,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import subsample_gather as _sg
+from repro_torch.kernels import subsample_grid as _sgrid
 
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
-           "flash_attention", "subsample_gather")
+           "flash_attention", "subsample_gather", "subsample_grid")
 
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)    # kernel launches since the reset
@@ -139,6 +140,70 @@ def subsample_gather(data: torch.Tensor, indices: torch.Tensor):
     n_valid = torch.full((1,), indices.numel(), dtype=torch.int32,
                          device=indices.device)
     return _subsample_gather_padded(data, indices, n_valid)
+
+
+def _check_subsample_grid(data, months, rows, idx, grid: int,
+                          statistic: str) -> None:
+    if data.dim() != 3 or rows.dim() != 1 or idx.dim() != 4:
+        raise ValueError(
+            "subsample_grid takes data [n_slots, ns, sl], rows [B] and idx "
+            f"[B, draws, ns, ds]; got {tuple(data.shape)}, "
+            f"{tuple(rows.shape)} and {tuple(idx.shape)}")
+    bsz, draws, ns, ds = idx.shape
+    if rows.shape[0] != bsz or ns != data.shape[1]:
+        raise ValueError(f"idx {tuple(idx.shape)} does not fit rows "
+                         f"{tuple(rows.shape)} and data {tuple(data.shape)}")
+    if statistic not in _sgrid.STATISTICS:
+        raise ValueError(f"unknown statistic {statistic!r}; choose one of "
+                         f"{sorted(_sgrid.STATISTICS)}")
+    if not 1 <= grid <= _sgrid.MAX_GRID:
+        raise ValueError(f"grid must lie in [1, {_sgrid.MAX_GRID}], got "
+                         f"{grid}")
+    if draws < 1 or ds < 1:
+        raise ValueError(f"draws and draw_size must be >= 1, got {draws} "
+                         f"and {ds}")
+    if ns * draws * ds >= 2 ** 24:
+        raise ValueError(f"{ns} x {draws} x {ds} drawn elements a task: "
+                         "fp32 counts are exact only below 2**24")
+    if data.dtype != torch.float32:
+        raise TypeError(f"subsample_grid takes fp32 data, got {data.dtype}")
+    if rows.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError("subsample_grid takes int32 rows and idx; got "
+                        f"{rows.dtype} and {idx.dtype}")
+    if tuple(months.shape) != tuple(data.shape):
+        raise ValueError(f"months {tuple(months.shape)} != data "
+                         f"{tuple(data.shape)}")
+    if months.dtype != torch.int32:
+        raise TypeError(f"subsample_grid takes int32 months, got "
+                        f"{months.dtype}")
+    tensors = (data, months, rows, idx)
+    if any(t.device != data.device for t in tensors):
+        raise ValueError("data, months, rows and idx must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("subsample_grid takes contiguous tensors")
+
+
+def subsample_grid(data: torch.Tensor, months: torch.Tensor,
+                   rows: torch.Tensor, idx: torch.Tensor, *, grid: int,
+                   statistic: str) -> torch.Tensor:
+    """The paper's binned subsample statistics for a wave of map tasks:
+    task ``b`` reads arena slot ``rows[b]`` of ``data [n_slots, ns, sl]``
+    fp32 (and of ``months``, int32 of the same shape, which only
+    ``monthly_mean`` reads) at the positions ``idx[b]``
+    ``[draws, ns, ds]`` int32 → ``[B, 2, grid]`` fp32: row 0 the binned
+    sum (``sum_curve`` / ``sum``), row 1 the bin counts (``hits`` /
+    ``count``); see ``kernels.ref.grid_partial``.  One launch per wave;
+    the kernel adds in one fixed order, so task ``b``'s partial does not
+    depend on B, on its slot, or on the run.  Every row must lie in
+    ``[0, n_slots)`` and every index in ``[0, sl)``."""
+    _check_subsample_grid(data, months, rows, idx, grid, statistic)
+    if not data.is_cuda:
+        return ref.subsample_grid_ref(data, months, rows, idx, grid=grid,
+                                      statistic=statistic)
+    out = _sgrid.subsample_grid(data, months, rows, idx, grid=grid,
+                                statistic=statistic)
+    _counted("subsample_grid")
+    return out
 
 
 def _check_rwkv6(r, k, v, logw, u, state, chunk: int) -> None:

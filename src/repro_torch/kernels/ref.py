@@ -71,6 +71,62 @@ def subsample_gather_ref(data: torch.Tensor, indices: torch.Tensor,
     return gathered, torch.stack([acc, acc2])
 
 
+def grid_partial(data: torch.Tensor, months: torch.Tensor,
+                 idx: torch.Tensor, *, grid: int,
+                 statistic: str) -> torch.Tensor:
+    """One task of ``subsample_grid``, the reference's
+    ``core/subsample.py::map_task`` given its indices: ``data [ns, sl]``
+    fp32, ``months [ns, sl]`` int32 (``monthly_mean`` only; else unread)
+    and ``idx [draws, ns, draw_size]`` int in ``[0, sl)`` → ``[2, grid]``
+    fp32.  Row 0 is the binned sum (``sum_curve`` / ``sum``), row 1 the
+    bin counts (``hits`` / ``count``).
+
+    ``alod`` bins position ``idx / sl`` at cell ``trunc(pos · grid)``, each
+    an IEEE fp32 divide then multiply (divided by a tensor, never by a
+    Python scalar, which PyTorch's CUDA path turns into a reciprocal
+    product), and scores each observation ``|x − mean| / (std + 1e-6)``
+    over its (sample, draw) row, std the population one.  The counts are
+    whole numbers and exact; the sums are added in another order than the
+    kernel's."""
+    if statistic not in ("alod", "monthly_mean"):
+        raise ValueError(f"unknown statistic {statistic!r}")
+    draws, ns, ds = idx.shape
+    sl = data.shape[1]
+    idx_l = idx.to(torch.int64)
+    gathered = torch.gather(data[None].expand(draws, ns, sl), 2, idx_l)
+    gathered = gathered.transpose(0, 1)                  # [ns, draws, ds]
+    if statistic == "alod":
+        sl_t = torch.tensor(float(sl), dtype=torch.float32,
+                            device=data.device)
+        pos = idx.transpose(0, 1).to(torch.float32) / sl_t
+        cell = (pos * grid).to(torch.int32).clamp(0, grid - 1)
+        mean = gathered.mean(dim=2, keepdim=True)
+        sd = gathered.std(dim=2, keepdim=True, correction=0) + 1e-6
+        value = ((gathered - mean) / sd).abs()
+    else:
+        mo = torch.gather(months[None].expand(draws, ns, sl), 2, idx_l)
+        cell = mo.transpose(0, 1).clamp(0, grid - 1)
+        value = gathered
+    cell = cell.reshape(-1).to(torch.int64)
+    sums = torch.zeros(grid, dtype=torch.float32, device=data.device)
+    sums.index_add_(0, cell, value.reshape(-1))
+    counts = torch.bincount(cell, minlength=grid).to(torch.float32)
+    return torch.stack([sums, counts])
+
+
+def subsample_grid_ref(data: torch.Tensor, months: torch.Tensor,
+                       rows: torch.Tensor, idx: torch.Tensor, *, grid: int,
+                       statistic: str) -> torch.Tensor:
+    """``subsample_grid``'s plain version: task ``b`` is arena slot
+    ``rows[b]`` of ``data [n_slots, ns, sl]`` (and ``months``) with indices
+    ``idx[b]`` ``[draws, ns, draw_size]`` → ``[B, 2, grid]`` fp32, one
+    :func:`grid_partial` a task."""
+    return torch.stack([
+        grid_partial(data[r], months[r], idx[b], grid=grid,
+                     statistic=statistic)
+        for b, r in enumerate(rows.tolist())])
+
+
 def rwkv6_chunked_ref(r, k, v, logw, u) -> torch.Tensor:
     """Sequential (per-token) RWKV6 recurrence from a zero state;
     ``r, k, v, logw [B, H, S, hd]``, ``u [H, hd]`` → ``out [B, H, S, hd]``

@@ -3,10 +3,12 @@ ported to PyTorch.
 
 Composes kneepoint task sizing → two-phase dynamic scheduler → streaming
 reduce behind :class:`Platform`, with threaded (real wall time) and
-simulated (virtual-time) execution backends, and runs each map task of the
-``moments`` workload through the hand-written CUDA ``subsample_stats``
-kernel on ``PlatformSpec.device``.  The multi-tenant service, the
-datastore, faults, checkpoints and sharded waves come in later slices.
+simulated (virtual-time) execution backends, and runs each map task on
+``PlatformSpec.device`` through a hand-written CUDA kernel: the
+``moments`` workload through ``subsample_stats``, the paper's EAGLET and
+Netflix workloads (``repro_torch.core.subsample``) through
+``subsample_grid``.  The multi-tenant service, the datastore, faults,
+checkpoints and sharded waves come in later slices.
 """
 
 from repro_torch.core.blockcache import CacheOptions

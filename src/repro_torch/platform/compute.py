@@ -7,14 +7,18 @@ backends bit-identical for a fixed seed):
   ``kernel``  — the hand-written CUDA ``subsample_stats`` kernel
                 (``repro_torch.kernels``) for the row-subsampling
                 ``moments`` statistic: a random row gather + (Σ, Σ²)
-                accumulation in registers.  On the CPU its wrapper runs the
-                plain PyTorch version.
+                accumulation in registers.
+  ``torch``   — the paper's own statistics (EAGLET ``alod``, Netflix
+                ``monthly_mean``; ``repro_torch.core.subsample``, the
+                reference's ``jnp`` engine): the random element gather and
+                the binned partials in the hand-written CUDA
+                ``subsample_grid`` kernel, which adds in one fixed order.
   ``numpy``   — pure-NumPy reference path, forced for debugging.  It draws
                 indices from NumPy's RNG, so it is statistically — not
-                bitwise — equivalent to ``kernel``.
+                bitwise — equivalent to the device engines.
 
-The paper's own statistics (``alod``, ``monthly_mean``) get their torch
-engine in the next slice of the port; until then ``auto`` raises for them.
+On the CPU (``device="cpu"``) the kernel wrappers run their plain PyTorch
+versions.
 
 Block building pads samples to a common power-of-two length so one block
 shape serves many tasks.
@@ -22,12 +26,12 @@ shape serves many tasks.
 Wave execution: a *wave* is a batch of same-shape ready tasks executed in
 ONE kernel launch.  :class:`BlockArena` packs the job's padded blocks into
 a device-resident ``[n_tasks, count, len]`` tensor per distinct shape
-(uploaded once); :func:`run_map_wave` gathers the wave's arena slots,
-derives every task's row indices from its seed with
-:func:`repro_torch.prng.randint` (jax's exact draws), and launches the
-kernel once for the wave.  Per-task accumulation order is independent of
-the wave partition, so wave and per-task execution are bit-identical for
-a fixed seed.
+(uploaded once; the ``torch`` engine's arena carries the months plane
+too); :func:`run_map_wave` derives every task's indices from its seed with
+:func:`repro_torch.prng.randint` (jax's exact draws) and launches the
+engine's kernel once for the wave.  Per-task accumulation order is
+independent of the wave partition, so wave and per-task execution are
+bit-identical for a fixed seed.
 """
 
 from __future__ import annotations
@@ -40,11 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import subsample as ss
 from repro_torch.device import check_device
 from repro_torch.kernels import ops
-
-NEXT_SLICE = ("the torch engine for the paper's statistics "
-              "(core/subsample.py) is the next slice of the port")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,8 +93,8 @@ class DispatchStats:
 
 def wave_supported(engine: str) -> bool:
     """Wave execution batches kernel launches, so it exists only for the
-    device engine; numpy and custom map_fns fall back to per-task."""
-    return engine == "kernel"
+    device engines; numpy and custom map_fns fall back to per-task."""
+    return engine in ("kernel", "torch")
 
 
 # Auto-wave threshold: waves amortize the fixed per-dispatch tax, which
@@ -113,20 +115,20 @@ def wave_profitable(workload) -> bool:
 def resolve_engine(statistic: str, prefer: str = "auto") -> str:
     """Pick the compute engine once per job (never per task)."""
     if prefer == "auto":
-        if statistic == "moments":
-            return "kernel"
-        raise NotImplementedError(
-            f"statistic {statistic!r} has no device engine in the port yet: "
-            f"{NEXT_SLICE}; pass engine='numpy' for the host reference")
-    if prefer == "torch":
-        raise NotImplementedError(f"engine 'torch': {NEXT_SLICE}")
+        return "kernel" if statistic == "moments" else "torch"
     if prefer == "kernel" and statistic != "moments":
         raise ValueError(
             "engine 'kernel' computes the row-subsample 'moments' "
-            f"statistic; workload statistic is {statistic!r}")
-    if prefer not in ("kernel", "numpy"):
+            f"statistic; workload statistic is {statistic!r} — use engine "
+            "'torch' (or 'auto')")
+    if prefer == "torch" and statistic == "moments":
+        raise ValueError(
+            "engine 'torch' computes the grid statistics ('alod', "
+            "'monthly_mean'); 'moments' runs on engine 'kernel' (or "
+            "'auto')")
+    if prefer not in ("kernel", "torch", "numpy"):
         raise ValueError(f"unknown engine {prefer!r}; choose 'auto', "
-                         "'kernel' or 'numpy'")
+                         "'kernel', 'torch' or 'numpy'")
     return prefer
 
 
@@ -270,6 +272,9 @@ def run_map_task(block: np.ndarray, months: np.ndarray, seed: int,
     """
     if engine == "kernel":
         return _moments_kernel(block, seed, workload, check_device(device))
+    if engine == "torch":
+        return ss.run_map_task_np(block, months, seed, workload,
+                                  device=device)
     if engine == "numpy":
         return _map_task_numpy(block, months, seed, workload)
     raise ValueError(f"unknown engine {engine!r}")
@@ -317,7 +322,7 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
     discarded) to ``pad_to`` when given — the driver pins one wave width
     per shape bucket — else to the next power of two.
     """
-    if engine != "kernel":
+    if engine not in ("kernel", "torch"):
         raise ValueError(f"engine {engine!r} does not support wave execution")
     key, rows = arena.slots(tasks)
     b = len(rows)
@@ -326,7 +331,15 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
     if b_pad != b:
         rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b)])
         seeds = np.concatenate([seeds, np.repeat(seeds[:1], b_pad - b)])
-    data, _ = arena.bucket(key)
+    data, months = arena.bucket(key)
+    if engine == "torch":
+        if months is None:
+            raise ValueError("torch waves need pack(with_months=True)")
+        # the pipeline: seeds → jax's exact draws → one subsample_grid
+        # launch reading the resident arena through the slots
+        stats = ss.map_wave(data, months, rows, seeds, workload)
+        return ss.split_partials(stats[:b].cpu().numpy(), workload,
+                                 data.shape[1])
     n_idx = workload.draws * workload.draw_size
     stats = _moments_wave(data, rows, seeds, n_idx=n_idx)
     return _split_moments(stats[:b], n_idx)

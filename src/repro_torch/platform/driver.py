@@ -105,7 +105,7 @@ PLATFORMS: Dict[str, PlatformConfig] = {
 @dataclasses.dataclass(frozen=True)
 class WaveOptions:
     """Wave execution: batch same-shape ready tasks into one device
-    dispatch (threaded backend, kernel engine)."""
+    dispatch (threaded backend, kernel or torch engine)."""
 
     wave: str = "auto"                     # "auto" | "on" | "off"
     max_wave: int = 32                     # wave size cap (task count)
@@ -184,7 +184,7 @@ class PlatformSpec:
     engine: str = "auto"                   # compute.resolve_engine
     wave: str = "auto"                     # "auto" | "on" | "off": batch
     #   same-shape ready tasks into one kernel launch (threaded backend,
-    #   kernel engine; per-task fallback for numpy & custom map_fn)
+    #   kernel or torch engine; per-task fallback for numpy & custom map_fn)
     max_wave: int = 32                     # wave size cap (task count)
     # sharded wave execution (DESIGN.md §11): a later slice of the port;
     # anything but None raises NotImplementedError
@@ -519,9 +519,11 @@ def build_wave_context(plan: JobPlan, workload, *, n_exec: int,
     ONE kernel shape compiles per bucket (a tail wave can never recompile
     mid-job); buckets split across workers so one worker cannot swallow
     a bucket in a single wave while its peers idle.  The moments kernel
-    never reads the months plane, so the arena leaves it out."""
+    never reads the months plane, so its arena leaves it out; the torch
+    engine's carries it."""
     arena = pc.BlockArena.pack(plan.tasks, plan.task_shape, plan.build_block,
-                               with_months=False, device=device)
+                               with_months=(plan.engine == "torch"),
+                               device=device)
     by_key: Dict[Any, List[sch.Task]] = {}
     for task in plan.tasks:
         by_key.setdefault(plan.task_shape(task), []).append(task)
@@ -570,8 +572,8 @@ def wave_enabled(spec: PlatformSpec, engine: str, workload,
                  and pc.wave_supported(engine))
     if spec.wave == "on" and not supported:
         raise ValueError(
-            "wave='on' needs the threaded backend and the device engine "
-            f"(kernel) with no custom map_fn; got backend="
+            "wave='on' needs the threaded backend and a device engine "
+            f"(kernel or torch) with no custom map_fn; got backend="
             f"{spec.backend!r}, engine={engine!r}, map_fn="
             f"{'set' if has_map_fn else 'None'}")
     if spec.wave == "auto":
@@ -781,9 +783,10 @@ class Platform:
             task_seed = spec.seed + task.task_id
             if self.map_fn is not None:
                 return self.map_fn(task, block, mo, task_seed)
-            if engine == "kernel":
+            if engine in ("kernel", "torch"):
                 bus.emit("task_dispatched", task_id=task.task_id,
-                         nbytes=float(block.nbytes))
+                         nbytes=float(block.nbytes) + (
+                             float(mo.nbytes) if engine == "torch" else 0.0))
             return pc.run_map_task(block, mo, task_seed, workload, engine,
                                    device=self.device)
 
@@ -818,7 +821,7 @@ class Platform:
                          task_ids=tuple(t.task_id for t in batch),
                          seconds=bus.now() - t_wave)
                 return values
-        elif engine == "kernel":
+        elif engine in ("kernel", "torch"):
             seen = set()
             for task in tasks:
                 key = task_shape(task)

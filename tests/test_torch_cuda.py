@@ -1,10 +1,14 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions.  Every test here is marked ``cuda`` and skips on a machine
-without a CUDA device.  This file imports neither JAX nor the reference
-package, so it also runs where JAX is not installed:
+versions.  Every test here but the check of a kernel source is marked
+``cuda`` and skips on a machine without a CUDA device.  This file imports
+neither JAX nor the reference package, so it also runs where JAX is not
+installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -321,3 +325,161 @@ def test_gather_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
     with pytest.raises((ValueError, TypeError)):
         ops._subsample_gather_padded(x, i, nv)
     assert ops.launch_count("subsample_gather") == before
+
+
+# -- subsample_grid ------------------------------------------------------------
+
+# The kernel and its plain version (kernels.ref.grid_partial) gather the same
+# elements and bin them into the same cells, so the counts are equal; the
+# sums are fp32 sums of the same terms (for alod, scores from a mean and a
+# std also summed) in another order: relative 2e-5, with an absolute floor
+# of 1e-5 of the largest sum for bins that nearly cancel.
+GRID_RTOL, GRID_ATOL_SCALE = 2e-5, 1e-5
+GRID_SOURCE = (Path(ops.__file__).resolve().parent / "csrc"
+               / "subsample_grid.cu")
+
+
+def _grid_inputs(n_slots, ns, sl, b, draws, ds, grid, seed, device):
+    """An arena of ``n_slots`` blocks, months reaching past ``[0, grid)``
+    on both sides, a wave of ``b`` slots and its indices."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n_slots, ns, sl)).astype(np.float32)
+    months = rng.integers(-3, grid + 4, (n_slots, ns, sl)).astype(np.int32)
+    rows = rng.integers(0, n_slots, b).astype(np.int32)
+    idx = rng.integers(0, sl, (b, draws, ns, ds)).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (data, months, rows, idx))
+
+
+def _assert_grid_close(got, want):
+    assert torch.equal(got[:, 1], want[:, 1])             # counts: exact
+    atol = GRID_ATOL_SCALE * float(want[:, 0].abs().max())
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=GRID_RTOL,
+                               atol=atol)
+
+
+GRID_CASES = [  # n_slots, ns, sl, b, draws, ds, grid
+    (4, 64, 4096, 3, 30, 256, 64),      # EAGLET's draws on 64 families
+    (4, 64, 4096, 3, 8, 2048, 120),     # NETFLIX_HIGH's
+    (20, 64, 4096, 16, 8, 32, 120),     # NETFLIX_LOW's, a wave of 16
+    (3, 1, 512, 2, 5, 40, 64),          # ns = 1
+    (3, 5, 300, 4, 9, 77, 120),         # ds not a multiple of 32, sl not 2^k
+    (2, 3, 64, 2, 3, 1, 8),             # ds = 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_kernel_matches_plain_version(cuda, statistic, case):
+    n_slots, ns, sl, b, draws, ds, grid = case
+    data, months, rows, idx = _grid_inputs(*case, sum(case), cuda)
+    before = ops.launch_count("subsample_grid")
+    got = ops.subsample_grid(data, months, rows, idx, grid=grid,
+                             statistic=statistic)
+    torch.cuda.synchronize()
+    assert ops.launch_count("subsample_grid") == before + 1
+    want = ref.subsample_grid_ref(data, months, rows, idx, grid=grid,
+                                  statistic=statistic)
+    assert got.shape == (b, 2, grid) and got.dtype == torch.float32
+    _assert_grid_close(got, want)
+    again = ops.subsample_grid(data, months, rows, idx, grid=grid,
+                               statistic=statistic)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+def test_grid_kernel_task_does_not_depend_on_the_wave(cuda, statistic):
+    """Task b's partial in a wave of 16 equals the same task alone (slot
+    and indices), launched as a wave of one: bit for bit."""
+    data, months, rows, idx = _grid_inputs(20, 8, 1024, 16, 8, 100, 120, 5,
+                                           cuda)
+    wave = ops.subsample_grid(data, months, rows, idx, grid=120,
+                              statistic=statistic)
+    for b in range(16):
+        one = ops.subsample_grid(data, months, rows[b:b + 1].contiguous(),
+                                 idx[b:b + 1].contiguous(), grid=120,
+                                 statistic=statistic)
+        assert torch.equal(wave[b], one[0]), b
+
+
+@pytest.mark.cuda
+def test_grid_kernel_reads_the_slot_not_a_copy(cuda):
+    """A wave over slots equals the same wave over an arena holding only
+    those slots' blocks in wave order."""
+    data, months, rows, idx = _grid_inputs(6, 4, 256, 5, 4, 64, 64, 8, cuda)
+    packed = data[rows.long()].contiguous()
+    packed_mo = months[rows.long()].contiguous()
+    order = torch.arange(5, dtype=torch.int32, device=cuda)
+    for statistic in ("alod", "monthly_mean"):
+        assert torch.equal(
+            ops.subsample_grid(data, months, rows, idx, grid=64,
+                               statistic=statistic),
+            ops.subsample_grid(packed, packed_mo, order, idx, grid=64,
+                               statistic=statistic))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["cpu_rows", "int64_idx", "strided"])
+def test_grid_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    data, months, rows, idx = _grid_inputs(2, 3, 64, 2, 3, 8, 16, 0, cuda)
+    if bad == "cpu_rows":
+        rows = rows.cpu()
+    elif bad == "int64_idx":
+        idx = idx.long()
+    else:
+        data = torch.cat([data, data], dim=-1)[:, :, :64]
+    before = ops.launch_count("subsample_grid")
+    with pytest.raises((ValueError, TypeError)):
+        ops.subsample_grid(data, months, rows, idx, grid=16,
+                           statistic="monthly_mean")
+    assert ops.launch_count("subsample_grid") == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wave", [("eaglet", "on"), ("eaglet", "off"),
+                                       ("netflix_low", "auto")])
+def test_platform_runs_the_paper_workloads_on_the_kernel(cuda, monkeypatch,
+                                                         name, wave):
+    """``Platform.run`` with ``engine="auto"`` on the card launches
+    ``subsample_grid`` (one launch a wave or a task, plus one a warm-up)
+    and never its plain version."""
+    from repro_torch.core import subsample as ss
+    from repro_torch.data import (EagletSpec, NetflixSpec, eaglet_dataset,
+                                  netflix_dataset)
+    from repro_torch.platform import Platform, PlatformSpec, WaveOptions
+    from repro_torch.platform.driver import plan_job
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card's path")
+
+    monkeypatch.setattr(ref, "subsample_grid_ref", plain)
+    samples, months = (
+        eaglet_dataset(EagletSpec(n_families=24, mean_markers=512))
+        if name == "eaglet"
+        else netflix_dataset(NetflixSpec(n_movies=64, mean_ratings=400)))
+    mean = float(np.mean([a.nbytes for a in samples.values()]))
+    spec = PlatformSpec(platform="BTS", n_workers=2, knee_bytes=8 * mean,
+                        waves=WaveOptions(wave=wave, max_wave=4))
+    before = ops.launch_count("subsample_grid")
+    rep = Platform(spec).run(samples, months, ss.WORKLOADS[name])
+    launches = ops.launch_count("subsample_grid") - before
+    plan = plan_job(samples, months, ss.WORKLOADS[name], sizing="kneepoint",
+                    engine="torch", n_exec=2, knee_bytes=spec.knee_bytes)
+    warm_ups = len({plan.task_shape(t) for t in plan.tasks})
+    assert rep.engine == "torch"
+    assert launches == rep.device_dispatches + warm_ups
+    assert rep.device_dispatches == (len(rep.wave_sizes) if wave != "off"
+                                     else rep.n_tasks)
+    assert (len(rep.wave_sizes) > 0) == (wave != "off")
+    result = next(iter(rep.result.values()))
+    assert np.all(np.isfinite(np.asarray(result)))
+
+
+def test_grid_kernel_adds_no_float_with_an_atomic():
+    """The kernel's sums keep one fixed order: its source calls no atomic
+    at all (comments aside)."""
+    code = re.sub(r"//[^\n]*", "", GRID_SOURCE.read_text())
+    assert "__global__" in code
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", code)

@@ -33,6 +33,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.kernels.subsample_gather\n"
         "import repro_torch.kernels.rglru_scan\n"
         "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.subsample_grid\n"
+        "import repro_torch.core.subsample\n"
         "import repro_torch.models.rglru\n"
         "import repro_torch.configs.recurrentgemma_2b\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"

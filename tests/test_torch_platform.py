@@ -155,13 +155,20 @@ def test_deferred_options_raise(option):
 
 
 def test_engine_resolution():
+    """``auto`` gives the reference's choice under the port's names: the
+    ``kernel`` engine (the reference's ``pallas``) for ``moments`` and the
+    ``torch`` engine (the reference's ``jnp``) for the paper's grid
+    statistics; each device engine refuses the other's statistic."""
     pc = port_platform.compute
     assert pc.resolve_engine("moments", "auto") == "kernel"
+    assert pc.resolve_engine("alod", "auto") == "torch"
+    assert pc.resolve_engine("monthly_mean", "auto") == "torch"
     assert pc.resolve_engine("alod", "numpy") == "numpy"
-    for statistic, prefer in (("alod", "auto"), ("monthly_mean", "auto"),
-                              ("moments", "torch")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            pc.resolve_engine(statistic, prefer)
+    assert pc.resolve_engine("monthly_mean", "torch") == "torch"
+    assert pc.wave_supported("torch") and pc.wave_supported("kernel")
+    assert not pc.wave_supported("numpy")
+    with pytest.raises(ValueError, match="grid statistics"):
+        pc.resolve_engine("moments", "torch")
     with pytest.raises(ValueError):
         pc.resolve_engine("alod", "kernel")
     with pytest.raises(ValueError):
