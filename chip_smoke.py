@@ -32,10 +32,13 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    its stats against ``ops.subsample_stats`` on the same block and rows.
 5. Reruns that job per task (``wave="off"``) and asserts the result is
    bit-identical.  Then the paper's own workloads on ``subsample_grid``:
-   phase 3f holds the kernel against its plain version on real task
-   blocks of EAGLET at the thesis' scale (400 families, 131,072 markers on
-   average, 230.5 MB) and of the Netflix catalogue, and at its other
-   branches, and one task against float64 numpy; step 4c runs the
+   phase 3f holds the kernel's own threefry draws (``ops.randint``)
+   against ``prng.randint``, its draw form (the platform's path) against
+   its read form fed those indices (bit for bit) and against its plain
+   version, on real task blocks of EAGLET at the thesis' scale (400
+   families, 131,072 markers on average, 230.5 MB) and of the Netflix
+   catalogue, and at its other branches, and one task against float64
+   numpy, and times the draw form at waves of 16 and 3; step 4c runs the
    catalogue through ``Platform.run`` as NETFLIX_LOW (``wave="auto"``) and
    NETFLIX_HIGH (waves and per task, bit-identical); step 4b runs EAGLET
    the same way.  Each of those jobs runs under ``torch.profiler``, the
@@ -1022,25 +1025,39 @@ def _grid_close(got, want, what):
     return float((got[:, 0] - want[:, 0]).abs().max())
 
 
-def _grid_bound(data, rows, idx, grid, statistic):
-    """Least time for one ``subsample_grid`` call: the indices and the slot
-    vector read once, each distinct element this run's indices touch read
-    once from the block (and from the months), the ``[B, 2, grid]`` output
-    written once, over 3.35 TB/s; against the fp32 operations an element
-    needs (alod: the mean, the deviation, its square, the score's divide
-    and absolute value, the cell's divide and multiply, the bin's add: 10;
-    monthly_mean: the bin's add) over 67 TFLOP/s."""
+INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
+                               # 132 SMs x 1.98 GHz (the clock behind the
+                               # 67 TFLOP/s fp32 peak); no data-sheet rate
+THREEFRY_OPS = 75              # 32-bit integer operations of one hash
+
+
+def _grid_bound(data, rows, idx, grid, statistic, multiplier):
+    """Least time for one ``subsample_grid_seeded`` call, which draws
+    ``idx`` itself: the slot and seed vectors read once, each distinct
+    element this run's indices touch read once from the block (and from
+    the months), the ``[B, 2, grid]`` output written once, over 3.35 TB/s;
+    against the draws' 32-bit integer operations, about 75 a drawn
+    element (one Threefry-2x32 hash: 20 rounds of add, rotate and xor,
+    the key injections, the output words' xor and a mask) when the span's
+    multiplier is 0 and about 150 (two hashes and three remainders) when
+    it is not, over 16.7 T/s (derived, ``INT32_OPS_PER_S``); and against
+    the fp32 operations an element needs (alod: the mean, the deviation,
+    its square, the score's divide and absolute value, the cell's divide
+    and multiply, the bin's add: 10; monthly_mean: the bin's add) over 67
+    TFLOP/s.  The integer and fp32 units work side by side, so the bound
+    is the largest of the three, named."""
     _, ns, sl = data.shape
-    b, draws, _, ds = idx.shape
+    b = idx.shape[0]
     key = ((rows.long()[:, None, None, None] * ns
             + torch.arange(ns, device=idx.device)[None, None, :, None]) * sl
            + idx.long())
     touched = int(torch.unique(key).numel())
     planes = 2 if statistic == "monthly_mean" else 1
-    nbytes = idx.numel() * 4 + b * 4 + touched * 4 * planes + b * 2 * 4 * grid
+    nbytes = 2 * b * 4 + touched * 4 * planes + b * 2 * 4 * grid
+    int_ops = THREEFRY_OPS * (1 if multiplier == 0 else 2) * idx.numel()
     flops = (10.0 if statistic == "alod" else 1.0) * idx.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1067,22 +1084,65 @@ def _grid_f64(block, months, idx, grid, statistic):
     return np.stack([sums, counts])[None]
 
 
+RANDINT_SEEDS = [-1, -2 ** 31, 2 ** 31 - 1] + list(range(16))
+
+
+def check_randint(ops, prng, shapes):
+    """Phase 3f, the draws alone: ``ops.randint`` (the kernel's threefry)
+    ``torch.equal`` to ``prng.randint`` (jax's draws as int64 torch ops)
+    on the card, at the workloads' ``(draws, ns, ds)`` shapes over their
+    spans and at spans that are not powers of two (77, 1,000, 65,537: a
+    multiplier of 0 and a remainder; 3), for seeds -1, -2^31, 2^31 - 1
+    and 0-15."""
+    seeds = torch.tensor(RANDINT_SEEDS, dtype=torch.int32, device="cuda")
+    keys = prng.PRNGKey(seeds)
+    cases = list(shapes) + [((8, 4, 300), span)
+                            for span in (77, 1000, 65537, 3)]
+    for shape, span in cases:
+        got = ops.randint(seeds, shape, 0, span)
+        want = prng.randint(keys, shape, 0, span)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"ops.randint != prng.randint at {shape} "
+                                 f"span {span}: {bad} draws differ")
+        _, mult = prng._randint_multiplier(0, span)
+        print(f"randint check {shape} in [0, {span}) (multiplier {mult}), "
+              f"{len(RANDINT_SEEDS)} seeds: the kernel's draws == "
+              "prng.randint bit for bit")
+
+
 def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
-    """Phase 3f: ``subsample_grid`` against its plain version on the card.
-    The workloads' real blocks: EAGLET on one task block of the 400-family
-    dataset (64 families, padded to 2,097,152 markers by its 15x outlier),
-    NETFLIX_HIGH and NETFLIX_LOW on one 64-movie block of the catalogue;
-    then ns = 1, a draw size that is not a multiple of 32, grid 64 and 120
-    for both statistics, and months below 0 and past the grid (clipped).
-    Each case: counts equal, sums within tolerance, two launches equal bit
-    for bit, and each task of a wave of 16 (slots of an arena, seeds 0-15)
-    equal bit for bit to itself launched as a wave of one.  Then one
-    task's partial against a float64 numpy recomputation from the same
-    indices, and the times."""
+    """Phase 3f: ``subsample_grid`` on the card, its draw form (the
+    platform's path, ``ops.subsample_grid_seeded``) against its read form
+    fed ``prng.randint``'s indices and against its plain version.  The
+    workloads' real blocks: EAGLET on one task block of the 400-family
+    dataset (64 families, padded to 2,097,152 markers by its 15x
+    outlier), NETFLIX_HIGH and NETFLIX_LOW on one 64-movie block of the
+    catalogue; then ns = 1, a draw size that is not a multiple of 32, grid
+    64 and 120 for both statistics, months below 0 and past the grid
+    (clipped), an ``alod`` row too long for the kernel's index stash
+    (drawn again in each pass), and block lengths that are not powers of
+    two (1,000 and 65,537 for the remainder, 77 and 3).  Each case, a wave of 16 (slots
+    of an arena, seeds 0-15): the draws alone ``torch.equal`` to
+    ``prng.randint``'s, the draw form ``torch.equal`` to the read form on
+    those indices, counts equal and sums within tolerance of the plain
+    version, two launches equal bit for bit, and each task equal bit for
+    bit to itself launched as a wave of one.  Then one task's partial
+    against a float64 numpy recomputation from the same indices, and the
+    times: the draw form at waves of 16 and 3, the read form at 16."""
     dev = torch.device("cuda")
     eb, em = (torch.from_numpy(a).to(dev)[None] for a in eaglet_block)
     nb = torch.from_numpy(np.stack([b for b, _ in netflix_blocks])).to(dev)
     nm = torch.from_numpy(np.stack([m for _, m in netflix_blocks])).to(dev)
+    check_randint(ops, prng, [
+        ((w.draws, data.shape[1], w.draw_size), data.shape[2])
+        for w, data in ((ss.EAGLET, eb), (ss.NETFLIX_HIGH, nb),
+                        (ss.NETFLIX_LOW, nb))])
+
+    def cut(x, n):
+        return x[..., :n].contiguous()
+
     wl = ss.SubsampleWorkload
     cases = [  # label, data, months, workload
         ("EAGLET", eb, em, ss.EAGLET),
@@ -1097,33 +1157,48 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
          nb, (nm - 10).contiguous(), wl("m", "monthly_mean", 7, 77, 64)),
         ("alod grid=64 on the netflix block", nb, nm,
          wl("a", "alod", 8, 256, 64)),
+        ("alod ds=2048, each index drawn again", nb, nm,
+         wl("a", "alod", 8, 2048, 64)),
+        ("monthly sl=1000", cut(nb, 1000), cut(nm, 1000), ss.NETFLIX_HIGH),
+        ("alod sl=65537", cut(eb, 65537), cut(em, 65537), ss.EAGLET),
+        ("alod sl=77 ds=40", cut(eb, 77), cut(em, 77),
+         wl("a", "alod", 5, 40, 64)),
+        ("monthly sl=3", cut(nb, 3), cut(nm, 3), ss.NETFLIX_LOW),
     ]
     worst, timed = 0.0, {}
     for label, data, months, w in cases:
         n_slots = data.shape[0]
         rows = torch.arange(16, dtype=torch.int32, device=dev) % n_slots
         seeds = torch.arange(16, dtype=torch.int32, device=dev)
-        idx = ss.draw_indices(prng.PRNGKey(seeds), data.shape[1],
-                              data.shape[2], draws=w.draws,
-                              draw_size=w.draw_size)
+        shape = (w.draws, data.shape[1], w.draw_size)
+        idx = prng.randint(prng.PRNGKey(seeds), shape, 0, data.shape[2])
+        if not torch.equal(ops.randint(seeds, shape, 0, data.shape[2]), idx):
+            raise AssertionError(f"{label}: the kernel's draws != "
+                                 "prng.randint")
         kw = dict(grid=w.grid, statistic=w.statistic)
-        got = ops.subsample_grid(data, months, rows, idx, **kw)
-        want = ref.subsample_grid_ref(data, months, rows, idx, **kw)
+        skw = dict(draws=w.draws, draw_size=w.draw_size, **kw)
+        got = ops.subsample_grid_seeded(data, months, rows, seeds, **skw)
+        read = ops.subsample_grid(data, months, rows, idx, **kw)
+        want = ref.subsample_grid_seeded_ref(data, months, rows, seeds, **skw)
         torch.cuda.synchronize()
+        if not torch.equal(got, read):
+            raise AssertionError(f"{label}: the draw form != the read form "
+                                 "on prng.randint's indices")
         err = _grid_close(got, want, label)
-        if not torch.equal(got, ops.subsample_grid(data, months, rows, idx,
-                                                   **kw)):
+        if not torch.equal(got, ops.subsample_grid_seeded(
+                data, months, rows, seeds, **skw)):
             raise AssertionError(f"{label}: two launches differ")
         for b in range(16):
-            one = ops.subsample_grid(data, months, rows[b:b + 1],
-                                     idx[b:b + 1], **kw)
+            one = ops.subsample_grid_seeded(data, months, rows[b:b + 1],
+                                            seeds[b:b + 1], **skw)
             if not torch.equal(one[0], got[b]):
                 raise AssertionError(f"{label}: task {b} of a wave of 16 "
                                      "!= the task as a wave of one")
         worst = max(worst, err)
         print(f"grid kernel check {label}: data {tuple(data.shape)}, "
               f"{w.statistic} draws {w.draws} x {w.draw_size}, grid "
-              f"{w.grid}, wave of 16: counts equal, sums max_abs_err "
+              f"{w.grid}, wave of 16: draws == prng.randint; draw form == "
+              f"read form bit for bit; counts equal, sums max_abs_err "
               f"{err!r} (rtol {GRID_RTOL}, atol {GRID_ATOL_SCALE} x max "
               "|sum|); two launches equal; each task == itself alone")
         if label in ("EAGLET", "NETFLIX_HIGH", "NETFLIX_LOW"):
@@ -1133,25 +1208,35 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
                                 torch.from_numpy(host), f"{label} float64")
             print(f"  {label}: task 0 against float64 numpy from the same "
                   f"indices, max_abs_err {err64!r}")
-            timed[label] = (data, months, rows, idx, kw)
+            timed[label] = (data, months, rows, seeds, idx, skw)
     rows_ms = {}
-    for label, (data, months, rows, idx, kw) in timed.items():
-        ms = _time_ms(lambda: ops.subsample_grid(data, months, rows, idx,
-                                                 **kw))
-        bound_ms, bound_by = _grid_bound(data, rows, idx, **kw)
-        rows_ms[label] = (ms, bound_ms, bound_by)
-        print(f"subsample_grid {label} wave of 16 on "
-              f"{tuple(data.shape)}, idx {tuple(idx.shape)}: kernel {ms!r} "
-              f"ms, bound {bound_ms!r} ms ({bound_by}), share of the bound "
-              f"{bound_ms / ms!r}")
-    data, months, rows, idx, kw = timed["NETFLIX_HIGH"]
-    plain_ms = _time_ms(lambda: ref.subsample_grid_ref(data, months, rows,
-                                                       idx, **kw), reps=3)
-    ms, bound_ms, bound_by = rows_ms["NETFLIX_HIGH"]
-    print(f"subsample_grid at NETFLIX_HIGH's wave of 16: kernel {ms!r} ms, "
-          f"plain {plain_ms!r} ms; no single PyTorch call computes these "
-          "binned sums in a fixed order (index_add_ and a weighted bincount "
-          "add with atomics), so library_ms is null")
+    for label, (data, months, rows, seeds, idx, skw) in timed.items():
+        _, mult = prng._randint_multiplier(0, data.shape[2])
+        for width in (16, 3):
+            r, sd, ix = rows[:width], seeds[:width], idx[:width]
+            ms = _time_ms(lambda: ops.subsample_grid_seeded(
+                data, months, r, sd, **skw))
+            bound_ms, bound_by = _grid_bound(data, r, ix, skw["grid"],
+                                             skw["statistic"], mult)
+            rows_ms[label, width] = (ms, bound_ms, bound_by)
+            print(f"subsample_grid (draw form) {label} wave of {width} on "
+                  f"{tuple(data.shape)}, draws {tuple(ix.shape)}: kernel "
+                  f"{ms!r} ms, bound {bound_ms!r} ms ({bound_by}), share of "
+                  f"the bound {bound_ms / ms!r}")
+        kw = dict(grid=skw["grid"], statistic=skw["statistic"])
+        read_ms = _time_ms(lambda: ops.subsample_grid(data, months, rows, idx,
+                                                      **kw))
+        print(f"subsample_grid (read form, the oracle) {label} wave of 16: "
+              f"kernel {read_ms!r} ms")
+    data, months, rows, seeds, _, skw = timed["NETFLIX_HIGH"]
+    plain_ms = _time_ms(lambda: ref.subsample_grid_seeded_ref(
+        data, months, rows, seeds, **skw), reps=3)
+    ms, bound_ms, bound_by = rows_ms["NETFLIX_HIGH", 16]
+    print(f"subsample_grid (draw form) at NETFLIX_HIGH's wave of 16: kernel "
+          f"{ms!r} ms, plain (prng.randint, then the binned sums) "
+          f"{plain_ms!r} ms; no single PyTorch call computes these binned "
+          "sums in a fixed order (index_add_ and a weighted bincount add "
+          "with atomics), so library_ms is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1204,7 +1289,8 @@ def grid_job(ops, Platform, label, samples, months, workload, *, wave,
           f"({dispatched} {'waves' if waved else 'tasks'} + {warm_ups} "
           f"warm-ups), arena/uploaded {rep.bytes_uploaded!r} bytes; execute "
           f"window {window_ms!r} ms, device busy {busy_ms!r} ms (share "
-          f"{busy_ms / window_ms!r}), device ms by kind "
+          f"{busy_ms / window_ms!r}), device ms outside the kernel "
+          f"{by_kind['memcpy'] + by_kind['other']!r}, device ms by kind "
           f"{json.dumps(by_kind)}")
     if backend == "threaded" and launches != dispatched + warm_ups:
         raise AssertionError(f"{label}: {launches} launches != "
@@ -1440,7 +1526,7 @@ def main() -> None:
         "launches": sg_launches, "library_ms": None, **sg_timing}, {
         "name": "subsample_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_grid.cu",
-        "replaces": "src/repro/core/subsample.py:55",
+        "replaces": "src/repro/core/subsample.py:53",
         "launches": grid_launches, "library_ms": None, **grid_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

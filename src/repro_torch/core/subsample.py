@@ -9,11 +9,11 @@ into the job result (the ALOD curve / per-month rating means).
 :func:`map_task` is the statistic as plain torch ops on whatever device its
 tensors lie on; it is also the plain version of the hand-written CUDA
 kernel behind :func:`repro_torch.kernels.ops.subsample_grid`.
-:func:`map_wave` is the device pipeline the platform runs: per-task
-indices from the seeds (jax's exact draws, :mod:`repro_torch.prng`), then
-one kernel launch for the whole wave, reading the block arena through the
-wave's slot vector.  The kernel adds in a fixed order, so a task's partial
-does not depend on the wave it ran in.
+:func:`map_wave` is the device pipeline the platform runs: one kernel
+launch for the whole wave, which draws each task's indices from its seed
+(jax's exact draws, as :mod:`repro_torch.prng` gives them) and reads the
+block arena through the wave's slot vector.  The kernel adds in a fixed
+order, so a task's partial does not depend on the wave it ran in.
 """
 
 from __future__ import annotations
@@ -91,16 +91,15 @@ def map_wave(data: torch.Tensor, months: torch.Tensor,
     """One wave on the device: ``data [n_slots, ns, sl]`` fp32 and
     ``months`` of the same shape, int32 (read by ``monthly_mean`` only),
     are the resident arena bucket; task ``b`` is slot ``rows[b]`` with seed
-    ``seeds[b]``.  Indices come from the seeds (jax's exact draws), then
-    one ``subsample_grid`` launch → ``[B, 2, grid]`` fp32 on the device."""
+    ``seeds[b]``.  One ``subsample_grid_seeded`` launch, which draws each
+    task's indices from its seed (jax's exact draws) → ``[B, 2, grid]``
+    fp32 on the device."""
     device = data.device
     rows_t = torch.from_numpy(np.asarray(rows, np.int32)).to(device)
     seeds_t = torch.from_numpy(np.asarray(seeds, np.int32)).to(device)
-    ns, sl = data.shape[1:]
-    idx = draw_indices(prng.PRNGKey(seeds_t), ns, sl, draws=wl.draws,
-                       draw_size=wl.draw_size)
-    return ops.subsample_grid(data, months, rows_t, idx, grid=wl.grid,
-                              statistic=wl.statistic)
+    return ops.subsample_grid_seeded(data, months, rows_t, seeds_t,
+                                     draws=wl.draws, draw_size=wl.draw_size,
+                                     grid=wl.grid, statistic=wl.statistic)
 
 
 def split_partials(stats: np.ndarray, wl: SubsampleWorkload,

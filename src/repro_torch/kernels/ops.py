@@ -10,11 +10,13 @@ its main path went through the kernel.
 
 from __future__ import annotations
 
+import math
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
@@ -23,8 +25,10 @@ from repro_torch.kernels import subsample_gather as _sg
 from repro_torch.kernels import subsample_grid as _sgrid
 
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
-           "flash_attention", "subsample_gather", "subsample_grid")
+           "flash_attention", "subsample_gather", "subsample_grid",
+           "threefry_randint")
 
+_COUNTERS = 2 ** 32                      # flat positions a threefry key draws
 _count_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)    # kernel launches since the reset
 
@@ -142,17 +146,14 @@ def subsample_gather(data: torch.Tensor, indices: torch.Tensor):
     return _subsample_gather_padded(data, indices, n_valid)
 
 
-def _check_subsample_grid(data, months, rows, idx, grid: int,
-                          statistic: str) -> None:
-    if data.dim() != 3 or rows.dim() != 1 or idx.dim() != 4:
-        raise ValueError(
-            "subsample_grid takes data [n_slots, ns, sl], rows [B] and idx "
-            f"[B, draws, ns, ds]; got {tuple(data.shape)}, "
-            f"{tuple(rows.shape)} and {tuple(idx.shape)}")
-    bsz, draws, ns, ds = idx.shape
-    if rows.shape[0] != bsz or ns != data.shape[1]:
-        raise ValueError(f"idx {tuple(idx.shape)} does not fit rows "
-                         f"{tuple(rows.shape)} and data {tuple(data.shape)}")
+def _check_grid_arena(data, months, rows, draws: int, ds: int, grid: int,
+                      statistic: str) -> None:
+    """What both ``subsample_grid`` forms need of the arena, the slots and
+    the draw shape."""
+    if data.dim() != 3 or rows.dim() != 1:
+        raise ValueError("subsample_grid takes data [n_slots, ns, sl] and "
+                         f"rows [B]; got {tuple(data.shape)} and "
+                         f"{tuple(rows.shape)}")
     if statistic not in _sgrid.STATISTICS:
         raise ValueError(f"unknown statistic {statistic!r}; choose one of "
                          f"{sorted(_sgrid.STATISTICS)}")
@@ -162,25 +163,58 @@ def _check_subsample_grid(data, months, rows, idx, grid: int,
     if draws < 1 or ds < 1:
         raise ValueError(f"draws and draw_size must be >= 1, got {draws} "
                          f"and {ds}")
-    if ns * draws * ds >= 2 ** 24:
-        raise ValueError(f"{ns} x {draws} x {ds} drawn elements a task: "
-                         "fp32 counts are exact only below 2**24")
+    if data.shape[1] * draws * ds >= 2 ** 24:
+        raise ValueError(f"{data.shape[1]} x {draws} x {ds} drawn elements "
+                         "a task: fp32 counts are exact only below 2**24")
     if data.dtype != torch.float32:
         raise TypeError(f"subsample_grid takes fp32 data, got {data.dtype}")
-    if rows.dtype != torch.int32 or idx.dtype != torch.int32:
-        raise TypeError("subsample_grid takes int32 rows and idx; got "
-                        f"{rows.dtype} and {idx.dtype}")
+    if rows.dtype != torch.int32:
+        raise TypeError(f"subsample_grid takes int32 rows, got {rows.dtype}")
     if tuple(months.shape) != tuple(data.shape):
         raise ValueError(f"months {tuple(months.shape)} != data "
                          f"{tuple(data.shape)}")
     if months.dtype != torch.int32:
         raise TypeError(f"subsample_grid takes int32 months, got "
                         f"{months.dtype}")
-    tensors = (data, months, rows, idx)
-    if any(t.device != data.device for t in tensors):
-        raise ValueError("data, months, rows and idx must lie on one device")
+
+
+def _check_same_place(*tensors) -> None:
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("subsample_grid's tensors must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("subsample_grid takes contiguous tensors")
+
+
+def _check_subsample_grid(data, months, rows, idx, grid: int,
+                          statistic: str) -> None:
+    if idx.dim() != 4:
+        raise ValueError("subsample_grid takes idx [B, draws, ns, ds]; got "
+                         f"{tuple(idx.shape)}")
+    bsz, draws, ns, ds = idx.shape
+    _check_grid_arena(data, months, rows, draws, ds, grid, statistic)
+    if rows.shape[0] != bsz or ns != data.shape[1]:
+        raise ValueError(f"idx {tuple(idx.shape)} does not fit rows "
+                         f"{tuple(rows.shape)} and data {tuple(data.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"subsample_grid takes int32 idx, got {idx.dtype}")
+    _check_same_place(data, months, rows, idx)
+
+
+def _check_subsample_grid_seeded(data, months, rows, seeds, draws: int,
+                                 ds: int, grid: int, statistic: str) -> None:
+    # the arena's 2**24 bound on a task's draws also keeps them inside a
+    # key's 2**32 counters
+    _check_grid_arena(data, months, rows, draws, ds, grid, statistic)
+    if data.shape[2] < 1:
+        raise ValueError("subsample_grid_seeded draws from [0, sl) and "
+                         f"needs sl >= 1; got data {tuple(data.shape)}")
+    if seeds.dim() != 1 or seeds.shape[0] != rows.shape[0]:
+        raise ValueError(f"seeds must be [B] = [{rows.shape[0]}], got "
+                         f"{tuple(seeds.shape)}")
+    if seeds.dtype != torch.int32:
+        raise TypeError(f"subsample_grid_seeded takes int32 seeds, got "
+                        f"{seeds.dtype}")
+    _check_same_place(data, months, rows, seeds)
 
 
 def subsample_grid(data: torch.Tensor, months: torch.Tensor,
@@ -204,6 +238,54 @@ def subsample_grid(data: torch.Tensor, months: torch.Tensor,
                                 statistic=statistic)
     _counted("subsample_grid")
     return out
+
+
+def subsample_grid_seeded(data: torch.Tensor, months: torch.Tensor,
+                          rows: torch.Tensor, seeds: torch.Tensor, *,
+                          draws: int, draw_size: int, grid: int,
+                          statistic: str) -> torch.Tensor:
+    """:func:`subsample_grid` with each task's indices drawn from its seed:
+    task ``b``'s are ``jax.random.randint(PRNGKey(seeds[b]), (draws, ns,
+    draw_size), 0, sl)`` for ``seeds [B]`` int32, bit for bit
+    (:mod:`repro_torch.prng`).  On the card the kernel draws them itself,
+    and no index tensor exists; on the CPU the plain version draws them
+    with :func:`repro_torch.prng.randint`.  Either way task ``b``'s
+    partial is :func:`subsample_grid`'s on those indices, bit for bit.
+    Counts as a ``subsample_grid`` launch."""
+    _check_subsample_grid_seeded(data, months, rows, seeds, draws,
+                                 draw_size, grid, statistic)
+    kw = dict(draws=draws, draw_size=draw_size, grid=grid,
+              statistic=statistic)
+    if not data.is_cuda:
+        return ref.subsample_grid_seeded_ref(data, months, rows, seeds, **kw)
+    out = _sgrid.subsample_grid_seeded(data, months, rows, seeds, **kw)
+    _counted("subsample_grid")
+    return out
+
+
+def randint(seeds: torch.Tensor, shape: Sequence[int], lo: int,
+            hi: int) -> torch.Tensor:
+    """``jax.random.randint(PRNGKey(seed), shape, lo, hi, int32)`` for each
+    of ``seeds [B]`` int32 → ``[B, *shape]`` int32: on the card the
+    threefry of ``subsample_grid``'s kernel, on the CPU
+    :func:`repro_torch.prng.randint`.  ``prod(shape)`` must lie below
+    2**32."""
+    shape = tuple(int(n) for n in shape)
+    if seeds.dim() != 1:
+        raise ValueError(f"randint takes seeds [B], got {tuple(seeds.shape)}")
+    if seeds.dtype != torch.int32:
+        raise TypeError(f"randint takes int32 seeds, got {seeds.dtype}")
+    if not seeds.is_contiguous():
+        raise ValueError("randint takes contiguous seeds")
+    if any(n < 0 for n in shape) or math.prod(shape) >= _COUNTERS:
+        raise ValueError(f"randint draws shapes of fewer than 2**32 "
+                         f"elements, got {shape}")
+    prng._randint_multiplier(lo, hi)              # bounds within int32
+    if not seeds.is_cuda:
+        return prng.randint(prng.PRNGKey(seeds), shape, lo, hi)
+    out = _sgrid.threefry_randint(seeds, math.prod(shape), lo, hi)
+    _counted("threefry_randint")
+    return out.reshape((seeds.shape[0],) + shape)
 
 
 def _check_rwkv6(r, k, v, logw, u, state, chunk: int) -> None:

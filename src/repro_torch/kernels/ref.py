@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch import prng
+
 
 def subsample_stats_ref(data: torch.Tensor, indices: torch.Tensor, *,
                         rows_per_step: int = 8) -> torch.Tensor:
@@ -125,6 +127,20 @@ def subsample_grid_ref(data: torch.Tensor, months: torch.Tensor,
         grid_partial(data[r], months[r], idx[b], grid=grid,
                      statistic=statistic)
         for b, r in enumerate(rows.tolist())])
+
+
+def subsample_grid_seeded_ref(data: torch.Tensor, months: torch.Tensor,
+                              rows: torch.Tensor, seeds: torch.Tensor, *,
+                              draws: int, draw_size: int, grid: int,
+                              statistic: str) -> torch.Tensor:
+    """``subsample_grid_seeded``'s plain version: task ``b``'s indices are
+    ``jax.random.randint(PRNGKey(seeds[b]), (draws, ns, draw_size), 0,
+    sl)`` (:func:`repro_torch.prng.randint`), then
+    :func:`subsample_grid_ref` → ``[B, 2, grid]`` fp32."""
+    _, ns, sl = data.shape
+    idx = prng.randint(prng.PRNGKey(seeds), (draws, ns, draw_size), 0, sl)
+    return subsample_grid_ref(data, months, rows, idx, grid=grid,
+                              statistic=statistic)
 
 
 def rwkv6_chunked_ref(r, k, v, logw, u) -> torch.Tensor:

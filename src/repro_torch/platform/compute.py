@@ -27,9 +27,10 @@ Wave execution: a *wave* is a batch of same-shape ready tasks executed in
 ONE kernel launch.  :class:`BlockArena` packs the job's padded blocks into
 a device-resident ``[n_tasks, count, len]`` tensor per distinct shape
 (uploaded once; the ``torch`` engine's arena carries the months plane
-too); :func:`run_map_wave` derives every task's indices from its seed with
-:func:`repro_torch.prng.randint` (jax's exact draws) and launches the
-engine's kernel once for the wave.  Per-task accumulation order is
+too); :func:`run_map_wave` launches the engine's kernel once for the
+wave, every task's indices derived from its seed (jax's exact draws):
+by :func:`repro_torch.prng.randint` before the ``kernel`` engine's
+launch, inside the ``torch`` engine's kernel.  Per-task accumulation order is
 independent of the wave partition, so wave and per-task execution are
 bit-identical for a fixed seed.
 """
@@ -318,28 +319,31 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
     """Execute a wave of same-shape tasks in one kernel launch and split
     the batched result back into per-task reduce-tree partials.
 
-    The wave is padded (repeating the first slot; padded outputs
-    discarded) to ``pad_to`` when given — the driver pins one wave width
-    per shape bucket — else to the next power of two.
+    The ``kernel`` engine's wave is padded (repeating the first slot;
+    padded outputs discarded) to ``pad_to`` when given — the driver pins
+    one wave width per shape bucket — else to the next power of two.  The
+    ``torch`` engine launches over the wave's own tasks only: its kernel
+    takes the wave width at run time, so a padded lane would only draw
+    and bin what is then thrown away.
     """
     if engine not in ("kernel", "torch"):
         raise ValueError(f"engine {engine!r} does not support wave execution")
     key, rows = arena.slots(tasks)
     b = len(rows)
-    b_pad = max(pad_to, b) if pad_to is not None else pow2_ceil(b)
     seeds = np.asarray(seeds, np.int32)
-    if b_pad != b:
-        rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b)])
-        seeds = np.concatenate([seeds, np.repeat(seeds[:1], b_pad - b)])
     data, months = arena.bucket(key)
     if engine == "torch":
         if months is None:
             raise ValueError("torch waves need pack(with_months=True)")
-        # the pipeline: seeds → jax's exact draws → one subsample_grid
-        # launch reading the resident arena through the slots
+        # one subsample_grid launch: the draws from the seeds in the
+        # kernel, the resident arena read through the slots
         stats = ss.map_wave(data, months, rows, seeds, workload)
-        return ss.split_partials(stats[:b].cpu().numpy(), workload,
+        return ss.split_partials(stats.cpu().numpy(), workload,
                                  data.shape[1])
+    b_pad = max(pad_to, b) if pad_to is not None else pow2_ceil(b)
+    if b_pad != b:
+        rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b)])
+        seeds = np.concatenate([seeds, np.repeat(seeds[:1], b_pad - b)])
     n_idx = workload.draws * workload.draw_size
     stats = _moments_wave(data, rows, seeds, n_idx=n_idx)
     return _split_moments(stats[:b], n_idx)

@@ -22,12 +22,21 @@ on, implementation ``threefry2x32``):
 
 Everything is batched over a leading ``[B]`` axis of keys and written as
 int64 tensor arithmetic masked to 32 bits, so it runs on any device.  A
-``randint`` hashes twice (the split, then both draws together), each hash
-some 170 elementwise torch operations.
+``randint`` hashes twice (the split, then the draws), each hash some 170
+elementwise torch operations.  :func:`randint_at` gives the draws at
+chosen flat counters, which is what one thread of the CUDA kernels
+computes (``kernels/csrc/threefry.cuh`` transcribes this module);
+:func:`randint` is it over ``arange(prod(shape))``.
+
+The multiplier of the remainder combination,
+``((2**16 % span)**2 mod 2**32) % span``, is 0 for every power-of-two
+span up to 2**16 and for every span above 2**16; the first draw
+(``higher``) then adds nothing, and it is not hashed.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -78,39 +87,62 @@ def split(keys: torch.Tensor) -> tuple:
     return pair[..., 0, :], pair[..., 1, :]
 
 
-def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element of ``shape`` for each key of
-    ``keys [B, 2]`` → ``[B, *shape]`` int64 holding uint32 values."""
-    shape = tuple(int(s) for s in shape)
-    size = 1
-    for s in shape:
-        size *= s
-    lo = torch.arange(size, dtype=torch.int64, device=keys.device)
-    hi = torch.zeros_like(lo)
-    b1, b2 = threefry2x32(keys[:, None, :], hi, lo)
-    return (b1 ^ b2).reshape((keys.shape[0],) + shape)
+def _bits_at(keys: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
+    """jax's 32-bit ``random_bits`` at flat ``counters`` (non-negative
+    int64, any shape) for each key of ``keys [B, 2]`` → ``[B,
+    *counters.shape]`` int64 holding uint32 values: the counter's high and
+    low words are hashed, and the two output words XORed."""
+    view = (keys.shape[0],) + (1,) * counters.dim() + (2,)
+    b1, b2 = threefry2x32(keys.reshape(view), counters >> 32,
+                          counters & _MASK)
+    return b1 ^ b2
+
+
+def _randint_multiplier(lo: int, hi: int) -> tuple:
+    """``(span, multiplier)`` of ``randint(lo, hi)``'s remainder
+    combination, as jax computes them in uint32: ``span = hi - lo`` (1 for
+    an empty range) and ``multiplier = ((2**16 % span)**2 mod 2**32) %
+    span``."""
+    lo, hi = int(lo), int(hi)
+    if not (-2**31 <= lo < 2**31 and -2**31 <= hi < 2**31):
+        raise ValueError(f"randint bounds [{lo}, {hi}) exceed int32")
+    span = (hi - lo) & _MASK if hi > lo else 1
+    multiplier = (2 ** 16) % span
+    return span, ((multiplier * multiplier) & _MASK) % span
+
+
+def randint_at(keys: torch.Tensor, counters: torch.Tensor, lo: int,
+               hi: int) -> torch.Tensor:
+    """The draws of ``jax.random.randint(key, shape, lo, hi, dtype=int32)``
+    at the flat positions ``counters`` (int, any shape, in ``[0,
+    prod(shape))``) for each key of ``keys [B, 2]`` (or one key ``[2]``) →
+    int32 ``[B, *counters.shape]`` (``[*counters.shape]`` for one key).
+    The draw at a position does not depend on ``shape``."""
+    single = keys.dim() == 1
+    if single:
+        keys = keys[None]
+    span, multiplier = _randint_multiplier(lo, hi)
+    counters = counters.to(device=keys.device, dtype=torch.int64)
+    k1, k2 = split(keys)
+    lower = _bits_at(k2, counters)
+    if multiplier:
+        higher = _bits_at(k1, counters)
+        offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
+        offset = (offset & _MASK) % span
+    else:                                   # higher's term is 0
+        offset = lower % span
+    out = (offset + int(lo)) & _MASK                 # wraps like int32 add
+    out = (out - ((out >> 31) << 32)).to(torch.int32)
+    return out[0] if single else out
 
 
 def randint(keys: torch.Tensor, shape: Sequence[int], lo: int,
             hi: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, lo, hi, dtype=int32)`` for each key
     of ``keys [B, 2]`` (or one key ``[2]``) → int32 ``[B, *shape]``
-    (``[*shape]`` for one key)."""
-    single = keys.dim() == 1
-    if single:
-        keys = keys[None]
-    lo, hi = int(lo), int(hi)
-    if not (-2**31 <= lo < 2**31 and -2**31 <= hi < 2**31):
-        raise ValueError(f"randint bounds [{lo}, {hi}) exceed int32")
-    k1, k2 = split(keys)
-    # both draws in one hash: rows [0, B) are k1's, rows [B, 2B) k2's
-    bits = random_bits(torch.cat([k1, k2]), shape)
-    higher, lower = bits[:keys.shape[0]], bits[keys.shape[0]:]
-    span = (hi - lo) & _MASK if hi > lo else 1
-    multiplier = (2 ** 16) % span
-    multiplier = ((multiplier * multiplier) & _MASK) % span
-    offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
-    offset = (offset & _MASK) % span
-    out = (offset + lo) & _MASK                      # wraps like int32 add
-    out = (out - ((out >> 31) << 32)).to(torch.int32)
-    return out[0] if single else out
+    (``[*shape]`` for one key): :func:`randint_at` over every position."""
+    shape = tuple(int(s) for s in shape)
+    counters = torch.arange(math.prod(shape), dtype=torch.int64,
+                            device=keys.device)
+    out = randint_at(keys, counters, lo, hi)
+    return out.reshape(out.shape[:-1] + shape)

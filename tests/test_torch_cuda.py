@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import ops, ref
 
 # The kernel and its plain version add the same fp32 values in the same
@@ -337,6 +338,7 @@ def test_gather_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
 GRID_RTOL, GRID_ATOL_SCALE = 2e-5, 1e-5
 GRID_SOURCE = (Path(ops.__file__).resolve().parent / "csrc"
                / "subsample_grid.cu")
+THREEFRY_SOURCE = GRID_SOURCE.with_name("threefry.cuh")
 
 
 def _grid_inputs(n_slots, ns, sl, b, draws, ds, grid, seed, device):
@@ -478,8 +480,120 @@ def test_platform_runs_the_paper_workloads_on_the_kernel(cuda, monkeypatch,
 
 
 def test_grid_kernel_adds_no_float_with_an_atomic():
-    """The kernel's sums keep one fixed order: its source calls no atomic
-    at all (comments aside)."""
+    """The kernel's sums keep one fixed order: its source and the threefry
+    header it includes call no atomic at all (comments aside)."""
     code = re.sub(r"//[^\n]*", "", GRID_SOURCE.read_text())
-    assert "__global__" in code
+    assert "__global__" in code and '#include "threefry.cuh"' in code
     assert not re.search(r"\batomic[A-Z]\w*\s*\(", code)
+    header = re.sub(r"//[^\n]*", "", THREEFRY_SOURCE.read_text())
+    assert "threefry2x32" in header and "__global__" not in header
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", header)
+
+
+# -- subsample_grid's draw form: jax's threefry in the kernel ------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,hi", [
+    ((30, 64, 256), 2 ** 21), ((8, 64, 2048), 2 ** 15), ((8, 64, 32), 2 ** 14),
+    ((8, 4, 300), 77), ((8, 4, 300), 1000), ((8, 4, 300), 65537),
+    ((8, 4, 300), 3), ((257,), 2 ** 31 - 1)])
+def test_randint_kernel_equals_prng(cuda, shape, hi):
+    seeds = torch.tensor([-1, -2 ** 31, 2 ** 31 - 1] + list(range(16)),
+                         dtype=torch.int32, device=cuda)
+    before = ops.launch_count("threefry_randint")
+    got = ops.randint(seeds, shape, 0, hi)
+    assert ops.launch_count("threefry_randint") == before + 1
+    want = prng.randint(prng.PRNGKey(seeds), shape, 0, hi)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_randint_kernel_with_a_negative_lo(cuda):
+    seeds = torch.arange(-4, 4, dtype=torch.int32, device=cuda)
+    for lo, hi in ((-5, 37), (2 ** 31 - 8, 2 ** 31 - 1), (10, 10)):
+        assert torch.equal(ops.randint(seeds, (513,), lo, hi),
+                           prng.randint(prng.PRNGKey(seeds), (513,), lo, hi))
+
+
+SEEDED_CASES = GRID_CASES + [
+    (2, 8, 2048, 3, 8, 2048, 64),       # alod draws each index again
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("case", SEEDED_CASES)
+def test_seeded_grid_kernel_equals_the_read_kernel(cuda, statistic, case):
+    """The draw form equals the read form fed ``prng.randint``'s indices,
+    bit for bit, counts one ``subsample_grid`` launch, and is within the
+    stated tolerance of its plain version."""
+    n_slots, ns, sl, b, draws, ds, grid = case
+    data, months, rows, _ = _grid_inputs(*case, sum(case), cuda)
+    seeds = torch.arange(-b, b, 2, dtype=torch.int32, device=cuda)
+    kw = dict(grid=grid, statistic=statistic)
+    idx = prng.randint(prng.PRNGKey(seeds), (draws, ns, ds), 0, sl)
+    before = ops.launch_count("subsample_grid")
+    got = ops.subsample_grid_seeded(data, months, rows, seeds, draws=draws,
+                                    draw_size=ds, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_count("subsample_grid") == before + 1
+    assert torch.equal(got, ops.subsample_grid(data, months, rows, idx, **kw))
+    _assert_grid_close(got, ref.subsample_grid_seeded_ref(
+        data, months, rows, seeds, draws=draws, draw_size=ds, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+def test_seeded_grid_task_does_not_depend_on_the_wave(cuda, statistic):
+    data, months, rows, _ = _grid_inputs(20, 8, 1024, 16, 8, 100, 120, 5,
+                                         cuda)
+    seeds = torch.arange(16, dtype=torch.int32, device=cuda) * 7919 - 50000
+    kw = dict(draws=8, draw_size=100, grid=120, statistic=statistic)
+    wave = ops.subsample_grid_seeded(data, months, rows, seeds, **kw)
+    assert torch.equal(wave, ops.subsample_grid_seeded(data, months, rows,
+                                                       seeds, **kw))
+    for b in range(16):
+        one = ops.subsample_grid_seeded(data, months,
+                                        rows[b:b + 1].contiguous(),
+                                        seeds[b:b + 1].contiguous(), **kw)
+        assert torch.equal(wave[b], one[0]), b
+
+
+@pytest.mark.cuda
+def test_map_wave_draws_in_the_kernel(cuda, monkeypatch):
+    """On CUDA tensors the torch engine's wave never calls
+    ``prng.randint``: the kernel draws the indices."""
+    from repro_torch.core import subsample as ss
+
+    data, months, _, _ = _grid_inputs(4, 8, 512, 1, 1, 1, 120, 3, cuda)
+    want = ss.map_wave(data, months, [3, 1], [7, -7], ss.NETFLIX_LOW)
+
+    def no_randint(*args, **kwargs):
+        raise AssertionError("prng.randint ran on the card's path")
+
+    monkeypatch.setattr(prng, "randint", no_randint)
+    before = ops.launch_count("subsample_grid")
+    got = ss.map_wave(data, months, [3, 1], [7, -7], ss.NETFLIX_LOW)
+    assert ops.launch_count("subsample_grid") == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["cpu_seeds", "int64_seeds", "sl_zero"])
+def test_seeded_grid_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    data, months, rows, _ = _grid_inputs(2, 3, 64, 2, 3, 8, 16, 0, cuda)
+    seeds = torch.zeros(2, dtype=torch.int32, device=cuda)
+    if bad == "cpu_seeds":
+        seeds = seeds.cpu()
+    elif bad == "int64_seeds":
+        seeds = seeds.long()
+    else:
+        data, months = (t[:, :, :0].contiguous() for t in (data, months))
+    before = ops.launch_count("subsample_grid")
+    with pytest.raises((ValueError, TypeError)):
+        ops.subsample_grid_seeded(data, months, rows, seeds, draws=3,
+                                  draw_size=8, grid=16,
+                                  statistic="monthly_mean")
+    assert ops.launch_count("subsample_grid") == before

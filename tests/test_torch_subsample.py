@@ -221,6 +221,132 @@ def test_alod_ignores_the_months_plane():
                        ops.subsample_grid(data, months * 0 - 7, *args, **kw))
 
 
+# -- the draw form: indices from the seeds --------------------------------------
+
+
+def _arena(n_slots, ns, sl, grid, seed):
+    blocks = [_block(ns, sl, grid, seed + k) for k in range(n_slots)]
+    return (np.stack([d for d, _ in blocks]), np.stack([m for _, m in blocks]))
+
+
+SEEDED_CASES = [  # statistic, grid, n_slots, ns, sl, draws, ds
+    ("alod", 64, 3, 4, 256, 30, 16),
+    ("alod", 120, 2, 3, 300, 5, 33),        # sl not a power of two
+    ("monthly_mean", 120, 3, 4, 512, 8, 64),
+    ("monthly_mean", 8, 2, 2, 1000, 3, 7),
+]
+
+
+@pytest.mark.parametrize("case", SEEDED_CASES, ids=str)
+def test_seeded_op_is_the_read_op_on_prng_indices(case):
+    """On CPU tensors the draw form is ``prng.randint``'s indices fed to
+    the read form, bit for bit, and counts no launch."""
+    statistic, grid, n_slots, ns, sl, draws, ds = case
+    data, months = (torch.from_numpy(a) for a in _arena(n_slots, ns, sl,
+                                                         grid, 1))
+    rows = torch.tensor([2 % n_slots, 0, 1, 0], dtype=torch.int32)
+    seeds = torch.tensor([-1, 0, 2**31 - 1, -2**31], dtype=torch.int32)
+    idx = prng.randint(prng.PRNGKey(seeds), (draws, ns, ds), 0, sl)
+    before = ops.launch_count("subsample_grid")
+    got = ops.subsample_grid_seeded(data, months, rows, seeds, draws=draws,
+                                    draw_size=ds, grid=grid,
+                                    statistic=statistic)
+    assert ops.launch_count("subsample_grid") == before
+    assert torch.equal(got, ops.subsample_grid(data, months, rows, idx,
+                                               grid=grid,
+                                               statistic=statistic))
+
+
+@pytest.mark.parametrize("name", ["eaglet", "netflix_high", "netflix_low"])
+def test_seeded_op_matches_reference_jnp_wave(name):
+    """The draw form against the reference's jitted wave body
+    (``_jnp_wave_jit``: ``jax.random.randint`` and ``map_task`` under
+    ``jax.vmap``) on the same arena, slots and seeds: counts equal, sums
+    within the stated tolerance."""
+    from repro.platform import compute as ref_compute
+
+    wl = pss.WORKLOADS[name]
+    draws, ds = wl.draws, min(wl.draw_size, 256)      # small on the CPU
+    data, months = _arena(3, 4, 1024, wl.grid, 7)
+    rows = np.asarray([1, 0, 2, 1, 1], np.int32)
+    seeds = np.asarray([3, -1, 2**31 - 1, -2**31, 12], np.int32)
+    want = ref_compute._jnp_wave_jit()(
+        jnp.asarray(data), jnp.asarray(months), jnp.asarray(rows),
+        jnp.asarray(seeds), draws=draws, draw_size=ds, grid=wl.grid,
+        statistic=wl.statistic)
+    got = ops.subsample_grid_seeded(
+        torch.from_numpy(data), torch.from_numpy(months),
+        torch.from_numpy(rows), torch.from_numpy(seeds), draws=draws,
+        draw_size=ds, grid=wl.grid, statistic=wl.statistic).numpy()
+    sums, counts = (("sum_curve", "hits") if wl.statistic == "alod"
+                    else ("sum", "count"))
+    np.testing.assert_array_equal(got[:, 1], np.asarray(want[counts]))
+    w = np.asarray(want[sums])
+    np.testing.assert_allclose(got[:, 0], w, rtol=RTOL,
+                               atol=ATOL_SCALE * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("case", [
+    "seeds_int64", "seeds_2d", "seeds_short", "rows_int64", "fp64_data",
+    "months_int64", "sl_zero", "draws_past_2_32", "grid_zero", "strided"])
+def test_seeded_op_rejects_what_the_kernel_does_not_take(case):
+    data = torch.zeros((2, 3, 64))
+    months = torch.zeros((2, 3, 64), dtype=torch.int32)
+    rows = torch.zeros(4, dtype=torch.int32)
+    seeds = torch.zeros(4, dtype=torch.int32)
+    kw = dict(draws=5, draw_size=16, grid=64, statistic="monthly_mean")
+    if case == "seeds_int64":
+        seeds = seeds.long()
+    elif case == "seeds_2d":
+        seeds = seeds[:, None]
+    elif case == "seeds_short":
+        seeds = seeds[:3]
+    elif case == "rows_int64":
+        rows = rows.long()
+    elif case == "fp64_data":
+        data = data.double()
+    elif case == "months_int64":
+        months = months.long()
+    elif case == "sl_zero":
+        data, months = data[:, :, :0], months[:, :, :0]
+    elif case == "draws_past_2_32":
+        kw["draws"] = 2 ** 32 // (3 * 16) + 1      # ns x ds = 3 x 16
+    elif case == "grid_zero":
+        kw["grid"] = 0
+    elif case == "strided":
+        seeds = torch.zeros(8, dtype=torch.int32)[::2]
+    with pytest.raises((ValueError, TypeError)):
+        ops.subsample_grid_seeded(data, months, rows, seeds, **kw)
+
+
+@pytest.mark.parametrize("case", ["int64", "2d", "past_2_32", "hi_past_int32",
+                                  "strided"])
+def test_randint_op_rejects_what_the_kernel_does_not_take(case):
+    seeds = torch.zeros(3, dtype=torch.int32)
+    shape, hi = (4, 5), 10
+    if case == "int64":
+        seeds = seeds.long()
+    elif case == "2d":
+        seeds = seeds[None]
+    elif case == "past_2_32":
+        shape = (2 ** 16, 2 ** 16)
+    elif case == "hi_past_int32":
+        hi = 2 ** 31
+    elif case == "strided":
+        seeds = torch.zeros(6, dtype=torch.int32)[::2]
+    with pytest.raises((ValueError, TypeError)):
+        ops.randint(seeds, shape, 0, hi)
+
+
+def test_randint_op_is_prng_randint_on_the_cpu():
+    seeds = torch.tensor([-1, -2**31, 2**31 - 1, 0, 15], dtype=torch.int32)
+    before = ops.launch_count("threefry_randint")
+    got = ops.randint(seeds, (8, 3, 33), 0, 1000)
+    assert ops.launch_count("threefry_randint") == before
+    assert torch.equal(got, prng.randint(prng.PRNGKey(seeds), (8, 3, 33), 0,
+                                         1000))
+
+
 # -- the torch engine: waves against per-task ---------------------------------
 
 
@@ -265,6 +391,36 @@ def test_wave_partials_equal_per_task_bitwise(name, width):
         wl, data.shape[1])
     for lane in lanes[width:]:
         _assert_bitwise(per_task[0], lane)
+
+
+@pytest.mark.parametrize("name", ["eaglet", "netflix_high", "netflix_low"])
+@pytest.mark.parametrize("width", [1, 3, 5])
+def test_torch_wave_below_the_pinned_width_is_unchanged(name, width):
+    """A ``torch`` wave of ``b`` tasks under a pinned width of 16 launches
+    over its ``b`` tasks only, and gives the partials that the padded
+    launch gave (lanes repeating the first slot and seed, indices from
+    ``prng.randint``, the read form), bit for bit."""
+    wl = pss.WORKLOADS[name]
+    arena, tasks, _ = _arena_tasks(wl, n_tasks=6)
+    wave = tasks[:width]
+    seeds = np.asarray([-5 + 3 * t.task_id for t in wave], np.int32)
+    got = pc.run_map_wave(arena, wave, seeds, wl, "torch", pad_to=16)
+    key, rows = arena.slots(wave)
+    data, months = arena.bucket(key)
+    pad = 16 - width
+    rows_p = torch.from_numpy(np.concatenate([rows, np.repeat(rows[:1],
+                                                              pad)]))
+    seeds_p = torch.from_numpy(np.concatenate([seeds, np.repeat(seeds[:1],
+                                                                pad)]))
+    idx = prng.randint(prng.PRNGKey(seeds_p), (wl.draws, data.shape[1],
+                                               wl.draw_size),
+                       0, data.shape[2])
+    before = ops.subsample_grid(data, months, rows_p, idx, grid=wl.grid,
+                                statistic=wl.statistic)
+    want = pss.split_partials(before[:width].numpy(), wl, data.shape[1])
+    assert len(got) == width
+    for w, g in zip(want, got):
+        _assert_bitwise(w, g)
 
 
 # -- Platform.run end to end ---------------------------------------------------
