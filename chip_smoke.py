@@ -18,15 +18,25 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    beside ``subsample_gather`` is a floor for its gather alone);
    ``flash_attention`` also gives its TFLOP/s and share of its bound, and
    a second launch at the serving shape must equal the first.
+   ``subsample_stats`` is held in both forms: the read form (indices
+   given) and the draw form (the platform's: 16 slots, out of order, of
+   an arena of 32 blocks ``[64, 65536]``, each task's 512 rows drawn in
+   the kernel), the draw form bit for bit against the read form fed
+   ``ops.randint``'s indices, at N = 40 (not a power of two) too, and at
+   shapes that take its global body; both forms are timed.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
-   64-movie task block, threaded backend, waves of 16.  The launch count
-   is zeroed just before and read just after this run.  Then it times
-   each stage of one wave, and the per-task path's block build and
-   upload, on the host; and reruns the job traced (telemetry and
-   ``torch.profiler``) for each wave's host time inside the job and the
-   device's busy share.  Then it drives ``ops.subsample_gather`` on one
+   64-movie task block, threaded backend, waves of 16.  The launch counts
+   are zeroed just before and read just after this run: ``subsample_stats``
+   must launch once a wave plus one warm-up a block shape, and nothing may
+   draw indices outside it (no ``threefry_randint`` launch, no
+   ``prng.randint`` call).  Then it times each stage of one wave, beside
+   the stages of the pipeline the draw form replaced, and the per-task
+   path's block build and upload, on the host; and reruns the job traced
+   (telemetry and ``torch.profiler``) for each wave's host time inside
+   the job and the device's busy share, with no ``index_select`` kernel
+   in the trace.  Then it drives ``ops.subsample_gather`` on one
    real 64-movie block of that catalogue with the 512 rows a task draws,
    the launch counts zeroed just before and read just after, and holds
    its stats against ``ops.subsample_stats`` on the same block and rows.
@@ -91,6 +101,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
+                               # 132 SMs x 1.98 GHz (the clock behind the
+                               # 67 TFLOP/s fp32 peak); no data-sheet rate
+THREEFRY_OPS = 75              # 32-bit integer operations of one hash
 RTOL, ATOL = 1e-5, 1e-4        # kernel vs plain: same rows, fp32 sums
 # rwkv6_chunked vs its plain version: the same fp32 chunk form from the
 # same inputs, its products and sums added in other orders (the plain
@@ -142,26 +156,99 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(data: torch.Tensor, idx: torch.Tensor):
-    """Least time for this call: every gathered row read once (the rows
-    this run's indices touch), every index read once, the stats written
-    once, against 3 fp32 operations per gathered element."""
+def _bound(data: torch.Tensor, idx: torch.Tensor, *, seeded=False,
+           multiplier=0):
+    """Least time for one ``subsample_stats`` call on the blocks ``data
+    [B, N, D]`` (for the draw form, the arena's slots of the wave) and the
+    indices ``idx [B, T]`` it reads or draws: every gathered row read once
+    (the distinct rows this run's indices touch), the stats written once,
+    and every index read once, or for the draw form, which draws them, each
+    task's slot and seed read once, over 3.35 TB/s; against 3 fp32
+    operations per gathered element over 67 TFLOP/s and, for the draw form,
+    each index drawn once (one Threefry-2x32 hash, about 75 integer
+    operations, where the span's multiplier is 0, else two) over 16.7 T/s
+    (derived, ``INT32_OPS_PER_S``)."""
     b, _, d = data.shape
     t = idx.shape[1]
     rows = sum(int(torch.unique(idx[k]).numel()) for k in range(b))
-    nbytes = rows * d * 4 + b * t * 4 + b * 2 * d * 4
+    index_bytes = b * 8 if seeded else b * t * 4
+    nbytes = rows * d * 4 + index_bytes + b * 2 * d * 4
     flops = 3.0 * b * t * d
+    int_ops = (THREEFRY_OPS * (1 if multiplier == 0 else 2) * b * t
+               if seeded else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel(ops, ref, prng):
-    """Phase 3: the kernel against its plain version, on the card."""
+def _body(sg, data, t):
+    cols = sg.tile_cols(data, t)
+    return f"staged, C = {cols}" if cols else "global"
+
+
+# the main path's wave: 16 slots, out of order, of an arena of 32 blocks
+MAIN_SLOTS = [31, 2, 17, 8, 25, 0, 13, 29, 6, 21, 10, 3, 27, 15, 19, 4]
+
+
+def check_seeded_kernel(ops, ref, prng, sg):
+    """Phase 3, the draw form (the platform's path): on an arena of 32
+    blocks ``[64, 65536]`` (the main path's), 16 slots out of order, 512
+    rows a task; at N = 40 (a multiplier that is not 0: two hashes and
+    ``%``); and at shapes that take the global body (N = 2,048; D = 1,030).
+    Each case: the draw form ``torch.equal`` to the read form fed
+    ``ops.randint``'s indices on ``arena[rows]``, within ``RTOL``/``ATOL``
+    of its plain version, each task equal to itself as a wave of one.
+    Returns the worst error and the main case's inputs."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # n_slots, n, d, slots, n_idx
+        (32, 64, 65536, MAIN_SLOTS, 512),        # the main path's wave
+        (8, 40, 4096, [5, 1, 7, 1], 512),         # N not a power of two
+        (4, 2048, 1024, [3, 0, 2], 100),          # N past the staged tile
+        (6, 48, 1030, [4, 1, 5, 0], 77),          # D % 4 != 0
+    ]
+    worst = 0.0
+    for n_slots, n, d, slots, n_idx in cases:
+        arena = torch.randn((n_slots, n, d), generator=gen, device=dev)
+        rows = torch.tensor(slots, dtype=torch.int32, device=dev)
+        seeds = torch.arange(len(slots), dtype=torch.int32, device=dev) * 3
+        idx = ops.randint(seeds, (n_idx,), 0, n)
+        got = ops.subsample_stats_seeded(arena, rows, seeds, n_idx=n_idx)
+        blocks = arena[rows.long()].contiguous()
+        read = ops.subsample_stats(blocks, idx)
+        want = ref.subsample_stats_seeded_ref(arena, rows, seeds,
+                                              n_idx=n_idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, read):
+            raise AssertionError(f"draw form != read form at {(n, d)}")
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        for k in range(len(slots)):
+            one = ops.subsample_stats_seeded(arena, rows[k:k + 1],
+                                             seeds[k:k + 1], n_idx=n_idx)
+            if not torch.equal(one[0], got[k]):
+                raise AssertionError(f"task {k} of the wave != itself alone "
+                                     f"at {(n, d)}")
+        _, mult = prng._randint_multiplier(0, n)
+        worst = max(worst, err)
+        print(f"seeded kernel check arena {(n_slots, n, d)} slots {slots} "
+              f"T={n_idx} (multiplier {mult}; {_body(sg, arena, n_idx)} "
+              f"body): draw form == read form on ops.randint's indices bit "
+              f"for bit; max_abs_err vs plain {err!r}; each task == itself "
+              "alone")
+        if d == 65536:
+            main = (arena, rows, seeds, blocks, idx)
+    return worst, main
+
+
+def check_kernel(ops, ref, prng, sg):
+    """Phase 3: the kernel against its plain version, on the card, both
+    forms; times both forms at the main path's wave."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = [(16, 64, 65536, 512),    # the main path's wave
              (3, 40, 96, 13),         # T not a multiple of 8
+             (2, 2048, 1024, 64),     # N past the staged tile: global body
              (2, 17, 1030, 21)]       # D not a multiple of 4: scalar loads
     worst = 0.0
     for b, n, d, t in cases:
@@ -180,20 +267,34 @@ def check_kernel(ops, ref, prng):
         if not torch.equal(got, singles):
             raise AssertionError(f"wave != single launches at {(b, n, d, t)}")
         worst = max(worst, err)
-        print(f"kernel check B={b} N={n} D={d} T={t}: max_abs_err={err!r} "
-              "wave == single launches bitwise")
-        if (b, n, d, t) == cases[0]:
-            main = (data, idx)
-    data, idx = main
-    ms = _time_ms(lambda: ops.subsample_stats(data, idx))
-    plain_ms = _time_ms(lambda: ref.subsample_stats_ref(data, idx), reps=3)
-    bound_ms, bound_by = _bound(data, idx)
-    print(f"subsample_stats at [16, 64, 65536] x T=512: kernel {ms!r} ms, "
-          f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); "
-          "no single PyTorch call computes this function, so library_ms "
-          "is null")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"kernel check B={b} N={n} D={d} T={t} ({_body(sg, data, t)} "
+              f"body): max_abs_err={err!r} wave == single launches bitwise")
+    seeded_err, (arena, rows, seeds, data, idx) = check_seeded_kernel(
+        ops, ref, prng, sg)
+    # the kernel through its binding; the op also checks that every slot
+    # lies in the arena, which reads the slots back to the host
+    ms = _time_ms(lambda: sg.subsample_stats_seeded(arena, rows, seeds,
+                                                    n_idx=512))
+    op_ms = _time_ms(lambda: ops.subsample_stats_seeded(arena, rows, seeds,
+                                                        n_idx=512))
+    read_ms = _time_ms(lambda: sg.subsample_stats_wave(data, idx))
+    plain_ms = _time_ms(lambda: ref.subsample_stats_seeded_ref(
+        arena, rows, seeds, n_idx=512), reps=3)
+    bound_ms, bound_by = _bound(data, idx, seeded=True)
+    read_bound_ms, read_bound_by = _bound(data, idx)
+    print(f"subsample_stats at the main path's wave (16 slots of an arena "
+          f"[32, 64, 65536], T=512): draw form {ms!r} ms (through the op, "
+          f"with its slot check, {op_ms!r} ms), bound "
+          f"{bound_ms!r} ms ({bound_by}), share of the bound "
+          f"{bound_ms / ms!r}; read form on the gathered [16, 64, 65536] "
+          f"{read_ms!r} ms, bound {read_bound_ms!r} ms ({read_bound_by}); "
+          f"plain (prng.randint, then the sums) {plain_ms!r} ms; no single "
+          "PyTorch call computes this function, so library_ms is null")
+    del arena, data
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(worst, seeded_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "read_form_ms": read_ms, "read_form_bound_ms": read_bound_ms}
 
 
 def _gather_bound(data: torch.Tensor, idx: torch.Tensor, n_valid: int):
@@ -817,12 +918,16 @@ def _host_ms(fn, reps: int = 10) -> float:
 def wave_anatomy(ops, prng, n_tasks: int, count: int, length: int,
                  build_block):
     """Host time of each stage of one 16-task wave of the main path
-    (``compute._moments_wave``), on an arena of the main path's shape,
-    and of the per-task path's block build and upload."""
+    (``compute._moments_wave``: the slot and seed vectors up, one
+    ``subsample_stats_seeded`` launch, the stats down), on an arena of the
+    main path's shape, and of the per-task path's block build and upload.
+    Beside them, labelled ``removed_``, the stages of the pipeline this
+    wave replaced (the slot gather by ``index_select``, ``prng.randint``,
+    the read form on the gathered blocks), timed in the same run."""
     from repro_torch.platform import compute as pc
 
     arena = torch.empty((n_tasks, count, length), device="cuda").normal_()
-    rows = np.arange(16, dtype=np.int64)
+    rows = np.asarray(MAIN_SLOTS, np.int32) % n_tasks
     seeds = np.arange(16, dtype=np.int32)
     state = {}
 
@@ -830,32 +935,38 @@ def wave_anatomy(ops, prng, n_tasks: int, count: int, length: int,
         state["rows"] = torch.from_numpy(rows).to("cuda")
         state["seeds"] = torch.from_numpy(seeds).to("cuda")
 
-    def gather():
-        state["data"] = arena.index_select(0, state["rows"])
-
-    def draw():
-        state["idx"] = prng.randint(prng.PRNGKey(state["seeds"]), (512,), 0,
-                                    count)
-
     def kernel():
-        state["stats"] = ops.subsample_stats(state["data"], state["idx"])
+        state["stats"] = ops.subsample_stats_seeded(
+            arena, state["rows"], state["seeds"], n_idx=512)
 
     def copy_back():
         state["host"] = state["stats"].cpu().numpy()
 
     def whole():
-        pc._moments_wave(arena, rows.astype(np.int32), seeds, n_idx=512)
+        pc._moments_wave(arena, rows, seeds, n_idx=512)
+
+    def gather():
+        state["data"] = arena.index_select(0, state["rows"].long())
+
+    def draw():
+        state["idx"] = prng.randint(prng.PRNGKey(state["seeds"]), (512,), 0,
+                                    count)
+
+    def read_kernel():
+        ops.subsample_stats(state["data"], state["idx"])
 
     block = np.ones((count, length), np.float32)
     stages = {name: _host_ms(fn) for name, fn in (
-        ("slot_upload", upload), ("index_select", gather),
-        ("prng_randint", draw), ("kernel", kernel),
+        ("slot_seed_upload", upload), ("seeded_kernel", kernel),
         ("stats_to_host", copy_back), ("whole_wave", whole),
+        ("removed_index_select", gather), ("removed_prng_randint", draw),
+        ("removed_read_kernel", read_kernel),
         ("per_task_block_build", build_block),
         ("per_task_block_upload",
          lambda: torch.from_numpy(block).to("cuda")))}
     print("wave anatomy (host ms per stage, 16-task wave of [64, 65536] "
-          "blocks, 512 draws a task): " + json.dumps(stages))
+          "blocks, 512 draws a task; removed_* are the stages of the wave "
+          "before the draw form): " + json.dumps(stages))
     del arena, state
 
 
@@ -864,7 +975,8 @@ def traced_wave_run(Platform, spec, samples, months, workload):
     ``torch.profiler``): the host seconds of each wave inside the job,
     and the device's busy share over the execute phase, taken as the span
     from the end of the warm-up wave's stats copy (the first device→host
-    copy) to the end of the last one."""
+    copy) to the end of the last one.  Fails if the device ran a slot
+    gather (``index_select``'s kernel) anywhere in the job."""
     from torch.profiler import ProfilerActivity, profile
 
     plat = Platform(dataclasses.replace(spec, telemetry=True))
@@ -874,11 +986,17 @@ def traced_wave_run(Platform, spec, samples, months, workload):
     wave_s = sorted(e.fields["seconds"]
                     for e in plat.telemetry.events("wave_dispatched"))
     window_ms, busy_ms, by_kind = _execute_window(prof, "subsample_stats")
+    gathers = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "indexSelect" in e.name)
     print(f"traced run: makespan {rep.makespan!r} s, {len(wave_s)} waves, "
           f"host seconds per wave median {wave_s[len(wave_s) // 2]!r} max "
           f"{wave_s[-1]!r}; execute window {window_ms!r} ms, device busy "
           f"{busy_ms!r} ms (share {busy_ms / window_ms!r}), device "
-          f"ms by kind {json.dumps(by_kind)}")
+          f"ms by kind {json.dumps(by_kind)}; index_select kernels {gathers}")
+    if gathers:
+        raise AssertionError(f"the moments job ran {gathers} index_select "
+                             "kernels")
 
 
 def _execute_window(prof, kernel, names=None):
@@ -1024,11 +1142,6 @@ def _grid_close(got, want, what):
                                atol=atol, msg=what)
     return float((got[:, 0] - want[:, 0]).abs().max())
 
-
-INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
-                               # 132 SMs x 1.98 GHz (the clock behind the
-                               # 67 TFLOP/s fp32 peak); no data-sheet rate
-THREEFRY_OPS = 75              # 32-bit integer operations of one hash
 
 
 def _grid_bound(data, rows, idx, grid, statistic, multiplier):
@@ -1241,14 +1354,14 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _plan_shapes(samples, months, workload, knee_bytes):
+def _plan_shapes(samples, months, workload, knee_bytes, engine="torch"):
     """The distinct padded block shapes of the job's task partition (the
     warm-up launches one wave, or one task, per shape) with the number of
     tasks of each."""
     from repro_torch.platform.driver import plan_job
 
     plan = plan_job(samples, months, workload, sizing="kneepoint",
-                    engine="torch", n_exec=2, knee_bytes=knee_bytes)
+                    engine=engine, n_exec=2, knee_bytes=knee_bytes)
     shapes = {}
     for task in plan.tasks:
         shape = plan.task_shape(task)
@@ -1404,7 +1517,7 @@ def main() -> None:
                 print("    ptxas:", line.strip())
 
     # phase 3 — each kernel against its plain version
-    timing = check_kernel(ops, ref, prng)
+    timing = check_kernel(ops, ref, prng, subsample_gather)
     rw_timing = check_rwkv6_kernel(ops, ref)
     rg_timing = check_rglru_kernel(ops, ref)
     fa_timing = check_flash_kernel(ops, ref)
@@ -1418,26 +1531,47 @@ def main() -> None:
     print(f"netflix: 17770 movies, {n_ratings} ratings, longest "
           f"{longest}, {n_ratings * 4} rating bytes, made in "
           f"{time.perf_counter() - t0!r} s")
-    ops.reset_launch_count()
-    t0 = time.perf_counter()
-    wave = Platform(_spec(samples)).run(samples, months, MOMENTS)
-    wall = time.perf_counter() - t0
-    launches = ops.launch_count()
+    spec = _spec(samples)
+    warm_ups = len(_plan_shapes(samples, months, MOMENTS, spec.knee_bytes,
+                                engine="kernel"))
+    draws_on_host = []
+    randint = prng.randint
+
+    def counted_randint(*args, **kwargs):
+        draws_on_host.append(1)
+        return randint(*args, **kwargs)
+
+    prng.randint = counted_randint
+    try:
+        ops.reset_launch_count()
+        t0 = time.perf_counter()
+        wave = Platform(spec).run(samples, months, MOMENTS)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_count()
+        drawn = ops.launch_count("threefry_randint")
+    finally:
+        prng.randint = randint
     n_cols = int(np.asarray(wave.result["mean"]).shape[0])
     print(f"main path: {wave.n_tasks} tasks, makespan {wave.makespan!r} s, "
           f"run() wall {wall!r} s, phases {wave.phases}, "
           f"device_dispatches {wave.device_dispatches}, wave_sizes "
           f"{wave.wave_sizes}, arena {wave.bytes_uploaded!r} bytes, "
-          f"kernel launches {launches}, D {n_cols}")
-    if launches < 1:
-        raise AssertionError("the main path launched no subsample_stats "
+          f"subsample_stats launches {launches} ({len(wave.wave_sizes)} "
+          f"waves + {warm_ups} warm-ups), threefry_randint launches {drawn}, "
+          f"prng.randint calls {len(draws_on_host)}, D {n_cols}")
+    if launches != len(wave.wave_sizes) + warm_ups or not wave.wave_sizes:
+        raise AssertionError(f"the main path launched subsample_stats "
+                             f"{launches} times for {len(wave.wave_sizes)} "
+                             f"waves and {warm_ups} warm-ups")
+    if drawn or draws_on_host:
+        raise AssertionError("the main path drew indices outside the "
                              "kernel")
     _check_result(wave, n_cols)
     ids = sorted(samples)
     wave_anatomy(ops, prng, wave.n_tasks, 64, n_cols,
                  lambda: pc.build_block(samples, months, ids, range(64), 64,
                                         longest))
-    traced_wave_run(Platform, _spec(samples), samples, months, MOMENTS)
+    traced_wave_run(Platform, spec, samples, months, MOMENTS)
     block, _ = pc.build_block(samples, months, ids, range(64), 64, longest)
     if block.shape != (64, n_cols):
         raise AssertionError(f"task block {block.shape} != (64, {n_cols})")

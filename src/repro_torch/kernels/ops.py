@@ -92,6 +92,66 @@ def subsample_stats(data: torch.Tensor, indices: torch.Tensor, *,
     return out
 
 
+def _check_subsample_stats_seeded(arena: torch.Tensor, rows: torch.Tensor,
+                                  seeds: torch.Tensor, n_idx: int,
+                                  rows_per_step: int) -> None:
+    if arena.dim() != 3 or rows.dim() != 1:
+        raise ValueError(
+            "subsample_stats_seeded takes arena [S, N, D] and rows [B]; got "
+            f"{tuple(arena.shape)} and {tuple(rows.shape)}")
+    if tuple(seeds.shape) != tuple(rows.shape):
+        raise ValueError(f"seeds must be [B] = [{rows.shape[0]}], got "
+                         f"{tuple(seeds.shape)}")
+    if arena.dtype != torch.float32:
+        raise TypeError(f"subsample_stats_seeded takes an fp32 arena, got "
+                        f"{arena.dtype}")
+    if rows.dtype != torch.int32 or seeds.dtype != torch.int32:
+        raise TypeError("subsample_stats_seeded takes int32 rows and seeds; "
+                        f"got {rows.dtype} and {seeds.dtype}")
+    if rows.device != arena.device or seeds.device != arena.device:
+        raise ValueError(f"arena on {arena.device}, rows on {rows.device}, "
+                         f"seeds on {seeds.device}")
+    if not all(t.is_contiguous() for t in (arena, rows, seeds)):
+        raise ValueError("subsample_stats_seeded takes contiguous tensors")
+    if not 1 <= rows_per_step <= _sg.MAX_ROWS_PER_STEP:
+        raise ValueError(f"rows_per_step must lie in [1, "
+                         f"{_sg.MAX_ROWS_PER_STEP}], got {rows_per_step}")
+    if not 0 <= n_idx < _COUNTERS:
+        raise ValueError(f"n_idx must lie in [0, 2**32), got {n_idx}")
+    if arena.shape[1] < 1:
+        raise ValueError("subsample_stats_seeded draws rows from [0, N) and "
+                         f"needs N >= 1; got arena {tuple(arena.shape)}")
+    if rows.numel():
+        lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+        if lo < 0 or hi >= arena.shape[0]:
+            raise ValueError(f"rows must lie in [0, {arena.shape[0]}); got "
+                             f"[{lo}, {hi}]")
+
+
+def subsample_stats_seeded(arena: torch.Tensor, rows: torch.Tensor,
+                           seeds: torch.Tensor, *, n_idx: int,
+                           rows_per_step: int = 8) -> torch.Tensor:
+    """:func:`subsample_stats` of a wave read through its slots, with each
+    task's indices drawn from its seed: task ``b`` is block
+    ``arena[rows[b]]`` of ``arena [S, N, D]`` fp32, its indices
+    ``jax.random.randint(PRNGKey(seeds[b]), (n_idx,), 0, N)`` for ``rows,
+    seeds [B]`` int32, bit for bit (:mod:`repro_torch.prng`) → ``stats [B,
+    2, D]`` fp32.  On the card the kernel reads the arena in place and
+    draws the indices itself; on the CPU the plain version draws them with
+    :func:`repro_torch.prng.randint`.  Either way task ``b``'s stats are
+    :func:`subsample_stats`' on ``arena[rows[b]]`` and those indices, bit
+    for bit.  Every row must lie in ``[0, S)``.  Counts as a
+    ``subsample_stats`` launch."""
+    _check_subsample_stats_seeded(arena, rows, seeds, n_idx, rows_per_step)
+    if not arena.is_cuda:
+        return ref.subsample_stats_seeded_ref(arena, rows, seeds, n_idx=n_idx,
+                                              rows_per_step=rows_per_step)
+    out = _sg.subsample_stats_seeded(arena, rows, seeds, n_idx=n_idx,
+                                     rows_per_step=rows_per_step)
+    _counted("subsample_stats")
+    return out
+
+
 _FLOATS = (torch.float32, torch.bfloat16)
 
 

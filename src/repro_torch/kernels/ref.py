@@ -50,6 +50,18 @@ def subsample_stats_ref(data: torch.Tensor, indices: torch.Tensor, *,
     return torch.stack([acc, acc2], dim=1)
 
 
+def subsample_stats_seeded_ref(arena: torch.Tensor, rows: torch.Tensor,
+                               seeds: torch.Tensor, *, n_idx: int,
+                               rows_per_step: int = 8) -> torch.Tensor:
+    """``subsample_stats_seeded``'s plain version: task ``b``'s indices are
+    ``jax.random.randint(PRNGKey(seeds[b]), (n_idx,), 0, N)``
+    (:func:`repro_torch.prng.randint`), then :func:`subsample_stats_ref`
+    on the blocks ``arena[rows]`` → ``[B, 2, D]`` fp32."""
+    idx = prng.randint(prng.PRNGKey(seeds), (n_idx,), 0, arena.shape[1])
+    return subsample_stats_ref(arena[rows.long()], idx,
+                               rows_per_step=rows_per_step)
+
+
 def subsample_gather_ref(data: torch.Tensor, indices: torch.Tensor,
                          n_valid: torch.Tensor):
     """``data [N, D]`` (fp32 or bf16) + ``indices [T]`` int + ``n_valid

@@ -6,8 +6,9 @@ backends bit-identical for a fixed seed):
 
   ``kernel``  — the hand-written CUDA ``subsample_stats`` kernel
                 (``repro_torch.kernels``) for the row-subsampling
-                ``moments`` statistic: a random row gather + (Σ, Σ²)
-                accumulation in registers.
+                ``moments`` statistic: each task's block staged once in
+                shared memory, its rows drawn in the kernel and their
+                (Σ, Σ²) accumulated in registers.
   ``torch``   — the paper's own statistics (EAGLET ``alod``, Netflix
                 ``monthly_mean``; ``repro_torch.core.subsample``, the
                 reference's ``jnp`` engine): the random element gather and
@@ -28,11 +29,12 @@ ONE kernel launch.  :class:`BlockArena` packs the job's padded blocks into
 a device-resident ``[n_tasks, count, len]`` tensor per distinct shape
 (uploaded once; the ``torch`` engine's arena carries the months plane
 too); :func:`run_map_wave` launches the engine's kernel once for the
-wave, every task's indices derived from its seed (jax's exact draws):
-by :func:`repro_torch.prng.randint` before the ``kernel`` engine's
-launch, inside the ``torch`` engine's kernel.  Per-task accumulation order is
-independent of the wave partition, so wave and per-task execution are
-bit-identical for a fixed seed.
+wave's own tasks, given only their slots and seeds: the kernel reads
+the resident arena through the slots and draws every task's indices
+from its seed itself (jax's exact threefry draws).  Per-task
+accumulation order is independent of the wave partition and of the
+slot, so wave and per-task execution are bit-identical for a fixed
+seed.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ from typing import Any, Callable, Dict, List, MutableSequence, Optional, Sequenc
 import numpy as np
 import torch
 
-from repro_torch import prng
 from repro_torch.core import subsample as ss
 from repro_torch.device import check_device
 from repro_torch.kernels import ops
@@ -198,8 +199,9 @@ class BlockArena:
     one ``[n_tasks, count, len]`` tensor on ``device`` and uploaded ONCE.
 
     Per-task execution re-uploads every block; the arena replaces that
-    with a single upload plus a device-side slot gather per wave (the slot
-    and seed vectors are the only host→device traffic a wave pays).
+    with a single upload, which each wave's kernel reads in place through
+    the wave's slots (the slot and seed vectors are the only host→device
+    traffic a wave pays).
     ``slots`` maps a wave of same-shape tasks to rows of its shape bucket.
     """
 
@@ -302,34 +304,29 @@ def _split_moments(stats: np.ndarray, n_idx: int) -> List[Dict[str, np.ndarray]]
 
 def _moments_wave(arena_data: torch.Tensor, rows: np.ndarray,
                   seeds: np.ndarray, *, n_idx: int) -> np.ndarray:
-    """The wave pipeline: slot gather out of the resident arena → per-task
-    row indices from the seeds (jax's exact threefry draws) → one kernel
-    launch for the whole wave → ``[B, 2, D]`` on the host."""
+    """The wave pipeline: the slot and seed vectors up → one
+    ``subsample_stats_seeded`` launch, which reads the resident arena
+    through the slots and draws each task's rows from its seed (jax's
+    exact threefry draws) → ``[B, 2, D]`` on the host."""
     device = arena_data.device
-    rows_t = torch.from_numpy(rows.astype(np.int64)).to(device)
+    rows_t = torch.from_numpy(np.asarray(rows, np.int32)).to(device)
     seeds_t = torch.from_numpy(np.asarray(seeds, np.int32)).to(device)
-    data = arena_data.index_select(0, rows_t)           # [B, count, len]
-    idx = prng.randint(prng.PRNGKey(seeds_t), (n_idx,), 0, data.shape[1])
-    return ops.subsample_stats(data, idx).cpu().numpy()
+    return ops.subsample_stats_seeded(arena_data, rows_t, seeds_t,
+                                      n_idx=n_idx).cpu().numpy()
 
 
 def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
-                 workload, engine: str,
-                 pad_to: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+                 workload, engine: str) -> List[Dict[str, np.ndarray]]:
     """Execute a wave of same-shape tasks in one kernel launch and split
     the batched result back into per-task reduce-tree partials.
 
-    The ``kernel`` engine's wave is padded (repeating the first slot;
-    padded outputs discarded) to ``pad_to`` when given — the driver pins
-    one wave width per shape bucket — else to the next power of two.  The
-    ``torch`` engine launches over the wave's own tasks only: its kernel
-    takes the wave width at run time, so a padded lane would only draw
-    and bin what is then thrown away.
+    Both engines launch over the wave's own tasks only: their kernels take
+    the wave width at run time and read the resident arena through the
+    wave's slots, so no lane is padded and no block is copied.
     """
     if engine not in ("kernel", "torch"):
         raise ValueError(f"engine {engine!r} does not support wave execution")
     key, rows = arena.slots(tasks)
-    b = len(rows)
     seeds = np.asarray(seeds, np.int32)
     data, months = arena.bucket(key)
     if engine == "torch":
@@ -340,13 +337,9 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
         stats = ss.map_wave(data, months, rows, seeds, workload)
         return ss.split_partials(stats.cpu().numpy(), workload,
                                  data.shape[1])
-    b_pad = max(pad_to, b) if pad_to is not None else pow2_ceil(b)
-    if b_pad != b:
-        rows = np.concatenate([rows, np.repeat(rows[:1], b_pad - b)])
-        seeds = np.concatenate([seeds, np.repeat(seeds[:1], b_pad - b)])
     n_idx = workload.draws * workload.draw_size
-    stats = _moments_wave(data, rows, seeds, n_idx=n_idx)
-    return _split_moments(stats[:b], n_idx)
+    return _split_moments(_moments_wave(data, rows, seeds, n_idx=n_idx),
+                          n_idx)
 
 
 def _map_task_numpy(block: np.ndarray, months: np.ndarray, seed: int,

@@ -496,14 +496,14 @@ class WaveContext:
         self.task_shape = task_shape
 
     def cap(self, task: sch.Task) -> int:
-        """The fixed padded wave width of this task's shape bucket."""
+        """The fixed wave width of this task's shape bucket: the most tasks
+        the scheduler puts in one of its waves."""
         return self.wave_pad[self.task_shape(task)]
 
     def run(self, tasks: List[sch.Task],
             seeds: np.ndarray) -> List[Dict[str, np.ndarray]]:
         return pc.run_map_wave(self.arena, tasks, seeds, self.workload,
-                               self.engine,
-                               pad_to=self.cap(tasks[0]))
+                               self.engine)
 
     def wave_bytes(self, n: int) -> float:
         """Host→device traffic of an n-task wave: slot + seed vectors
@@ -515,10 +515,10 @@ def build_wave_context(plan: JobPlan, workload, *, n_exec: int,
                        max_wave: int, warm_seed: int = 0,
                        device="cuda") -> WaveContext:
     """Pack the plan's blocks into the device arena, pin one wave width
-    per shape bucket, and warm one full-size wave per bucket so exactly
-    ONE kernel shape compiles per bucket (a tail wave can never recompile
-    mid-job); buckets split across workers so one worker cannot swallow
-    a bucket in a single wave while its peers idle.  The moments kernel
+    per shape bucket, and warm one full-size wave per bucket (the kernel's
+    build and first launch are set-up, not a wave's time); buckets split
+    across workers so one worker cannot swallow a bucket in a single wave
+    while its peers idle.  The moments kernel
     never reads the months plane, so its arena leaves it out; the torch
     engine's carries it."""
     arena = pc.BlockArena.pack(plan.tasks, plan.task_shape, plan.build_block,
@@ -535,7 +535,7 @@ def build_wave_context(plan: JobPlan, workload, *, n_exec: int,
         warm = group[:min(wave_pad[key], len(group))]
         pc.run_map_wave(arena, warm,
                         np.full(len(warm), warm_seed, np.int32),
-                        workload, plan.engine, pad_to=wave_pad[key])
+                        workload, plan.engine)
     return WaveContext(arena, wave_pad, workload, plan.engine,
                        plan.task_shape)
 

@@ -61,6 +61,198 @@ def test_kernel_rejects_cpu_indices_with_cuda_data(cuda):
         ops.subsample_stats(x, i.cpu())
 
 
+# -- subsample_stats' draw form: the arena read through slots, rows drawn in
+# -- the kernel
+
+
+def _stats_arena(n_slots, n, d, b, seed, device):
+    """An arena of ``n_slots`` blocks [n, d], a wave of ``b`` slots out of
+    order (repeating where ``b`` > ``n_slots``) and ``b`` seeds."""
+    rng = np.random.default_rng(seed)
+    arena = rng.standard_normal((n_slots, n, d)).astype(np.float32)
+    rows = ((np.arange(b) * 7 + 3) % n_slots).astype(np.int32)
+    seeds = np.arange(-b, b, 2).astype(np.int32) * 977
+    return tuple(torch.from_numpy(x).to(device) for x in (arena, rows, seeds))
+
+
+STATS_SEEDED_CASES = [  # n_slots, n, d, b, n_idx
+    (20, 64, 4096, 16, 512),   # the main path's N and draws: staged, C = 256
+    (8, 40, 4096, 5, 512),     # N not a power of two (a multiplier, %): C = 512
+    (6, 48, 1030, 4, 77),      # D % 4 != 0: the global body, scalar reads
+    (3, 2048, 256, 3, 100),    # N past the staged tile: global, float4 reads
+    (6, 5, 36, 4, 13),         # T not a multiple of 8, a tile of 64 columns
+    (4, 16, 8192, 3, 64),      # staged, C = 1024: float4 reads
+    (4, 8, 8192, 3, 0),        # T = 0: zeros
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STATS_SEEDED_CASES)
+def test_seeded_stats_kernel_equals_the_read_kernel(cuda, case):
+    """The draw form equals the read form fed ``ops.randint``'s indices on
+    ``arena[rows]``, bit for bit, counts one ``subsample_stats`` launch,
+    repeats bit for bit, and is within the stated tolerance of its plain
+    version."""
+    n_slots, n, d, b, n_idx = case
+    arena, rows, seeds = _stats_arena(n_slots, n, d, b, sum(case), cuda)
+    idx = ops.randint(seeds, (n_idx,), 0, n)
+    assert torch.equal(idx, prng.randint(prng.PRNGKey(seeds), (n_idx,), 0, n))
+    before = ops.launch_count()
+    got = ops.subsample_stats_seeded(arena, rows, seeds, n_idx=n_idx)
+    torch.cuda.synchronize()
+    assert ops.launch_count() == before + 1
+    assert got.shape == (b, 2, d) and got.dtype == torch.float32
+    assert torch.equal(got, ops.subsample_stats(
+        arena[rows.long()].contiguous(), idx))
+    assert torch.equal(got, ops.subsample_stats_seeded(arena, rows, seeds,
+                                                       n_idx=n_idx))
+    torch.testing.assert_close(
+        got, ref.subsample_stats_seeded_ref(arena, rows, seeds, n_idx=n_idx),
+        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_step", [1, 3, 8, 16])
+@pytest.mark.parametrize("d", [4096, 1030])
+def test_seeded_stats_kernel_at_other_group_sizes(cuda, rows_per_step, d):
+    """Groups of another size than the platform's 8 go row by row, and so
+    does a full group of 8 left after the pairs (T = 77: four pairs, one
+    group and a tail of 5), on the staged body (D = 4,096) and the global
+    one (D = 1,030): the draw form still equals the read form bit for
+    bit, and its plain version within the stated tolerance."""
+    arena, rows, seeds = _stats_arena(6, 64, d, 4, rows_per_step, cuda)
+    kw = dict(n_idx=77, rows_per_step=rows_per_step)
+    idx = ops.randint(seeds, (77,), 0, 64)
+    got = ops.subsample_stats_seeded(arena, rows, seeds, **kw)
+    assert torch.equal(got, ops.subsample_stats(
+        arena[rows.long()].contiguous(), idx, rows_per_step=rows_per_step))
+    torch.testing.assert_close(
+        got, ref.subsample_stats_seeded_ref(arena, rows, seeds, **kw),
+        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_seeded_stats_task_does_not_depend_on_the_wave_or_the_slot(cuda):
+    arena, rows, seeds = _stats_arena(20, 64, 2048, 16, 4, cuda)
+    wave = ops.subsample_stats_seeded(arena, rows, seeds, n_idx=512)
+    shifted = torch.roll(arena, 5, dims=0).contiguous()   # block s at s + 5
+    moved = ops.subsample_stats_seeded(shifted, (rows + 5) % 20, seeds,
+                                       n_idx=512)
+    assert torch.equal(wave, moved)
+    for b in range(16):
+        one = ops.subsample_stats_seeded(arena, rows[b:b + 1].contiguous(),
+                                         seeds[b:b + 1].contiguous(),
+                                         n_idx=512)
+        assert torch.equal(wave[b], one[0]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["columns", "rows", "alignment"])
+def test_stats_global_body_equals_the_staged_body(cuda, split):
+    """The same rows, added by a launch the shape sends to the global body
+    and by one it sends to the staged body, give the same bits: D % 4 (1,030
+    columns against the first 1,030 of 1,032), N (a block of 2,048 rows
+    against its first 64, the indices below 64), and a data pointer 4
+    bytes past a 16-byte boundary."""
+    from repro_torch.kernels import subsample_gather as sg
+
+    rng = np.random.default_rng(11)
+    n, d = (2048, 512) if split == "rows" else (40, 1032)
+    data = torch.from_numpy(rng.standard_normal((3, n, d)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 64 if split == "rows" else n,
+                                        (3, 300)).astype(np.int32)).to(cuda)
+    if split == "columns":
+        staged, other = data, data[:, :, :1030].contiguous()
+    elif split == "rows":
+        staged, other = data[:, :64].contiguous(), data
+    else:
+        staged = data
+        buf = torch.empty(data.numel() + 1, device=cuda)
+        other = buf[1:].view(data.shape)
+        other.copy_(data)
+    assert sg.tile_cols(staged, 300) > 0 and sg.tile_cols(other, 300) == 0
+    want = ops.subsample_stats(staged, idx)
+    got = ops.subsample_stats(other, idx)
+    assert torch.equal(got, want[:, :, :got.shape[2]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["cpu_seeds", "cpu_rows", "slot_past_the_end",
+                                 "negative_slot"])
+def test_seeded_stats_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    arena, rows, seeds = _stats_arena(6, 8, 64, 4, 0, cuda)
+    if bad == "cpu_seeds":
+        seeds = seeds.cpu()
+    elif bad == "cpu_rows":
+        rows = rows.cpu()
+    elif bad == "slot_past_the_end":
+        rows[1] = 6
+    else:
+        rows[3] = -1
+    before = ops.launch_count()
+    with pytest.raises(ValueError):
+        ops.subsample_stats_seeded(arena, rows, seeds, n_idx=16)
+    assert ops.launch_count() == before
+
+
+@pytest.mark.cuda
+def test_moments_wave_draws_in_the_kernel(cuda, monkeypatch):
+    """On the card the ``kernel`` engine's wave is one launch: it never
+    calls ``prng.randint``, the plain version or a slot gather."""
+    from repro_torch.platform import compute as pc
+
+    arena, _, _ = _stats_arena(6, 64, 1024, 1, 2, cuda)
+    rows = np.asarray([5, 0, 5], np.int32)
+    seeds = np.asarray([1, 2, 1], np.int32)
+    want = pc._moments_wave(arena, rows, seeds, n_idx=512)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the wave left the kernel's path")
+
+    monkeypatch.setattr(prng, "randint", forbidden)
+    monkeypatch.setattr(ref, "subsample_stats_seeded_ref", forbidden)
+    monkeypatch.setattr(torch.Tensor, "index_select", forbidden)
+    before = ops.launch_count()
+    got = pc._moments_wave(arena, rows, seeds, n_idx=512)
+    assert ops.launch_count() == before + 1
+    assert np.array_equal(got, want) and np.array_equal(got[0], got[2])
+
+
+@pytest.mark.cuda
+def test_platform_moments_job_launches_once_a_wave(cuda):
+    """A waved ``moments`` job through ``Platform.run`` launches
+    ``subsample_stats`` once a wave plus one warm-up a block shape, and no
+    ``threefry_randint``; per task it gives the same result bit for bit."""
+    from repro_torch.data import NetflixSpec, netflix_dataset
+    from repro_torch.platform import (MOMENTS, Platform, PlatformSpec,
+                                      WaveOptions)
+    from repro_torch.platform.driver import plan_job
+
+    samples, months = netflix_dataset(NetflixSpec(n_movies=96,
+                                                  mean_ratings=300))
+    knee = 8 * float(np.mean([a.nbytes for a in samples.values()]))
+
+    def run(wave):
+        spec = PlatformSpec(platform="BTS", n_workers=2, knee_bytes=knee,
+                            waves=WaveOptions(wave=wave, max_wave=4))
+        return Platform(spec).run(samples, months, MOMENTS)
+
+    ops.reset_launch_count()
+    rep = run("on")
+    launches = ops.launch_count()
+    plan = plan_job(samples, months, MOMENTS, sizing="kneepoint",
+                    engine="kernel", n_exec=2, knee_bytes=knee)
+    warm_ups = len({plan.task_shape(t) for t in plan.tasks})
+    assert rep.engine == "kernel" and len(rep.wave_sizes) > 0
+    assert launches == len(rep.wave_sizes) + warm_ups
+    assert ops.launch_count("threefry_randint") == 0
+    per = run("off")
+    for key in rep.result:
+        assert np.array_equal(np.asarray(rep.result[key]),
+                              np.asarray(per.result[key])), key
+
+
 # -- rwkv6_chunked -----------------------------------------------------------
 
 # The kernel and its plain version (kernels.ref.rwkv6_chunk_form_ref) compute

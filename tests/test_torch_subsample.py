@@ -396,15 +396,16 @@ def test_wave_partials_equal_per_task_bitwise(name, width):
 @pytest.mark.parametrize("name", ["eaglet", "netflix_high", "netflix_low"])
 @pytest.mark.parametrize("width", [1, 3, 5])
 def test_torch_wave_below_the_pinned_width_is_unchanged(name, width):
-    """A ``torch`` wave of ``b`` tasks under a pinned width of 16 launches
-    over its ``b`` tasks only, and gives the partials that the padded
-    launch gave (lanes repeating the first slot and seed, indices from
-    ``prng.randint``, the read form), bit for bit."""
+    """A ``torch`` wave of ``b`` tasks, below a pinned width of 16, launches
+    over its ``b`` tasks only (``run_map_wave`` takes no pinned width), and
+    gives the partials that the launch padded to 16 gave (lanes repeating
+    the first slot and seed, indices from ``prng.randint``, the read
+    form), bit for bit."""
     wl = pss.WORKLOADS[name]
     arena, tasks, _ = _arena_tasks(wl, n_tasks=6)
     wave = tasks[:width]
     seeds = np.asarray([-5 + 3 * t.task_id for t in wave], np.int32)
-    got = pc.run_map_wave(arena, wave, seeds, wl, "torch", pad_to=16)
+    got = pc.run_map_wave(arena, wave, seeds, wl, "torch")
     key, rows = arena.slots(wave)
     data, months = arena.bucket(key)
     pad = 16 - width
