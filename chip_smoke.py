@@ -17,7 +17,10 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    PyTorch call computes the same function, that call (``index_select``
    beside ``subsample_gather`` is a floor for its gather alone);
    ``flash_attention`` also gives its TFLOP/s and share of its bound, and
-   a second launch at the serving shape must equal the first.
+   a second launch at the serving shape must equal the first; the same
+   for ``rwkv6_chunked``, which is also held at extreme decays (logw down
+   to -40 a token) and timed pass by pass (its state pass and its output
+   pass), with ptxas' lines for both.
    ``subsample_stats`` is held in both forms: the read form (indices
    given) and the draw form (the platform's: 16 slots, out of order, of
    an arena of 32 blocks ``[64, 65536]``, each task's 512 rows drawn in
@@ -63,9 +66,10 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    1,000-token prompt, 32 new tokens; the launch counts are zeroed just
    before and read just after, and prefill must launch ``rwkv6_chunked``
    once per layer.  One ``torch.profiler`` pass over a prefill and one
-   over a decode step give the kernel's share of prefill device time and
-   the device's busy share of each.  Then, in float32 weights at
-   full width with the depth cut to 4 layers, decoding token x after
+   over a decode step give the kernel's share of prefill device time (both
+   passes, and each alone) and the device's busy share of each.  Then, in
+   float32 weights at full width with the depth cut to 4 layers, decoding
+   token x after
    ``prefill(P)`` must give the logits of the last position of
    ``prefill(P ++ [x])``.
 8. Serves ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU and 8
@@ -107,9 +111,11 @@ INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
 THREEFRY_OPS = 75              # 32-bit integer operations of one hash
 RTOL, ATOL = 1e-5, 1e-4        # kernel vs plain: same rows, fp32 sums
 # rwkv6_chunked vs its plain version: the same fp32 chunk form from the
-# same inputs, its products and sums added in other orders (the plain
-# version's cumsum is a parallel scan): outputs of order 10 agree to a few
-# ulps of the sums
+# same inputs, with the same log-decay sums (a cumulative sum in row order,
+# as torch.cumsum takes it on the card along a dimension that is not the
+# last), its products added in other orders on the tensor cores, each fp32
+# operand split into two TF32 parts (about 2^-21 of each product): outputs
+# of order 10 agree to a few ulps of the sums
 RW_TOL = 1e-4
 # decode after prefill(P) vs the last position of prefill(P ++ [x]), fp32
 # weights: the single-step formula against the chunk form (a padded second
@@ -399,16 +405,17 @@ def netflix_block_gather(ops, prng, block: np.ndarray) -> int:
     return launches
 
 
-def _rwkv6_inputs(b, h, s, hd, gen, dtype=torch.bfloat16):
-    """bf16 r/k/v/u (the model's types), fp32 decays in [-2.5, -0.05] and a
-    non-zero fp32 state, drawn on the card from ``gen``."""
+def _rwkv6_inputs(b, h, s, hd, gen, dtype=torch.bfloat16, span=2.45):
+    """bf16 r/k/v/u (the model's types), fp32 decays in [-0.05 - span,
+    -0.05] (span 2.45 the realistic range, 39.95 down to -40 a token) and
+    a non-zero fp32 state, drawn on the card from ``gen``."""
     dev = torch.device("cuda")
 
     def normal(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     r, k, v = (normal(b, h, s, hd).to(dtype) for _ in range(3))
-    logw = -0.05 - 2.45 * torch.rand((b, h, s, hd), generator=gen,
+    logw = -0.05 - span * torch.rand((b, h, s, hd), generator=gen,
                                      device=dev)
     u = normal(h, hd, scale=0.3).to(dtype)
     state = normal(b, h, hd, hd, scale=0.5)
@@ -437,44 +444,73 @@ def _rwkv6_bound(r, logw, chunk):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_rwkv6_kernel(ops, ref):
+def check_rwkv6_kernel(ops, ref, rw):
     """Phase 3b: ``rwkv6_chunked`` against its plain version on the card,
     ``out`` and ``state_out``, at the serving shape (one layer's prefill of
     batch 4 at 1,024 tokens: 64 heads of 64, chunks of 64), a single short
-    chunk and hd = 32."""
+    chunk, hd = 32 over 8 chunks, chunks of 16 and extreme decays (logw
+    down to -40 a token); a second launch at the serving shape must equal
+    the first bit for bit.  Times the op and each of its two passes at the
+    serving shape, and prints ptxas' lines for both passes."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    for line in rw.build_info["log"].splitlines():
+        if any(k in line for k in ("rwkv6_chunked", "registers", "spill")):
+            print("  rwkv6 ptxas:", line.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(4, 64, 1024, 64, 64),     # the main path's shape
-             (2, 64, 13, 64, 64),       # one short chunk: C = S = 13
-             (4, 32, 256, 32, 32)]      # hd = 32
+    cases = [(4, 64, 1024, 64, 64, 2.45),    # the main path's shape
+             (2, 64, 13, 64, 64, 2.45),      # one short chunk: C = S = 13
+             (4, 32, 256, 32, 32, 2.45),     # hd = 32, 8 chunks
+             (4, 64, 256, 64, 16, 2.45),     # chunks of 16
+             (4, 64, 256, 64, 64, 39.95)]    # extreme decays
     worst = 0.0
-    for b, h, s, hd, chunk in cases:
-        x = _rwkv6_inputs(b, h, s, hd, gen)
+    for b, h, s, hd, chunk, span in cases:
+        x = _rwkv6_inputs(b, h, s, hd, gen, span=span)
         out, state = ops.rwkv6_chunked(*x[:5], chunk=chunk, state=x[5])
         want, want_state = ref.rwkv6_chunk_form_ref(*x, min(chunk, s))
         torch.cuda.synchronize()
         err = max(float((out - want).abs().max()),
                   float((state - want_state).abs().max()))
+        if not bool(torch.isfinite(out).all() and
+                    torch.isfinite(state).all()):
+            raise AssertionError("rwkv6_chunked gave a value that is not "
+                                 "finite")
         torch.testing.assert_close(out, want, rtol=RW_TOL, atol=RW_TOL)
         torch.testing.assert_close(state, want_state, rtol=RW_TOL,
                                    atol=RW_TOL)
         worst = max(worst, err)
-        print(f"rwkv6 kernel check B={b} H={h} S={s} hd={hd} C={chunk}: "
-              f"max_abs_err={err!r} over out and state_out (tolerance "
-              f"{RW_TOL}: same fp32 chunk form, sums in another order)")
-        if (b, h, s, hd, chunk) == cases[0]:
-            main = (x, chunk)
-    x, chunk = main
+        print(f"rwkv6 kernel check B={b} H={h} S={s} hd={hd} C={chunk} "
+              f"logw down to {-0.05 - span:.2f}: max_abs_err={err!r} over "
+              f"out and state_out, outputs up to "
+              f"{float(want.abs().max())!r} (tolerance {RW_TOL}: the same "
+              "fp32 chunk form and log-decay sums, products in another "
+              "order)")
+        if (b, h, s, hd, chunk, span) == cases[0]:
+            main = (x, chunk, out, state)
+    x, chunk, out, state = main
+    again = ops.rwkv6_chunked(*x[:5], chunk=chunk, state=x[5])
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], state)):
+        raise AssertionError("two rwkv6_chunked launches on the same inputs "
+                             "differ")
     ms = _time_ms(lambda: ops.rwkv6_chunked(*x[:5], chunk=chunk,
                                             state=x[5]))
+    bufs = (torch.empty_like(out), torch.empty_like(state),
+            rw.scratch_states(x[0], chunk))
+    pass_ms = {}
+    for name, passes in (("state_pass_ms", rw.STATE_PASS),
+                         ("out_pass_ms", rw.OUT_PASS)):
+        pass_ms[name] = _time_ms(lambda: rw.launch(
+            *x[:5], x[5], chunk, *bufs, passes=passes))
     plain_ms = _time_ms(lambda: ref.rwkv6_chunk_form_ref(*x, chunk), reps=3)
     bound_ms, bound_by = _rwkv6_bound(x[0], x[3], chunk)
     print(f"rwkv6_chunked at [4, 64, 1024, 64] bf16 r/k/v/u, fp32 logw, "
-          f"C=64: kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
-          f"{bound_ms!r} ms ({bound_by}); no PyTorch call computes this "
+          f"C=64: kernel {ms!r} ms (state pass {pass_ms['state_pass_ms']!r}"
+          f" ms, output pass {pass_ms['out_pass_ms']!r} ms), plain "
+          f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); two "
+          "launches equal bit for bit; no PyTorch call computes this "
           "function, so library_ms is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, **pass_ms}
 
 
 def _profiled(label, fn, kernels=("rwkv6_chunked",)):
@@ -510,7 +546,7 @@ def _profiled(label, fn, kernels=("rwkv6_chunked",)):
     by_name = {}
     for start, end, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     kernel_text = ", ".join(f"{k} {t / 1e3!r} ms (share {t / total!r})"
                             for k, t in shares.items())
     print(f"{label} under the profiler: host wall {wall_us / 1e3!r} ms, "
@@ -569,7 +605,9 @@ def serve_full_width(ops):
         raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
     with torch.inference_mode():
         logits, caches = _profiled(
-            "prefill", lambda: model.prefill(params, batch))
+            "prefill", lambda: model.prefill(params, batch),
+            kernels=("rwkv6_chunked", "rwkv6_chunked_state",
+                     "rwkv6_chunked_out"))
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("prefill logits are not finite")
         caches = model.prefill_to_decode(grow_caches(caches, 1001))
@@ -1518,7 +1556,7 @@ def main() -> None:
 
     # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng, subsample_gather)
-    rw_timing = check_rwkv6_kernel(ops, ref)
+    rw_timing = check_rwkv6_kernel(ops, ref, rwkv6_scan)
     rg_timing = check_rglru_kernel(ops, ref)
     fa_timing = check_flash_kernel(ops, ref)
     sg_timing = check_gather_kernel(ops, ref)

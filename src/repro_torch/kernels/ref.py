@@ -226,6 +226,80 @@ def rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk: int):
     return torch.cat(outs, dim=2), state
 
 
+def rwkv6_two_pass_ref(r, k, v, logw, u, state, chunk: int, sub: int = 16):
+    """The arithmetic of the ``rwkv6_chunked`` CUDA kernel: the function of
+    :func:`rwkv6_chunk_form_ref`, computed in the kernel's two passes.  The
+    tests hold it against the chunk form and the reference; no path of the
+    port calls it.
+
+    1. The state pass: the state entering every chunk, chunk after chunk,
+       ``S ← e^{logP_C} ⊙ S + (k ⊙ e^{logP_C − logP_{j+1}})ᵀ v``.
+    2. The output pass, every chunk at once from its entering state:
+       ``out = (r ⊙ e^{logP}) S_c + A v``, with A built in sub-chunks of
+       ``sub`` rows.  A block I × J below the diagonal is the product
+       ``(r_I ⊙ e^{logP_I − ref}) (k_J ⊙ e^{ref − logP_{j+1}})ᵀ``, ref the
+       log decay at I's first row, so both exponents are ≤ 0.  A diagonal
+       block is cut in halves the same way; its two diagonal halves stay
+       pairwise, ``e^{logP_i − logP_{j+1}}`` for j < i, the bonus on the
+       diagonal.
+
+    The log-decay sums are formed as :func:`chunk_body` forms them.  Same
+    arguments and result as :func:`rwkv6_chunk_form_ref`."""
+    b, h, s, hd = r.shape
+    n = s // chunk
+    rf, kf, vf, lw = (t.float().reshape(b, h, n, chunk, hd)
+                      for t in (r, k, v, logw))
+    uf = u.float()
+    lp = torch.cumsum(lw, dim=3) - lw                 # logP_i
+    lq = lp + lw                                      # logP_{j+1}
+    total = lq[..., -1, :]                            # logP_C
+
+    # 1. the state pass
+    inc = torch.einsum("bhncd,bhnce->bhnde",
+                       kf * torch.exp(total[..., None, :] - lq), vf)
+    decay = torch.exp(total)
+    entering = []
+    st = state.float()
+    for c in range(n):
+        entering.append(st)
+        st = decay[:, :, c, :, None] * st + inc[:, :, c]
+
+    # 2. the output pass
+    out = torch.einsum("bhncd,bhnde->bhnce", rf * torch.exp(lp),
+                       torch.stack(entering, dim=2))
+
+    def factored(i0, i1, j0, j1):       # rows [i0, i1) x columns [j0, j1)
+        ref = lp[..., i0:i0 + 1, :]
+        x = rf[..., i0:i1, :] * torch.exp(lp[..., i0:i1, :] - ref)
+        y = kf[..., j0:j1, :] * torch.exp(ref - lq[..., j0:j1, :])
+        return torch.einsum("bhnid,bhnjd->bhnij", x, y)
+
+    def pairwise(i0, i1):               # rows and columns [i0, i1)
+        dm = lp[..., i0:i1, None, :] - lq[..., None, i0:i1, :]
+        idx = torch.arange(i1 - i0, device=r.device)
+        lower = (idx[:, None] > idx[None, :])[..., None]
+        e = torch.exp(torch.where(lower, dm, torch.full_like(dm, -math.inf)))
+        blk = torch.einsum("bhnid,bhnjd,bhnijd->bhnij", rf[..., i0:i1, :],
+                           kf[..., i0:i1, :], e)
+        bonus = torch.einsum("bhnid,hd,bhnid->bhni", rf[..., i0:i1, :], uf,
+                             kf[..., i0:i1, :])
+        return blk + torch.diag_embed(bonus)
+
+    a = torch.zeros((b, h, n, chunk, chunk), dtype=torch.float32,
+                    device=r.device)
+    for i0 in range(0, chunk, sub):
+        i1 = min(i0 + sub, chunk)
+        mid = min(i0 + sub // 2, i1)
+        if i0 > 0:
+            a[..., i0:i1, :i0] = factored(i0, i1, 0, i0)
+        a[..., i0:mid, i0:mid] = pairwise(i0, mid)
+        if mid < i1:
+            a[..., mid:i1, i0:mid] = factored(mid, i1, i0, mid)
+            a[..., mid:i1, mid:i1] = pairwise(mid, i1)
+    out = out + torch.einsum("bhnij,bhnje->bhnie", a, vf)
+    return out.reshape(b, h, s, hd), st
+
+
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
                     h0: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t ⊙ h_{t−1} + b_t`` from ``h_{−1} = h0``, one step after

@@ -256,18 +256,22 @@ def test_platform_moments_job_launches_once_a_wave(cuda):
 # -- rwkv6_chunked -----------------------------------------------------------
 
 # The kernel and its plain version (kernels.ref.rwkv6_chunk_form_ref) compute
-# the same fp32 chunk form from the same inputs, but add the products in
-# other orders and take the cumulative sum of the decays another way (the
-# plain version's torch.cumsum is a parallel scan on the card): outputs of
-# order 10 agree to a few ulps of the sums.
+# the same fp32 chunk form from the same inputs, with the same log-decay sums
+# (a cumulative sum in row order, as torch.cumsum takes it on the card along
+# a dimension that is not the last), but add the products in other orders:
+# the kernel on the tensor cores, each fp32 operand split into two TF32
+# parts (about 2^-21 of each product), A's off-diagonal blocks factored at
+# sub-chunk boundaries.  Outputs of order 10 agree to a few ulps of the sums.
 RW_TOL = 1e-4
 
 
-def _rwkv_inputs(b, h, s, hd, dtype, logw_dtype, seed, device):
+def _rwkv_inputs(b, h, s, hd, dtype, logw_dtype, seed, device, span=2.45):
+    """Decays logw in [-0.05 - span, -0.05]: span 2.45 is the realistic
+    range, 39.95 reaches -40 a token (extreme decay)."""
     rng = np.random.default_rng(seed)
     r, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(
         np.float32)).to(device, dtype) for _ in range(3))
-    logw = torch.from_numpy((-0.05 - 2.45 * rng.random((b, h, s, hd))).astype(
+    logw = torch.from_numpy((-0.05 - span * rng.random((b, h, s, hd))).astype(
         np.float32)).to(device, logw_dtype)
     u = torch.from_numpy((0.3 * rng.standard_normal((h, hd))).astype(
         np.float32)).to(device, dtype)
@@ -283,6 +287,9 @@ def _rwkv_inputs(b, h, s, hd, dtype, logw_dtype, seed, device):
     (2, 2, 96, 32, 32, torch.float32, torch.float32),     # hd = 32
     (1, 2, 40, 64, 8, torch.float32, torch.bfloat16),     # bf16 decays
     (3, 1, 21, 32, 7, torch.bfloat16, torch.bfloat16),    # odd chunk
+    (2, 3, 256, 32, 32, torch.bfloat16, torch.float32),   # hd 32, 8 chunks
+    (2, 4, 128, 64, 16, torch.bfloat16, torch.float32),   # chunk 16
+    (1, 2, 80, 64, 40, torch.float32, torch.float32),     # ragged sub-chunk
 ])
 def test_rwkv6_kernel_matches_plain_version(cuda, b, h, s, hd, chunk, dtype,
                                             logw_dtype):
@@ -299,6 +306,78 @@ def test_rwkv6_kernel_matches_plain_version(cuda, b, h, s, hd, chunk, dtype,
     torch.testing.assert_close(out, want, rtol=RW_TOL, atol=RW_TOL)
     torch.testing.assert_close(state_out, want_state, rtol=RW_TOL,
                                atol=RW_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.float32, 32)])
+def test_rwkv6_kernel_matches_plain_version_at_extreme_decays(cuda, dtype,
+                                                              hd):
+    """logw down to -40 a token: the log-decay sums reach -2,560 in a
+    chunk of 64, and most factors underflow to 0; nothing may overflow."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, k, v, logw, u, state = _rwkv_inputs(2, 3, 192, hd, dtype,
+                                           torch.float32, 17, cuda,
+                                           span=39.95)
+    out, state_out = ops.rwkv6_chunked(r, k, v, logw, u, chunk=64,
+                                       state=state)
+    want, want_state = ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state, 64)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(state_out).all())
+    torch.testing.assert_close(out, want, rtol=RW_TOL, atol=RW_TOL)
+    torch.testing.assert_close(state_out, want_state, rtol=RW_TOL,
+                               atol=RW_TOL)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_is_bitwise_repeatable_and_its_passes_compose(cuda):
+    """No atomics: two calls agree bit for bit, and the state pass then the
+    output pass, launched apart, give what one call gives."""
+    from repro_torch.kernels import rwkv6_scan
+
+    r, k, v, logw, u, state = _rwkv_inputs(2, 4, 256, 64, torch.bfloat16,
+                                           torch.float32, 5, cuda)
+    first = ops.rwkv6_chunked(r, k, v, logw, u, chunk=64, state=state)
+    second = ops.rwkv6_chunked(r, k, v, logw, u, chunk=64, state=state)
+    out = torch.empty_like(first[0])
+    state_out = torch.empty_like(first[1])
+    states = rwkv6_scan.scratch_states(r, 64)
+    rwkv6_scan.launch(r, k, v, logw, u, state, 64, out, state_out, states,
+                      rwkv6_scan.STATE_PASS)
+    rwkv6_scan.launch(r, k, v, logw, u, state, 64, out, state_out, states,
+                      rwkv6_scan.OUT_PASS)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, (out, state_out)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_takes_inputs_that_are_not_16_byte_aligned(cuda):
+    """A contiguous view 4 bytes into its storage: the wrapper hands the
+    kernel an aligned copy."""
+    r, k, v, logw, u, state = _rwkv_inputs(1, 2, 64, 32, torch.float32,
+                                           torch.float32, 8, cuda)
+    shifted = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    shifted.copy_(r)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    got = ops.rwkv6_chunked(shifted, k, v, logw, u, chunk=16, state=state)
+    want = ops.rwkv6_chunked(r, k, v, logw, u, chunk=16, state=state)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd16", "chunk65", "ragged"])
+def test_rwkv6_launch_raises_on_shapes_the_kernel_refuses(cuda, bad):
+    """The launcher itself, past the op's checks, refuses and raises."""
+    from repro_torch.kernels import rwkv6_scan
+
+    hd = 16 if bad == "hd16" else 64
+    r, k, v, logw, u, state = _rwkv_inputs(1, 2, 130, hd, torch.float32,
+                                           torch.float32, 0, cuda)
+    chunk = {"hd16": 13, "chunk65": 65, "ragged": 64}[bad]   # S = 130
+    with pytest.raises(RuntimeError):
+        rwkv6_scan.rwkv6_chunked(r, k, v, logw, u, state, chunk)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

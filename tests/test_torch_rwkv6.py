@@ -13,6 +13,9 @@ Tolerances:
   bf16 inputs;
 - the chunk form with a carried state against the reference's
   ``chunk_body``: 1e-4, as the reference holds its kernel to it;
+- the kernel's two-pass arithmetic (``ref.rwkv6_two_pass_ref``) against
+  the chunk form: 1e-4; both form the same log-decay sums, and only the
+  factored sub-chunk blocks and the order of the sums differ;
 - the model's modules in float32 against the reference's: 1e-4 relative
   and absolute; both sides compute the same fp32 formulas on the CPU, but
   their products and sums (einsums, matmuls) add in other orders, on
@@ -69,7 +72,8 @@ def _reference_outputs(shape, dtype):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", KERNEL_SHAPES)
-@pytest.mark.parametrize("form", ["sequential", "chunk_form", "ops"])
+@pytest.mark.parametrize("form", ["sequential", "chunk_form", "ops",
+                                  "two_pass"])
 def test_plain_versions_match_reference(form, shape, dtype):
     *bhsd, chunk = shape
     b, h, _, hd = bhsd
@@ -79,6 +83,8 @@ def test_plain_versions_match_reference(form, shape, dtype):
         got = ref.rwkv6_chunked_ref(*tx)
     elif form == "chunk_form":
         got, _ = ref.rwkv6_chunk_form_ref(*tx, zero, chunk)
+    elif form == "two_pass":
+        got, _ = ref.rwkv6_two_pass_ref(*tx, zero, chunk)
     else:
         got, _ = ops.rwkv6_chunked(*tx, chunk=chunk)
     assert got.dtype == torch.float32 and tuple(got.shape) == tuple(bhsd)
@@ -113,6 +119,59 @@ def test_chunk_form_with_state_matches_reference_chunk_body(s, chunk):
                                    atol=1e-4)
         np.testing.assert_allclose(got_state.numpy(), want_state,
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 64), (64, 16), (40, 8), (13, 13)])
+def test_two_pass_with_state_matches_reference_chunk_body(s, chunk):
+    b, h, hd = 2, 2, 32
+    arrays = _kernel_inputs(b, h, s, hd, seed=s + chunk + 1)
+    state = (0.5 * np.random.default_rng(s + 1).standard_normal(
+        (b, h, hd, hd))).astype(np.float32)
+    jx, tx = _both(arrays, "float32")
+    want_out, want_state = _chunk_body_chain(jx, jnp.asarray(state), chunk)
+    got_out, got_state = ref.rwkv6_two_pass_ref(*tx, torch.from_numpy(state),
+                                                chunk)
+    np.testing.assert_allclose(got_out.numpy(), want_out, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got_state.numpy(), want_state, rtol=1e-4,
+                               atol=1e-4)
+
+
+def _with_state(b, h, s, hd, seed, dtype="float32", span=2.45):
+    """Kernel inputs with decays in [-0.05 - span, -0.05] and a carried
+    state, as torch tensors."""
+    r, k, v, logw, u = _kernel_inputs(b, h, s, hd, seed)
+    rng = np.random.default_rng(seed + 1)
+    logw = (-0.05 - span * rng.random((b, h, s, hd))).astype(np.float32)
+    state = (0.5 * rng.standard_normal((b, h, hd, hd))).astype(np.float32)
+    _, tx = _both((r, k, v, logw, u), dtype)
+    return tx + [torch.from_numpy(state)]
+
+
+# chunks of 13 and 7 leave a ragged sub-chunk; sub-chunks of 4 and 6 put
+# factored blocks beside ragged ones
+@pytest.mark.parametrize("chunk,sub", [(64, 16), (16, 16), (13, 16), (7, 16),
+                                       (13, 4), (7, 6), (64, 8)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_two_pass_matches_chunk_form(chunk, sub, dtype):
+    x = _with_state(2, 2, 4 * chunk, 32, seed=chunk + sub, dtype=dtype)
+    want_out, want_state = ref.rwkv6_chunk_form_ref(*x, chunk)
+    got_out, got_state = ref.rwkv6_two_pass_ref(*x, chunk, sub=sub)
+    torch.testing.assert_close(got_out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_state, want_state, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [64, 13])
+def test_two_pass_at_extreme_decays_is_finite_and_matches_chunk_form(chunk):
+    """logw down to -40 a token: the log-decay sums reach -2,560 over a
+    chunk of 64 and most factors underflow; no exponent may overflow."""
+    x = _with_state(2, 2, 3 * chunk, 32, seed=chunk, span=39.95)
+    want_out, want_state = ref.rwkv6_chunk_form_ref(*x, chunk)
+    got_out, got_state = ref.rwkv6_two_pass_ref(*x, chunk)
+    for t in (got_out, got_state, want_out, want_state):
+        assert bool(torch.isfinite(t).all())
+    torch.testing.assert_close(got_out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_state, want_state, rtol=1e-4, atol=1e-4)
 
 
 def test_chunk_body_matches_reference_chunk_body():
