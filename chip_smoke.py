@@ -27,6 +27,14 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    the kernel), the draw form bit for bit against the read form fed
    ``ops.randint``'s indices, at N = 40 (not a power of two) too, and at
    shapes that take its global body; both forms are timed.
+   ``rglru_scan`` is held in both forms: the read form (``a`` and ``b``
+   given) against its sequential plain version, and the gated form (the
+   prefill's: the gates formed in the kernel from ``u``) against the gates
+   as torch ops on the card followed by the read form, both bit for bit,
+   at the serving shape, at S = 1, at widths off the kernel's channel
+   block and on a view off 16-byte alignment; each is timed beside its
+   bound, and the gated form beside the torch gates and read form it
+   replaced.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -78,7 +86,9 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    (longer than the window, so the cache roll and the window mask both
    run), 32 new tokens; prefill must launch ``rglru_scan`` 18 times and
    ``flash_attention`` 8 times.  One ``torch.profiler`` pass over a
-   prefill and one over a decode step.
+   prefill and one over a decode step; then each part of one RG-LRU
+   block's prefill (projections, conv taps, the gates as torch ops, both
+   forms of ``rglru_scan``, ``h * y``) timed apart by CUDA events.
 9. The decode ≡ prefill invariant for ``recurrentgemma-2b``: full width,
    depth cut to 8 layers, float32 weights, at P = 64 (shorter than the
    window) and P = 2,112 (longer).
@@ -513,11 +523,13 @@ def check_rwkv6_kernel(ops, ref, rw):
             "bound_ms": bound_ms, "bound_by": bound_by, **pass_ms}
 
 
-def _profiled(label, fn, kernels=("rwkv6_chunked",)):
+def _profiled(label, fn, kernels=("rwkv6_chunked",), *, ran=(), absent=()):
     """``fn()`` once under ``torch.profiler``, closed by a synchronise:
     its host wall time, the device time and each of ``kernels``' share of
     it, the device's busy share of the host wall time, and the device
-    operations by name.  Returns what ``fn`` returned."""
+    operations by name.  Fails unless every name in ``ran`` took device
+    time and no device operation's name holds one of ``absent``.  Returns
+    what ``fn`` returned."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -535,6 +547,13 @@ def _profiled(label, fn, kernels=("rwkv6_chunked",)):
     total = sum(end - start for start, end, _ in dev)
     shares = {k: sum(end - start for start, end, name in dev if k in name)
               for k in kernels}
+    for k in ran:
+        if not any(k in name and end > start for start, end, name in dev):
+            raise AssertionError(f"{label}: no device time in {k}")
+    for k in absent:
+        seen = sorted({name for _, _, name in dev if k in name})
+        if seen:
+            raise AssertionError(f"{label}: ran {seen}, not expected")
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, _ in dev:
         if cur_end is None or start > cur_end:
@@ -546,7 +565,7 @@ def _profiled(label, fn, kernels=("rwkv6_chunked",)):
     by_name = {}
     for start, end, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     kernel_text = ", ".join(f"{k} {t / 1e3!r} ms (share {t / total!r})"
                             for k, t in shares.items())
     print(f"{label} under the profiler: host wall {wall_us / 1e3!r} ms, "
@@ -672,9 +691,9 @@ def decode_invariant():
 
 
 def _rglru_bound(a):
-    """Least time for one call: a and b read once, h0 read once and out
-    written once over 3.35 TB/s, against 2 fp32 operations an element over
-    67 TFLOP/s."""
+    """Least time for one read-form call: a and b read once, h0 read once
+    and out written once over 3.35 TB/s, against 2 fp32 operations an
+    element over 67 TFLOP/s."""
     b, s, w = a.shape
     nbytes = 3 * b * s * w * 4 + b * w * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -682,40 +701,130 @@ def _rglru_bound(a):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# fp32 operations of one element of the gated form, counted from
+# kernels/ref.py rglru_gates (each exp, quotient and root one): two gates
+# of a multiply, an add and a sigmoid (negate, exp, add, divide), -8·r·sp
+# and its exp, 1 − a², the clamp and the root, i·u and the product, and
+# the recurrence's multiply and add
+RGLRU_GATED_OPS = 23
+
+
+def _rglru_gated_bound(u, gate_vectors):
+    """Least time for one gated-form call: u, h0, the gate vectors and
+    softplus(Λ) read once and out written once over 3.35 TB/s, against
+    ``RGLRU_GATED_OPS`` fp32 operations an element over 67 TFLOP/s."""
+    b, s, w = u.shape
+    nbytes = (u.numel() * u.element_size() + b * s * w * 4 + b * w * 4
+              + sum(t.numel() * t.element_size() for t in gate_vectors))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = RGLRU_GATED_OPS * b * s * w / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rglru_gate_vectors(w, dtype, gen, lam_mean=1.0):
+    """The four gate vectors in ``dtype`` and softplus(Λ) fp32, drawn away
+    from their one/zero inits as a trained model's are."""
+    def normal(mean, std):
+        return (mean + std * torch.randn((w,), generator=gen,
+                                         device="cuda")).to(dtype)
+
+    lam = normal(lam_mean, 0.3).float()
+    return (normal(1.0, 0.3), normal(0.0, 0.2), normal(1.0, 0.3),
+            normal(0.0, 0.2), torch.nn.functional.softplus(lam))
+
+
 def check_rglru_kernel(ops, ref):
-    """Phase 3c: ``rglru_scan`` against its sequential plain version on the
-    card, at the serving shape (one RG-LRU layer's prefill of batch 4 at
-    4,096 tokens, width 2,560) with a non-zero h0, and at a ragged shape.
-    Both round a·h, then add b, one step after another: equal bit for
-    bit."""
+    """Phase 3c: both forms of ``rglru_scan`` on the card.  The read form
+    against its sequential plain version at the serving shape (one RG-LRU
+    layer's prefill of batch 4 at 4,096 tokens, width 2,560) with a
+    non-zero h0, at S = 1, at widths that are not a multiple of the
+    kernel's 16-channel block, and on a view 4 bytes off 16-byte alignment:
+    both round a·h, then add b, one step after another, so they are equal
+    bit for bit.  The gated form (the prefill's) against the gates as torch
+    ops on the card followed by the read form, at the serving shape with
+    bf16 u and gate vectors (the model's types), in fp32, at ragged shapes
+    and with Λ so negative that the clamp of 1 − a² binds: the kernel
+    takes the gates' operations one by one in the same order, so equal bit
+    for bit, and so to its plain version ``ref.rglru_gated_scan_ref`` (the
+    same torch gates, then the sequential scan).  A second gated launch must equal the first.  Times both
+    forms, their plain versions and bounds, and the torch gates followed
+    by the read form, the pipeline the gated form replaced."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
-    for b, s, w in [(4, 4096, 2560), (2, 13, 100)]:
-        a = 0.2 + 0.79 * torch.rand((b, s, w), generator=gen, device="cuda")
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit for bit, max_abs_err "
+                                 f"{err!r}")
+        print(f"rglru kernel check, {what}: max_abs_err {err!r} (bit for "
+              "bit, as required)")
+        return err
+
+    for b, s, w, offset in [(4, 4096, 2560, 0), (2, 13, 100, 0),
+                            (1, 1, 7, 0), (3, 70, 2563, 0), (2, 67, 96, 1)]:
+        n = b * s * w
+        a = (0.2 + 0.79 * torch.rand((n + offset,), generator=gen,
+                                     device="cuda"))[offset:].view(b, s, w)
         x = 0.5 * torch.randn((b, s, w), generator=gen, device="cuda")
         h0 = torch.randn((b, w), generator=gen, device="cuda")
-        out = ops.rglru_scan(a, x, h0)
-        want = ref.linear_scan_ref(a, x, h0)
-        torch.cuda.synchronize()
-        err = float((out - want).abs().max())
-        if not torch.equal(out, want):
-            raise AssertionError(f"rglru_scan != its plain version at "
-                                 f"{(b, s, w)}: max_abs_err {err!r}")
-        worst = max(worst, err)
-        print(f"rglru kernel check B={b} S={s} W={w}: max_abs_err {err!r} "
-              "(bit for bit, as required)")
+        worst = max(worst, same(ops.rglru_scan(a, x, h0),
+                                ref.linear_scan_ref(a, x, h0),
+                                f"read form B={b} S={s} W={w}, a at "
+                                f"{a.data_ptr() % 16} bytes past 16"))
         if s == 4096:
             main = (a, x, h0)
-    a, x, h0 = main
-    ms = _time_ms(lambda: ops.rglru_scan(a, x, h0))
-    plain_ms = _time_ms(lambda: ref.linear_scan_ref(a, x, h0), reps=3)
-    bound_ms, bound_by = _rglru_bound(a)
-    print(f"rglru_scan at [4, 4096, 2560] fp32: kernel {ms!r} ms, plain "
-          f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); no PyTorch "
-          "call computes a linear recurrence with a decay per element, so "
-          "library_ms is null")
+
+    for b, s, w, dtype, lam_mean in [
+            (4, 4096, 2560, torch.bfloat16, 1.0),
+            (2, 13, 100, torch.float32, 1.0), (1, 1, 7, torch.bfloat16, 1.0),
+            (3, 70, 2563, torch.bfloat16, 1.0),
+            (2, 200, 48, torch.float32, -20.0)]:
+        u = (2.0 * torch.randn((b, s, w), generator=gen,
+                               device="cuda")).to(dtype)
+        gv = _rglru_gate_vectors(w, dtype, gen, lam_mean)
+        h0 = torch.randn((b, w), generator=gen, device="cuda")
+        got = ops.rglru_gated_scan(u, *gv, h0)
+        what = (f"gated form B={b} S={s} W={w} {str(dtype).split('.')[-1]} "
+                f"u and gates, Λ ~ {lam_mean}")
+        worst = max(worst, same(got, ref.rglru_gated_scan_ref(u, *gv, h0),
+                                f"{what}, against its plain version"),
+                    same(got, ops.rglru_scan(*ref.rglru_gates(u, *gv), h0),
+                         f"{what}, against torch gates + read form"))
+        if s == 4096:
+            gated_main = (u, gv, h0, got)
+    u, gv, h0, first = gated_main
+    if not torch.equal(first, ops.rglru_gated_scan(u, *gv, h0)):
+        raise AssertionError("two rglru_gated_scan launches on the serving "
+                             "shape's inputs differ")
+    pre = gv[0] * u.float() + gv[1]
+    sig_formula = torch.equal(torch.sigmoid(pre), 1 / (1 + torch.exp(-pre)))
+    print(f"torch.sigmoid on the card equals 1 / (1 + exp(-x)) bit for bit "
+          f"on the serving shape's gate inputs: {sig_formula}")
+
+    a, x, h0r = main
+    read = {"ms": _time_ms(lambda: ops.rglru_scan(a, x, h0r)),
+            "plain_ms": _time_ms(lambda: ref.linear_scan_ref(a, x, h0r),
+                                 reps=3)}
+    read["bound_ms"], read["bound_by"] = _rglru_bound(a)
+    ms = _time_ms(lambda: ops.rglru_gated_scan(u, *gv, h0))
+    plain_ms = _time_ms(lambda: ref.rglru_gated_scan_ref(u, *gv, h0), reps=3)
+    torch_gates_ms = _time_ms(lambda: ops.rglru_scan(
+        *ref.rglru_gates(u, *gv), h0))
+    bound_ms, bound_by = _rglru_gated_bound(u, gv)
+    print(f"rglru_scan read form at [4, 4096, 2560] fp32: kernel "
+          f"{read['ms']!r} ms, plain {read['plain_ms']!r} ms, bound "
+          f"{read['bound_ms']!r} ms ({read['bound_by']}); gated form at "
+          f"[4, 4096, 2560] bf16 u and gates: kernel {ms!r} ms, plain "
+          f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}), torch gates "
+          f"+ read form {torch_gates_ms!r} ms; two gated launches equal bit "
+          "for bit; no PyTorch call computes a linear recurrence with a "
+          "decay per element, so library_ms is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "torch_gates_and_read_form_ms": torch_gates_ms,
+            "read_form": read}
 
 
 def _flash_bound(q, k, causal, window, group):
@@ -873,11 +982,13 @@ def serve_recurrentgemma(ops):
     if out.tokens.shape != (4, 32) or not (
             (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
-    kernels = ("rglru_scan", "flash_attention")
+    kernels = ("rglru", "rglru_gated_scan", "flash_attention")
     with torch.inference_mode():
+        # the prefill runs the gated form, never the read form's kernel
         logits, caches = _profiled(
             "recurrentgemma-2b prefill", lambda: model.prefill(params, batch),
-            kernels)
+            kernels, ran=("rglru_gated_scan", "flash_attention"),
+            absent=("rglru_scan_kernel",))
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("prefill logits are not finite")
         caches = model.prefill_to_decode(
@@ -885,12 +996,61 @@ def serve_recurrentgemma(ops):
         tok = torch.argmax(logits, dim=-1)[:, None]
         logits, _ = _profiled(
             "recurrentgemma-2b decode step",
-            lambda: model.decode_step(params, tok, caches, 4096), kernels)
+            lambda: model.decode_step(params, tok, caches, 4096), kernels,
+            absent=("rglru_gated_scan", "rglru_scan_kernel"))
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("decode logits are not finite")
-    del caches, engine, params
+    del caches
+    rglru_block_split(ops, cfg, params)
+    del engine, params
     torch.cuda.empty_cache()
     return launches
+
+
+def rglru_block_split(ops, cfg, params):
+    """Device time of each part of one RG-LRU block's prefill at the
+    serving shape (batch 4, 4,096 tokens, width 2,560, bf16), by CUDA
+    events on the first RG-LRU layer's weights: the two projections and
+    the GeLU, the conv taps, the gates as torch ops, the read form of
+    ``rglru_scan`` on them, the gated form, ``h * y`` and the output
+    projection.  Returns the parts in ms."""
+    from repro_torch.models import rglru as RG
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = {k: v[0] for k, v in params["blocks"][0]["mix"].items()}
+    b, s = 4, 4096
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    conv0 = torch.zeros((b, cfg.conv_width - 1, cfg.lru_width),
+                        device="cuda")
+    h0 = torch.zeros((b, cfg.lru_width), device="cuda")
+    with torch.inference_mode():
+        u0 = x @ p["w_x"]
+        y = RG._gelu(x @ p["w_y"])
+        u, _ = RG._causal_conv(p, u0, conv0)
+        a, gated = RG._gates(p, u)
+        h = ops.rglru_scan(a, gated, h0)
+        sp = torch.nn.functional.softplus(p["lam"].float())
+        parts = {
+            "projections_and_gelu": lambda: (x @ p["w_x"],
+                                             RG._gelu(x @ p["w_y"])),
+            "conv_taps": lambda: RG._causal_conv(p, u0, conv0),
+            "gates_torch": lambda: RG._gates(p, u),
+            "read_form": lambda: ops.rglru_scan(a, gated, h0),
+            "h_times_y": lambda: (h * y.float()).to(x.dtype),
+            "out_projection": lambda: (h * y.float()).to(x.dtype)
+            @ p["w_out"],
+            "gated_form": lambda: ops.rglru_gated_scan(
+                u, p["gate_a_w"], p["gate_a_b"], p["gate_x_w"],
+                p["gate_x_b"], sp, h0),
+            "block": lambda: RG.rglru_apply(
+                cfg, p, x, {"h": h0, "conv": conv0}),
+        }
+        ms = {name: _time_ms(fn, reps=10) for name, fn in parts.items()}
+    print(f"recurrentgemma-2b RG-LRU block parts at [4, 4096, 2560] bf16 "
+          f"(first RG-LRU layer's weights, device ms by CUDA events; "
+          f"out_projection includes h_times_y): {json.dumps(ms)}")
+    return ms
 
 
 def rg_decode_invariant():
@@ -1687,7 +1847,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:47",
         "launches": rg_launches["rglru_scan"], "library_ms": None,
-        **rg_timing}, {
+        "main_path_form": "gated (ops.rglru_gated_scan)", **rg_timing}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",

@@ -16,6 +16,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._tensors import aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128, 256)   # the head sizes the kernel is built for
@@ -39,10 +40,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, group: int) -> torch.Tensor:
     """Launch the kernel on CUDA tensors already checked by
     ``ops.flash_attention``: ``q [BH, Sq, HD]``, ``k, v [BH / group, Skv,
-    HD]``, one type (fp32 or bf16; bf16 tensors must start on 16 bytes, as
-    TMA reads them).  Returns ``out [BH, Sq, HD]`` in q's type, allocated
-    here, on PyTorch's current stream, without synchronising."""
+    HD]``, one type (fp32 or bf16).  TMA reads bf16 tiles from addresses
+    on 16 bytes, so a tensor that does not start on 16 bytes is copied
+    first.  Returns ``out [BH, Sq, HD]`` in q's type, allocated here, on
+    PyTorch's current stream, without synchronising."""
     lib = library()
+    q, k, v = (aligned(t) for t in (q, k, v))
     bh, sq, hd = q.shape
     skv = k.shape[1]
     out = torch.empty_like(q)

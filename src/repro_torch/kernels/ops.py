@@ -435,6 +435,57 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _check_rglru_gated(u, gates, softplus_lam, h0) -> None:
+    if u.dim() != 3 or u.shape[1] == 0:
+        raise ValueError(f"rglru_gated_scan takes u [B, S, W] with S >= 1; "
+                         f"got {tuple(u.shape)}")
+    bsz, _, w = u.shape
+    if any(tuple(t.shape) != (w,) for t in (*gates, softplus_lam)):
+        raise ValueError(f"the gate vectors and softplus_lam must be [W] = "
+                         f"[{w}]; got "
+                         f"{[tuple(t.shape) for t in (*gates, softplus_lam)]}")
+    if tuple(h0.shape) != (bsz, w):
+        raise ValueError(f"h0 must be [B, W] = {(bsz, w)}, got "
+                         f"{tuple(h0.shape)}")
+    if u.dtype not in _FLOATS:
+        raise TypeError(f"rglru_gated_scan takes fp32 or bf16 u, got "
+                        f"{u.dtype}")
+    if gates[0].dtype not in _FLOATS or any(t.dtype != gates[0].dtype
+                                            for t in gates):
+        raise TypeError("the four gate vectors take one type, fp32 or bf16; "
+                        f"got {[t.dtype for t in gates]}")
+    if softplus_lam.dtype != torch.float32 or h0.dtype != torch.float32:
+        raise TypeError("rglru_gated_scan takes fp32 softplus_lam and h0; "
+                        f"got {softplus_lam.dtype} and {h0.dtype}")
+    if any(t.device != u.device for t in (*gates, softplus_lam, h0)):
+        raise ValueError("u, the gate vectors, softplus_lam and h0 must lie "
+                         "on one device")
+    if not all(t.is_contiguous() for t in (u, *gates, softplus_lam, h0)):
+        raise ValueError("rglru_gated_scan takes contiguous tensors")
+
+
+def rglru_gated_scan(u: torch.Tensor, gate_a_w: torch.Tensor,
+                     gate_a_b: torch.Tensor, gate_x_w: torch.Tensor,
+                     gate_x_b: torch.Tensor, softplus_lam: torch.Tensor,
+                     h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU with its gates: ``a`` and ``b`` of
+    :func:`kernels.ref.rglru_gates` formed from the block's post-conv input
+    ``u [B, S, W]`` (fp32 or bf16), the gate vectors ``gate_a_w, gate_a_b,
+    gate_x_w, gate_x_b [W]`` (one type, fp32 or bf16) and ``softplus_lam =
+    softplus(lam) [W]`` fp32, then :func:`rglru_scan` from ``h0 [B, W]``
+    fp32 → ``[B, S, W]`` fp32.  On the card the kernel forms ``a`` and
+    ``b`` itself, and neither exists in device memory; on the CPU the plain
+    version runs the gates as torch ops.  Counts as a ``rglru_scan``
+    launch."""
+    gates = (gate_a_w, gate_a_b, gate_x_w, gate_x_b)
+    _check_rglru_gated(u, gates, softplus_lam, h0)
+    if not u.is_cuda:
+        return ref.rglru_gated_scan_ref(u, *gates, softplus_lam, h0)
+    out = _rg.rglru_gated_scan(u, *gates, softplus_lam, h0)
+    _counted("rglru_scan")
+    return out
+
+
 def _check_flash(q, k, v, causal: bool, window: int, group: int) -> None:
     if q.dim() != 3 or k.dim() != 3 or tuple(v.shape) != tuple(k.shape):
         raise ValueError("flash_attention takes q [BH, Sq, HD] and k, v "

@@ -317,6 +317,31 @@ def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def rglru_gates(u: torch.Tensor, gate_a_w: torch.Tensor,
+                gate_a_b: torch.Tensor, gate_x_w: torch.Tensor,
+                gate_x_b: torch.Tensor, softplus_lam: torch.Tensor):
+    """The RG-LRU's decay ``a`` and gated input ``b`` from the block's
+    post-conv input ``u [B, S, W]``: the gate vectors ``[W]`` (fp32 or
+    bf16) and ``softplus_lam = softplus(lam) [W]`` fp32 → ``(a, b)`` fp32
+    ``[B, S, W]``.  These torch ops, in this order, are what the gated form
+    of the ``rglru_scan`` kernel computes element by element."""
+    uf = u.float()
+    r = torch.sigmoid(gate_a_w * uf + gate_a_b)
+    i = torch.sigmoid(gate_x_w * uf + gate_x_b)
+    a = torch.exp(-8.0 * r * softplus_lam)     # Griffin's c = 8
+    gated = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-6)) * (i * uf)
+    return a, gated
+
+
+def rglru_gated_scan_ref(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                         softplus_lam, h0) -> torch.Tensor:
+    """:func:`rglru_gates`, then :func:`linear_scan_ref` from ``h0 [B,
+    W]``: the RG-LRU's hidden states ``[B, S, W]`` fp32."""
+    a, gated = rglru_gates(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                           softplus_lam)
+    return linear_scan_ref(a, gated, h0)
+
+
 def attention_mask(sq: int, skv: int, *, causal: bool, window: int,
                    device=None) -> torch.Tensor:
     """``[Sq, Skv]`` bool: key ``j`` is seen by query ``i`` when

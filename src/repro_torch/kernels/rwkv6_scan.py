@@ -17,6 +17,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._tensors import aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 MAX_CHUNK = 64                   # kMaxChunk in the source
@@ -39,12 +40,6 @@ library = LIBRARY.load
 build_info = LIBRARY.info
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where its data is not 16-byte aligned (the
-    kernel copies rows in 16-byte pieces)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def scratch_states(r: torch.Tensor, chunk: int) -> torch.Tensor:
     """The scratch the state pass fills and the output pass reads: the
     state entering every chunk but the first, ``[B, H, S / chunk − 1, hd,
@@ -63,7 +58,7 @@ def launch(r, k, v, logw, u, state, chunk: int, out: torch.Tensor,
     pass alone reads the states a state pass left in ``states``."""
     lib = library()
     b, h, s, hd = r.shape
-    r, k, v, logw, state = (_aligned(t) for t in (r, k, v, logw, state))
+    r, k, v, logw, state = (aligned(t) for t in (r, k, v, logw, state))
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         code = lib.rwkv6_chunked_launch(

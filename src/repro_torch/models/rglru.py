@@ -12,11 +12,14 @@ RG-LRU recurrence (per channel):
     h_t = a_t · h_{t−1} + √(1 − a_t²) ⊙ (i_t ⊙ u_t)
 
 The gates use diagonal (per-channel) weights, as in the reference.
-Prefill runs the recurrence through ``kernels.ops.rglru_scan``: the
-hand-written CUDA kernel on the card, its sequential plain version on the
-CPU; the reference evaluates it with an associative scan, which agrees to
-rounding.  Decode is the one-step formula in torch ops, as in the
-reference.
+Prefill runs the gates and the recurrence through
+``kernels.ops.rglru_gated_scan``: on the card the hand-written CUDA kernel
+forms ``a`` and the gated input from ``u`` and walks the recurrence; on
+the CPU its plain version, ``kernels.ref.rglru_gated_scan_ref``, runs the
+gates as torch ops (its own copy of ``_gates`` below) and the recurrence
+one step after another.  The reference evaluates the recurrence with an associative scan, which
+agrees to rounding.  Decode is the one-step formula in torch ops, as in
+the reference.
 
 Two numerical points follow the reference where PyTorch's defaults differ
 from JAX's: the GeLU is the tanh approximation (``jax.nn.gelu`` defaults
@@ -107,9 +110,10 @@ def rglru_apply(
     u = x @ params["w_x"]
     y = _gelu(x @ params["w_y"])
     u, conv_state = _causal_conv(params, u, state["conv"])
-    a, gated = _gates(params, u)                       # fp32 [B,S,W]
-    h = ops.rglru_scan(a.contiguous(), gated.contiguous(),
-                       state["h"].float().contiguous())
+    h = ops.rglru_gated_scan(
+        u, params["gate_a_w"], params["gate_a_b"], params["gate_x_w"],
+        params["gate_x_b"], F.softplus(params["lam"].float()),
+        state["h"].float().contiguous())                 # fp32 [B,S,W]
     out = (h * y.float()).to(x.dtype) @ params["w_out"]
     return out, {"h": h[:, -1, :], "conv": conv_state}
 

@@ -418,7 +418,7 @@ def _scan_inputs(b, s, w, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,w", [(4, 512, 2560), (2, 13, 100), (1, 1, 7),
-                                   (3, 67, 64)])
+                                   (3, 67, 64), (2, 130, 2563), (1, 64, 20)])
 def test_rglru_kernel_equals_plain_version(cuda, b, s, w):
     """Both round a·h, then add b, step by step: equal bit for bit."""
     a, bb, h0 = _scan_inputs(b, s, w, b + s + w, cuda)
@@ -440,6 +440,108 @@ def test_rglru_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
     before = ops.launch_count("rglru_scan")
     with pytest.raises((ValueError, TypeError)):
         ops.rglru_scan(a, bb, h0)
+    assert ops.launch_count("rglru_scan") == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_rglru_kernel_takes_views_that_are_not_16_byte_aligned(cuda, which):
+    """A contiguous view 4 bytes into its storage: the read form copies its
+    rows 4 bytes at a time and still equals the plain version."""
+    a, bb, h0 = _scan_inputs(2, 70, 96, 11, cuda)
+    x = a if which == "a" else bb
+    shifted = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    args = (shifted, bb) if which == "a" else (a, shifted)
+    out = ops.rglru_scan(*args, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.linear_scan_ref(a, bb, h0))
+
+
+def _gated_inputs(b, s, w, u_dtype, gate_dtype, seed, device,
+                  lam_mean=1.0):
+    """u and the gate vectors away from their one/zero inits; Λ near
+    ``lam_mean`` (far below 0, softplus(Λ) is tiny, a rounds to 1 and the
+    clamp of 1 − a² binds)."""
+    rng = np.random.default_rng(seed)
+    u = 2.0 * rng.standard_normal((b, s, w))
+    gates = [1.0 + 0.3 * rng.standard_normal(w),
+             0.2 * rng.standard_normal(w),
+             1.0 + 0.3 * rng.standard_normal(w),
+             0.2 * rng.standard_normal(w)]
+    lam = lam_mean + 0.3 * rng.standard_normal(w)
+    h0 = rng.standard_normal((b, w))
+    as_t = lambda x, dt: torch.from_numpy(x.astype(np.float32)).to(device, dt)
+    sp = torch.nn.functional.softplus(as_t(lam, torch.float32))
+    return (as_t(u, u_dtype), *(as_t(g, gate_dtype) for g in gates), sp,
+            as_t(h0, torch.float32))
+
+
+def _torch_gates_then_scan(u, wa, ba, wx, bx, sp, h0):
+    return ops.rglru_scan(*ref.rglru_gates(u, wa, ba, wx, bx, sp), h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w,u_dtype,gate_dtype,lam_mean", [
+    (4, 512, 2560, torch.bfloat16, torch.bfloat16, 1.0),  # the model's
+    (2, 13, 100, torch.float32, torch.float32, 1.0),
+    (1, 1, 7, torch.bfloat16, torch.float32, 1.0),
+    (3, 70, 2563, torch.float32, torch.bfloat16, 1.0),
+    (2, 200, 48, torch.bfloat16, torch.bfloat16, -20.0),  # clamp binds
+])
+def test_rglru_gated_kernel_equals_torch_gates_and_read_form(
+        cuda, b, s, w, u_dtype, gate_dtype, lam_mean):
+    """The kernel takes the gates' torch ops one by one in their order and
+    rounding: equal bit for bit to those ops on the card followed by the
+    read form and to its plain version (the same ops followed by the
+    sequential scan), and one launch counted as ``rglru_scan``."""
+    args = _gated_inputs(b, s, w, u_dtype, gate_dtype, b + s + w, cuda,
+                         lam_mean)
+    want = _torch_gates_then_scan(*args)
+    before = ops.launch_count("rglru_scan")
+    got = ops.rglru_gated_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_count("rglru_scan") == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, s, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.rglru_gated_scan_ref(*args))
+    assert torch.equal(got, ops.rglru_gated_scan(*args))
+
+
+@pytest.mark.cuda
+def test_rglru_gated_kernel_keeps_a_nan_as_the_torch_ops_do(cuda):
+    """A NaN in u runs through the clamp (torch.clamp keeps a NaN) into its
+    channel's states from that step on, and nowhere else."""
+    args = list(_gated_inputs(2, 40, 32, torch.float32, torch.float32, 3,
+                              cuda))
+    args[0][1, 7, 5] = float("nan")
+    got = ops.rglru_gated_scan(*args)
+    want = _torch_gates_then_scan(*args)
+    torch.cuda.synchronize()
+    assert got[1, 7:, 5].isnan().all() and got.isnan().sum() == 33
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["gate_dtypes", "u_int", "strided", "cpu_h0",
+                                 "sp_bf16"])
+def test_rglru_gated_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
+    args = list(_gated_inputs(2, 16, 32, torch.bfloat16, torch.bfloat16, 0,
+                              cuda))
+    if bad == "gate_dtypes":
+        args[2] = args[2].float()
+    elif bad == "u_int":
+        args[0] = args[0].to(torch.int32)
+    elif bad == "strided":
+        args[0] = torch.cat([args[0], args[0]], dim=-1)[..., :32]
+    elif bad == "cpu_h0":
+        args[6] = args[6].cpu()
+    else:
+        args[5] = args[5].to(torch.bfloat16)
+    before = ops.launch_count("rglru_scan")
+    with pytest.raises((ValueError, TypeError)):
+        ops.rglru_gated_scan(*args)
     assert ops.launch_count("rglru_scan") == before
 
 
@@ -521,6 +623,28 @@ def test_flash_kernel_repeats_bit_for_bit(cuda, dtype):
     first = ops.flash_attention(q, k, v, causal=True, window=300, group=10)
     second = ops.flash_attention(q, k, v, causal=True, window=300, group=10)
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_kernel_takes_bf16_views_that_are_not_16_byte_aligned(cuda,
+                                                                    which):
+    """A contiguous bf16 view one element (2 bytes) into its storage: the
+    wrapper hands the kernel's TMA an aligned copy, as the reference's
+    kernel takes any input."""
+    q, k, v = _attn_inputs(20, 300, 300, 256, 10, torch.bfloat16, 9, cuda)
+    x = {"q": q, "k": k, "v": v}[which]
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    args = {"q": (shifted, k, v), "k": (q, shifted, v),
+            "v": (q, k, shifted)}[which]
+    out = ops.flash_attention(*args, causal=True, window=128, group=10)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=128,
+                                   group=10)
+    rtol, atol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda

@@ -8,12 +8,14 @@ against that version on the card, exactly, by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
 
 Tolerances:
-- the scan against the reference's: 1e-5 relative and absolute, the
-  reference's own for its kernel (``tests/test_kernels.py``).  The plain
-  version steps through S one rounded multiply and one rounded add at a
-  time; the associative scan multiplies and adds in another association
-  order, and the Pallas kernel may fuse the multiply-add, so they agree to
-  a few ulps of values of order 1, not bit for bit;
+- the scan against the reference's, alone or after the gates (the gated
+  form): 1e-5 relative and absolute, the reference's own for its kernel
+  (``tests/test_kernels.py``).  The plain version steps through S one
+  rounded multiply and one rounded add at a time; the associative scan
+  multiplies and adds in another association order, the Pallas kernel may
+  fuse the multiply-add, and the two packages' exp, sigmoid and softplus
+  may differ in the last place, so they agree to a few ulps of values of
+  order 1, not bit for bit;
 - the block in float32 against the reference's: 1e-4 relative and
   absolute; both compute the same fp32 formulas, but their matmuls add in
   other orders on values up to about 10.
@@ -27,6 +29,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from repro.kernels import rglru_scan as ref_rglru
 from repro.models import rglru as RGJ
 from repro.parallel.sharding import is_param_def
 from repro_torch.kernels import ops, ref
@@ -110,6 +113,121 @@ def test_scan_wrapper_rejects_inputs_it_cannot_take(bad):
 def test_cpu_scan_counts_no_launch():
     ops.reset_launch_count()
     ops.rglru_scan(*(torch.from_numpy(x) for x in _scan_inputs(1, 4, 8, 0)))
+    assert all(ops.launch_count(name) == 0 for name in ops.KERNELS)
+
+
+# -- the gated form: the gates and the scan in one op -------------------------
+
+
+def _gated_inputs(b, s, w, u_dtype, gate_dtype, seed, lam_mean=1.0):
+    """numpy u, the four gate vectors, Λ and h0, away from the degenerate
+    inits (Λ far below 0 makes softplus(Λ) tiny, a round to 1 and the clamp
+    of 1 − a² bind), with torch tensors of them in the given types."""
+    rng = np.random.default_rng(seed)
+    arrays = {
+        "u": 2.0 * rng.standard_normal((b, s, w)),
+        "gate_a_w": 1.0 + 0.3 * rng.standard_normal(w),
+        "gate_a_b": 0.2 * rng.standard_normal(w),
+        "gate_x_w": 1.0 + 0.3 * rng.standard_normal(w),
+        "gate_x_b": 0.2 * rng.standard_normal(w),
+        "lam": lam_mean + 0.3 * rng.standard_normal(w),
+        "h0": rng.standard_normal((b, w)),
+    }
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    dtypes = {"u": u_dtype, "lam": torch.float32, "h0": torch.float32}
+    tx = {k: torch.from_numpy(v).to(dtypes.get(k, gate_dtype))
+          for k, v in arrays.items()}
+    return arrays, tx
+
+
+def _gated_args(tx):
+    sp = torch.nn.functional.softplus(tx["lam"].float())
+    return (tx["u"], tx["gate_a_w"], tx["gate_a_b"], tx["gate_x_w"],
+            tx["gate_x_b"], sp, tx["h0"])
+
+
+GATED_SHAPES = [(1, 1, 7), (2, 5, 64), (2, 13, 100), (1, 64, 100),
+                (2, 64, 7)]
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("b,s,w", GATED_SHAPES)
+@pytest.mark.parametrize("u_dtype", ["fp32", "bf16"])
+def test_gated_scan_is_the_models_gates_then_the_scan_bitwise(u_dtype, b, s,
+                                                              w):
+    """On CPU tensors the op runs its plain version: the model's ``_gates``
+    as torch ops, then ``ops.rglru_scan``, bit for bit (the card's kernel
+    is held to the same ops on the card by ``tests/test_torch_cuda.py``)."""
+    dtype = DTYPES[u_dtype]
+    _, tx = _gated_inputs(b, s, w, dtype, dtype, seed=b * s * w)
+    params = {k: v for k, v in tx.items() if k not in ("u", "h0")}
+    a, gated = RG._gates(params, tx["u"])
+    want = ops.rglru_scan(a, gated, tx["h0"])
+    got = ops.rglru_gated_scan(*_gated_args(tx))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,s,w,lam_mean", [(b, s, w, 1.0)
+                                            for b, s, w in GATED_SHAPES]
+                         + [(2, 13, 100, -20.0)])
+@pytest.mark.parametrize("u_dtype", ["fp32", "bf16"])
+def test_gated_scan_matches_reference_gates_and_kernel(u_dtype, b, s, w,
+                                                       lam_mean):
+    """The reference's ``_gates`` (jnp) then its Pallas ``rglru_scan`` in
+    interpret mode (one chunk of S and one width block of W, shapes it
+    takes), on the same numpy inputs: allclose at ``SCAN_TOL``.  The two
+    packages' exp, sigmoid and softplus may differ in the last place, and
+    the Pallas kernel may fuse the scan's multiply-add."""
+    dtype = DTYPES[u_dtype]
+    arrays, tx = _gated_inputs(b, s, w, dtype, dtype, seed=s + w,
+                               lam_mean=lam_mean)
+    jdtype = jnp.bfloat16 if u_dtype == "bf16" else jnp.float32
+    jparams = {k: jnp.asarray(v, jdtype) for k, v in arrays.items()
+               if k.startswith("gate_")}
+    jparams["lam"] = jnp.asarray(arrays["lam"])
+    a, gated = RGJ._gates(jparams, jnp.asarray(arrays["u"], jdtype))
+    want = ref_rglru.rglru_scan(a, gated, jnp.asarray(arrays["h0"]),
+                                chunk=s, width_block=w, interpret=True)
+    got = ops.rglru_gated_scan(*_gated_args(tx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=SCAN_TOL,
+                               atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("bad", ["u_shape", "gate_shape", "h0_shape",
+                                 "u_dtype", "gate_dtypes", "sp_dtype",
+                                 "h0_dtype", "strided", "empty", "device"])
+def test_gated_scan_rejects_inputs_it_cannot_take(bad):
+    _, tx = _gated_inputs(2, 8, 16, torch.bfloat16, torch.bfloat16, 0)
+    args = list(_gated_args(tx))
+    if bad == "u_shape":
+        args[0] = args[0][0]
+    elif bad == "gate_shape":
+        args[1] = args[1][:8]
+    elif bad == "h0_shape":
+        args[6] = args[6][:1]
+    elif bad == "u_dtype":
+        args[0] = args[0].to(torch.float16)
+    elif bad == "gate_dtypes":
+        args[3] = args[3].float()
+    elif bad == "sp_dtype":
+        args[5] = args[5].to(torch.bfloat16)
+    elif bad == "h0_dtype":
+        args[6] = args[6].double()
+    elif bad == "strided":
+        args[0] = torch.cat([args[0], args[0]], dim=-1)[..., :16]
+    elif bad == "empty":
+        args[0] = args[0][:, :0]
+    else:
+        args[6] = args[6].to("meta")
+    with pytest.raises((ValueError, TypeError)):
+        ops.rglru_gated_scan(*args)
+
+
+def test_cpu_gated_scan_counts_no_launch():
+    _, tx = _gated_inputs(1, 4, 8, torch.float32, torch.float32, 0)
+    ops.reset_launch_count()
+    ops.rglru_gated_scan(*_gated_args(tx))
     assert all(ops.launch_count(name) == 0 for name in ops.KERNELS)
 
 
