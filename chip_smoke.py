@@ -59,13 +59,24 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    version, on real task blocks of EAGLET at the thesis' scale (400
    families, 131,072 markers on average, 230.5 MB) and of the Netflix
    catalogue, and at its other branches, and one task against float64
-   numpy, and times the draw form at waves of 16 and 3; step 4c runs the
-   catalogue through ``Platform.run`` as NETFLIX_LOW (``wave="auto"``) and
+   numpy, and times the draw form at waves of 16 and 3; each case names
+   the body ``subsample_grid``'s launcher took (``plan``: the staged body
+   where a row fits shared memory and has as many draws as elements, else
+   the direct one) and holds both bodies, forced, bit for bit against
+   each other, and waves of 16, 3 and 1 against each other; a weighted
+   ``torch.bincount`` over the same cells and values is timed as a floor
+   for the binning alone.  ``grid_split`` times the kernel at the jobs'
+   own launch shapes (NETFLIX_HIGH ``[64, 16384]`` and ``[64, 32768]`` at
+   waves of 1 and 3, NETFLIX_LOW, EAGLET ``[64, 524288]`` and ``[64,
+   2097152]``), warm and cold, beside its element and sector bounds; step
+   4c runs the catalogue through ``Platform.run`` as NETFLIX_LOW
+   (``wave="auto"``) and
    NETFLIX_HIGH (waves and per task, bit-identical); step 4b runs EAGLET
    the same way.  Each of those jobs runs under ``torch.profiler``, the
    launch counts zeroed just before and read just after (waves or tasks
-   plus one warm-up a block shape).  Then a 512-movie ``moments`` job on
-   the threaded and the simulated backend, bit-identical and agreeing
+   plus one warm-up a block shape) and prints the kernel's device ms a
+   launch.  Then a 512-movie ``moments`` job on the threaded and the
+   simulated backend, bit-identical and agreeing
    with a float64 numpy reference computed from the same draws; and
    EAGLET (48 families) and NETFLIX_LOW (512 movies) threaded ≡ simulated
    bit for bit.
@@ -1245,21 +1256,28 @@ def _eaglet_thesis_scale():
     return samples, months
 
 
-def _real_blocks(dataset, workload, count):
-    """``count`` task blocks of one padded shape, as the torch engine's job
-    partition (64 samples a task) builds them: the first tasks of the
-    shape most tasks have, or task 0 alone for ``count`` 1."""
+def _tasks_by_shape(dataset, workload):
+    """The torch engine's job partition (64 samples a task) of
+    ``dataset``: its plan and its tasks grouped by padded block shape."""
     from repro_torch.platform.driver import plan_job
 
     samples, months = dataset
     mean = float(np.mean([a.nbytes for a in samples.values()]))
     plan = plan_job(samples, months, workload, sizing="kneepoint",
                     engine="torch", n_exec=2, knee_bytes=64 * mean)
-    if count == 1:
-        return [plan.build_block(plan.tasks[0])]
     by_shape = {}
     for task in plan.tasks:
         by_shape.setdefault(plan.task_shape(task), []).append(task)
+    return plan, by_shape
+
+
+def _real_blocks(dataset, workload, count):
+    """``count`` task blocks of one padded shape, as the torch engine's job
+    partition builds them: the first tasks of the shape most tasks have,
+    or task 0 alone for ``count`` 1."""
+    plan, by_shape = _tasks_by_shape(dataset, workload)
+    if count == 1:
+        return [plan.build_block(plan.tasks[0])]
     group = max(by_shape.values(), key=len)[:count]
     return [plan.build_block(task) for task in group]
 
@@ -1356,20 +1374,33 @@ def _grid_bound(data, rows, idx, grid, statistic, multiplier):
     its square, the score's divide and absolute value, the cell's divide
     and multiply, the bin's add: 10; monthly_mean: the bin's add) over 67
     TFLOP/s.  The integer and fp32 units work side by side, so the bound
-    is the largest of the three, named."""
+    is the largest of the three, named (``bound_ms``, ``bound_by``).
+
+    The card cannot fetch less than a 32-byte sector from device memory,
+    so ``sector_ms`` counts the distinct sectors the elements lie in
+    (each plane's rows start on a sector: sl % 8 == 0 at the jobs'
+    shapes) in place of the elements; ``in_force`` names the largest of
+    the element bytes, the sector bytes and the operations."""
     _, ns, sl = data.shape
     b = idx.shape[0]
     key = ((rows.long()[:, None, None, None] * ns
             + torch.arange(ns, device=idx.device)[None, None, :, None]) * sl
            + idx.long())
     touched = int(torch.unique(key).numel())
+    sectors = int(torch.unique(key // 8).numel())
     planes = 2 if statistic == "monthly_mean" else 1
-    nbytes = 2 * b * 4 + touched * 4 * planes + b * 2 * 4 * grid
+    fixed = 2 * b * 4 + b * 2 * 4 * grid
     int_ops = THREEFRY_OPS * (1 if multiplier == 0 else 2) * idx.numel()
     flops = (10.0 if statistic == "alod" else 1.0) * idx.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = (fixed + touched * 4 * planes) / HBM_BYTES_PER_S * 1e3
+    t_sectors = (fixed + sectors * 32 * planes) / HBM_BYTES_PER_S * 1e3
     t_ops = max(int_ops / INT32_OPS_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    in_force = max((t_bytes, "bytes"), (t_sectors, "sectors"),
+                   (t_ops, "operations"))[1]
+    return {"bound_ms": bound, "bound_by": by, "sector_ms": t_sectors,
+            "in_force": in_force}
 
 
 def _grid_f64(block, months, idx, grid, statistic):
@@ -1423,25 +1454,33 @@ def check_randint(ops, prng, shapes):
               "prng.randint bit for bit")
 
 
-def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
+def check_grid_kernel(ops, ref, prng, ss, sg, eaglet_block, netflix_blocks):
     """Phase 3f: ``subsample_grid`` on the card, its draw form (the
     platform's path, ``ops.subsample_grid_seeded``) against its read form
     fed ``prng.randint``'s indices and against its plain version.  The
     workloads' real blocks: EAGLET on one task block of the 400-family
     dataset (64 families, padded to 2,097,152 markers by its 15x
     outlier), NETFLIX_HIGH and NETFLIX_LOW on one 64-movie block of the
-    catalogue; then ns = 1, a draw size that is not a multiple of 32, grid
-    64 and 120 for both statistics, months below 0 and past the grid
-    (clipped), an ``alod`` row too long for the kernel's index stash
-    (drawn again in each pass), and block lengths that are not powers of
-    two (1,000 and 65,537 for the remainder, 77 and 3).  Each case, a wave of 16 (slots
-    of an arena, seeds 0-15): the draws alone ``torch.equal`` to
-    ``prng.randint``'s, the draw form ``torch.equal`` to the read form on
-    those indices, counts equal and sums within tolerance of the plain
-    version, two launches equal bit for bit, and each task equal bit for
-    bit to itself launched as a wave of one.  Then one task's partial
-    against a float64 numpy recomputation from the same indices, and the
-    times: the draw form at waves of 16 and 3, the read form at 16."""
+    catalogue, and NETFLIX_HIGH on its first 16,384 columns (the staged
+    body's shape); then ns = 1, a draw size that is not a multiple of 32,
+    grid 64, 120 and 512 for both statistics, months below 0 and past the
+    grid (clipped), an ``alod`` row of 2,048 draws (drawn again in each
+    pass), block lengths that are not powers of two (1,000 and 65,537 for
+    the remainder, 77 and 3), and a row just inside and one just past the
+    staged body's shared memory.  Each case, a wave of 16 (slots of an
+    arena, seeds 0-15): the body ``kernels/subsample_grid.py::plan`` takes,
+    the draws alone ``torch.equal`` to ``prng.randint``'s, the draw form
+    ``torch.equal`` to the read form on those indices, each body forced on
+    the same input ``torch.equal`` to the other where the row fits the
+    staged one, counts equal and sums within tolerance of the plain
+    version, two launches equal bit for bit, the first 3 tasks as a wave
+    of 3 and each task as a wave of one equal to the wave of 16.  Then one
+    task's partial against a float64 numpy recomputation from the same
+    indices, and the times: the draw form at waves of 16 and 3
+    (``grid_wave_times``: queued, on the device and on the host), the read
+    form at 16, and one weighted ``torch.bincount`` plus a ``bincount``
+    over the kernel's cells and values (a floor for the binning alone; it
+    adds with atomics, in no fixed order)."""
     dev = torch.device("cuda")
     eb, em = (torch.from_numpy(a).to(dev)[None] for a in eaglet_block)
     nb = torch.from_numpy(np.stack([b for b, _ in netflix_blocks])).to(dev)
@@ -1455,10 +1494,25 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
         return x[..., :n].contiguous()
 
     wl = ss.SubsampleWorkload
+    # a row just inside and one just past the staged body's shared memory
+    edge = max(n for n in range(4, 65536, 4)
+               if sg.stageable(n, 120, "monthly_mean"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    edge_months = torch.randint(-3, 124, (1, eb.shape[1], edge + 4),
+                                device=dev, dtype=torch.int32, generator=gen)
     cases = [  # label, data, months, workload
         ("EAGLET", eb, em, ss.EAGLET),
         ("NETFLIX_HIGH", nb, nm, ss.NETFLIX_HIGH),
         ("NETFLIX_LOW", nb, nm, ss.NETFLIX_LOW),
+        ("NETFLIX_HIGH on [64, 16384]", cut(nb, 16384), cut(nm, 16384),
+         ss.NETFLIX_HIGH),
+        (f"monthly sl={edge}, the staged body's longest row", cut(eb, edge),
+         cut(edge_months, edge), wl("m", "monthly_mean", 8, 8192, 120)),
+        (f"monthly sl={edge + 4}, just past it", cut(eb, edge + 4),
+         edge_months, wl("m", "monthly_mean", 8, 8192, 120)),
+        ("monthly grid=512", nb, nm, wl("m", "monthly_mean", 8, 300, 512)),
+        ("alod grid=512", cut(nb, 4096), cut(nm, 4096),
+         wl("a", "alod", 8, 300, 512)),
         ("alod ns=1", eb[:, :1].contiguous(), em[:, :1].contiguous(),
          ss.EAGLET),
         ("monthly ns=1", nb[:, :1].contiguous(), nm[:, :1].contiguous(),
@@ -1488,6 +1542,8 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
                                  "prng.randint")
         kw = dict(grid=w.grid, statistic=w.statistic)
         skw = dict(draws=w.draws, draw_size=w.draw_size, **kw)
+        plan = sg.plan_for(data, months, w.draws, w.draw_size, w.grid,
+                           w.statistic)
         got = ops.subsample_grid_seeded(data, months, rows, seeds, **skw)
         read = ops.subsample_grid(data, months, rows, idx, **kw)
         want = ref.subsample_grid_seeded_ref(data, months, rows, seeds, **skw)
@@ -1495,10 +1551,21 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
         if not torch.equal(got, read):
             raise AssertionError(f"{label}: the draw form != the read form "
                                  "on prng.randint's indices")
+        bodies = ["direct", "staged"] if sg.stageable(
+            data.shape[2], w.grid, w.statistic) else ["direct"]
+        for body in bodies:
+            if not torch.equal(got, sg.subsample_grid_seeded(
+                    data, months, rows, seeds, body=body, **skw)):
+                raise AssertionError(f"{label}: the {body} body forced != "
+                                     f"the {plan.body} body")
         err = _grid_close(got, want, label)
         if not torch.equal(got, ops.subsample_grid_seeded(
                 data, months, rows, seeds, **skw)):
             raise AssertionError(f"{label}: two launches differ")
+        if not torch.equal(got[:3], ops.subsample_grid_seeded(
+                data, months, rows[:3], seeds[:3], **skw)):
+            raise AssertionError(f"{label}: the first 3 tasks of a wave of "
+                                 "16 != the same tasks as a wave of 3")
         for b in range(16):
             one = ops.subsample_grid_seeded(data, months, rows[b:b + 1],
                                             seeds[b:b + 1], **skw)
@@ -1508,10 +1575,14 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
         worst = max(worst, err)
         print(f"grid kernel check {label}: data {tuple(data.shape)}, "
               f"{w.statistic} draws {w.draws} x {w.draw_size}, grid "
-              f"{w.grid}, wave of 16: draws == prng.randint; draw form == "
-              f"read form bit for bit; counts equal, sums max_abs_err "
-              f"{err!r} (rtol {GRID_RTOL}, atol {GRID_ATOL_SCALE} x max "
-              "|sum|); two launches equal; each task == itself alone")
+              f"{w.grid}, wave of 16; the launcher took the {plan.body} "
+              f"body (CTAs a sample {plan.groups}, bin copies a warp "
+              f"{plan.copies}): draws == prng.randint; draw form == read "
+              f"form bit for bit; {' == '.join(bodies)} forced bit for bit; "
+              f"counts "
+              f"equal, sums max_abs_err {err!r} (rtol {GRID_RTOL}, atol "
+              f"{GRID_ATOL_SCALE} x max |sum|); two launches equal; waves "
+              "of 16, 3 and 1 equal")
         if label in ("EAGLET", "NETFLIX_HIGH", "NETFLIX_LOW"):
             host = _grid_f64(data[0].cpu().numpy(), months[0].cpu().numpy(),
                              idx[0].cpu().numpy(), w.grid, w.statistic)
@@ -1525,31 +1596,172 @@ def check_grid_kernel(ops, ref, prng, ss, eaglet_block, netflix_blocks):
         _, mult = prng._randint_multiplier(0, data.shape[2])
         for width in (16, 3):
             r, sd, ix = rows[:width], seeds[:width], idx[:width]
-            ms = _time_ms(lambda: ops.subsample_grid_seeded(
-                data, months, r, sd, **skw))
-            bound_ms, bound_by = _grid_bound(data, r, ix, skw["grid"],
-                                             skw["statistic"], mult)
-            rows_ms[label, width] = (ms, bound_ms, bound_by)
+            ms, dev_ms, host_us = grid_wave_times(ops, data, months, r, sd,
+                                                  skw)
+            bound = _grid_bound(data, r, ix, skw["grid"], skw["statistic"],
+                                mult)
+            rows_ms[label, width] = (ms, bound)
             print(f"subsample_grid (draw form) {label} wave of {width} on "
                   f"{tuple(data.shape)}, draws {tuple(ix.shape)}: kernel "
-                  f"{ms!r} ms, bound {bound_ms!r} ms ({bound_by}), share of "
-                  f"the bound {bound_ms / ms!r}")
+                  f"{ms!r} ms (calls queued back to back), device "
+                  f"{dev_ms!r} ms (behind a spin), host {host_us!r} µs a "
+                  f"call; bound {bound['bound_ms']!r} ms "
+                  f"({bound['bound_by']}), share of the bound "
+                  f"{bound['bound_ms'] / ms!r}; sector bound "
+                  f"{bound['sector_ms']!r} ms; in force: "
+                  f"{bound['in_force']}")
         kw = dict(grid=skw["grid"], statistic=skw["statistic"])
         read_ms = _time_ms(lambda: ops.subsample_grid(data, months, rows, idx,
                                                       **kw))
         print(f"subsample_grid (read form, the oracle) {label} wave of 16: "
               f"kernel {read_ms!r} ms")
-    data, months, rows, seeds, _, skw = timed["NETFLIX_HIGH"]
+    data, months, rows, seeds, idx, skw = timed["NETFLIX_HIGH"]
     plain_ms = _time_ms(lambda: ref.subsample_grid_seeded_ref(
         data, months, rows, seeds, **skw), reps=3)
-    ms, bound_ms, bound_by = rows_ms["NETFLIX_HIGH", 16]
+    # the kernel's cells and values as one flat list, each task's cells
+    # offset by b * grid: a floor for the binning alone
+    grid = skw["grid"]
+    flat = ((rows.long()[:, None, None, None] * data.shape[1]
+             + torch.arange(data.shape[1], device=dev)[None, None, :, None])
+            * data.shape[2] + idx.long()).reshape(-1)
+    cells = (months.reshape(-1)[flat].clamp(0, grid - 1).long()
+             + torch.arange(16, device=dev).repeat_interleave(
+                 flat.numel() // 16) * grid)
+    values = data.reshape(-1)[flat]
+
+    def bincounts():
+        torch.bincount(cells, weights=values, minlength=16 * grid)
+        torch.bincount(cells, minlength=16 * grid)
+
+    bincount_ms = _device_ms(bincounts)
+    ms, bound = rows_ms["NETFLIX_HIGH", 16]
     print(f"subsample_grid (draw form) at NETFLIX_HIGH's wave of 16: kernel "
           f"{ms!r} ms, plain (prng.randint, then the binned sums) "
-          f"{plain_ms!r} ms; no single PyTorch call computes these binned "
-          "sums in a fixed order (index_add_ and a weighted bincount add "
-          "with atomics), so library_ms is null")
+          f"{plain_ms!r} ms; a weighted torch.bincount plus a bincount over "
+          f"the same {values.numel()} cells and values {bincount_ms!r} ms "
+          "(a floor for the binning alone, with atomics in no fixed order); "
+          "no single PyTorch call computes these binned sums in a fixed "
+          "order, so library_ms is null")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "sector_bound_ms": bound["sector_ms"],
+            "bincount_floor_ms": bincount_ms}
+
+
+# the jobs' own launch shapes (steps 4c and 4b): workload, padded block
+# shape, wave widths.  Steps 4c's waves hold 1-10 tasks (mean 2.6); per
+# task is a wave of one.
+GRID_SPLIT_SHAPES = [("NETFLIX_HIGH", (64, 16384), (1, 3)),
+                     ("NETFLIX_HIGH", (64, 32768), (1, 3)),
+                     ("NETFLIX_LOW", (64, 32768), (1, 3)),
+                     ("EAGLET", (64, 524288), (1,)),
+                     ("EAGLET", (64, 2097152), (1,))]
+
+
+def _device_ms(fn, reps: int = 10, cold=False) -> float:
+    """Device ms a call of ``fn``, by CUDA events around each call, after
+    one warm-up call.  A spin kernel (``torch.cuda._sleep``) holds the
+    stream while the host queues the calls, so the events time the
+    device's work and not the host's launch overhead (about 30-50 µs a
+    call, more than a small launch's device time).  ``cold``: 64 MB
+    written before each call (outside its events) evict the 50 MB L2
+    cache, so the block is cold as a job's next wave finds it."""
+    flush = torch.empty(1 << 24, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)
+    for start, end in pairs:
+        if cold:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def grid_wave_times(ops, data, months, rows, seeds, skw, reps=20):
+    """One wave's ``ops.subsample_grid_seeded`` call three ways: ms a call
+    with the calls queued back to back (``_time_ms``; where the host's
+    launch cost exceeds the device's work, that cost is what it reads),
+    device ms a call behind a spin (``_device_ms``), and the host's µs a
+    call, the least of 5 rounds of ``reps`` calls (the host's cores are
+    shared), each timed while a spin holds the stream so that the host
+    never waits on the device.  Returns (queued ms, device ms, host µs)."""
+    def call():
+        ops.subsample_grid_seeded(data, months, rows, seeds, **skw)
+
+    queued = _time_ms(call, reps)
+    device = _device_ms(call)
+    rounds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        rounds.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return queued, device, min(rounds)
+
+
+def grid_split(ops, prng, ss, sg, netflix, eaglet):
+    """``subsample_grid_seeded`` at the launch shapes of steps 4c and 4b,
+    on real task blocks of the catalogue and of EAGLET at the thesis'
+    scale (the first tasks of each shape; seeds 0, 1, ...): device ms a
+    launch (``_device_ms``), warm (the same blocks again) and cold, beside
+    the bounds; where the row fits the staged body (``sg.stageable``),
+    also each body forced, warm.  Returns {label: (warm ms, cold ms)}
+    and, for those shapes, {label + " staged / direct": (staged ms,
+    direct ms)}."""
+    datasets = {"NETFLIX_HIGH": netflix, "NETFLIX_LOW": netflix,
+                "EAGLET": eaglet}
+    out = {}
+    for name, shape, widths in GRID_SPLIT_SHAPES:
+        w = getattr(ss, name)
+        plan, by_shape = _tasks_by_shape(datasets[name], w)
+        blocks = [plan.build_block(t) for t in by_shape[shape][:max(widths)]]
+        data = torch.from_numpy(np.stack([b for b, _ in blocks])).cuda()
+        months = torch.from_numpy(np.stack([m for _, m in blocks])).cuda()
+        del blocks
+        _, mult = prng._randint_multiplier(0, shape[1])
+        for width in widths:
+            rows = (torch.arange(width, dtype=torch.int32, device="cuda")
+                    % data.shape[0])
+            seeds = torch.arange(width, dtype=torch.int32, device="cuda")
+            kw = dict(draws=w.draws, draw_size=w.draw_size, grid=w.grid,
+                      statistic=w.statistic)
+
+            def call():
+                ops.subsample_grid_seeded(data, months, rows, seeds, **kw)
+
+            warm, cold = _device_ms(call), _device_ms(call, cold=True)
+            idx = prng.randint(prng.PRNGKey(seeds),
+                               (w.draws, shape[0], w.draw_size), 0, shape[1])
+            bound = _grid_bound(data, rows, idx, w.grid, w.statistic, mult)
+            label = f"{name} {list(shape)} B={width}"
+            out[label] = (warm, cold)
+            print(f"grid_split {label}: kernel warm {warm!r} ms, cold "
+                  f"{cold!r} ms; bound {bound['bound_ms']!r} ms "
+                  f"({bound['bound_by']}), sector bound "
+                  f"{bound['sector_ms']!r} ms, in force: "
+                  f"{bound['in_force']}")
+            if sg.stageable(shape[1], w.grid, w.statistic):
+                forced = tuple(_device_ms(
+                    lambda body=body: sg.subsample_grid_seeded(
+                        data, months, rows, seeds, body=body, **kw))
+                    for body in ("staged", "direct"))
+                out[f"{label} staged / direct"] = forced
+                taken = sg.plan_for(data, months, w.draws, w.draw_size,
+                                    w.grid, w.statistic).body
+                print(f"grid_split {label}, each body forced, warm: "
+                      f"staged {forced[0]!r} ms, direct {forced[1]!r} ms "
+                      f"(the launcher takes the {taken} body)")
+        del data, months
+        torch.cuda.empty_cache()
+    return out
 
 
 def _plan_shapes(samples, months, workload, knee_bytes, engine="torch"):
@@ -1590,6 +1802,11 @@ def grid_job(ops, Platform, label, samples, months, workload, *, wave,
     dispatched = len(rep.wave_sizes) if waved else rep.n_tasks
     window_ms, busy_ms, by_kind = _execute_window(
         prof, "subsample_grid", ("grid_partial_kernel", "sum_samples_kernel"))
+    kernel_ms = sum(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and ("grid_partial_kernel" in e.name
+                         or "sum_samples_kernel" in e.name)) / 1e3
     print(f"{label}: {workload.name} ({workload.statistic}), wave="
           f"{wave!r}, {backend}: {rep.n_tasks} tasks, makespan "
           f"{rep.makespan!r} s (under the profiler), compile "
@@ -1602,7 +1819,8 @@ def grid_job(ops, Platform, label, samples, months, workload, *, wave,
           f"window {window_ms!r} ms, device busy {busy_ms!r} ms (share "
           f"{busy_ms / window_ms!r}), device ms outside the kernel "
           f"{by_kind['memcpy'] + by_kind['other']!r}, device ms by kind "
-          f"{json.dumps(by_kind)}")
+          f"{json.dumps(by_kind)}; subsample_grid device ms over the whole "
+          f"trace {kernel_ms!r}, {kernel_ms / max(launches, 1)!r} a launch")
     if backend == "threaded" and launches != dispatched + warm_ups:
         raise AssertionError(f"{label}: {launches} launches != "
                              f"{dispatched} + {warm_ups} warm-ups")
@@ -1791,11 +2009,14 @@ def main() -> None:
     eaglet = _eaglet_thesis_scale()
     e_block = _real_blocks(eaglet, ss.EAGLET, 1)[0]
     n_blocks = _real_blocks((samples, months), ss.NETFLIX_HIGH, 4)
-    grid_timing = check_grid_kernel(ops, ref, prng, ss, e_block, n_blocks)
+    grid_timing = check_grid_kernel(ops, ref, prng, ss, subsample_grid,
+                                    e_block, n_blocks)
     del e_block, n_blocks
     torch.cuda.empty_cache()
     print(f"phase 3f: {time.perf_counter() - t0!r} s with the EAGLET "
           "dataset's generation")
+    grid_timing["job_shapes_ms"] = grid_split(
+        ops, prng, ss, subsample_grid, (samples, months), eaglet)
     grid_launches = paper_workload_jobs(ops, Platform, ss, samples, months,
                                         eaglet)
     del samples, months, eaglet

@@ -22,40 +22,72 @@
 // The arena is read through the slot vector `rows`: no copy of the wave's
 // blocks is made.
 //
+// What holds the work back, and what this design does about it (measured
+// on the card against the first design, one 8-warp CTA a (task, sample)
+// that drew, loaded and binned one element a lane at a time: PERF.md §6):
+//   * Too few CTAs at the jobs' waves of 1-10 tasks.  A (task, sample) is
+//     cut into `groups` CTAs, fixed by the shape (draws, ds, sl, grid) and
+//     never by the wave width B (kernels/subsample_grid.py::plan):
+//     `monthly_mean` cuts its draws * ds elements into runs of whole
+//     32-element rows, `alod` gives each warp one draw (its mean and std
+//     are the warp's), kWarps draws a CTA.
+//   * One dependent load in flight a warp.  Each lane draws kBatch
+//     indices (a full batch without a branch, so the hashes interleave),
+//     issues all kBatch loads, and draws the next batch before it uses
+//     them.  `alod` keeps a draw's values in registers (ds <= 32 *
+//     kBatch), so its mean, deviation and binning passes read memory once.
+//     One thread derives the task's keys for the CTA.
+//   * Binning.  Each warp holds `copies` private copies of its bins ({sum,
+//     count} pairs) in shared memory, laid out [cell][copy]; lane l adds
+//     into copy l % copies, and the 32 / copies lanes that share a copy
+//     take turns (phases, in lane order, __syncwarp between).  In a phase
+//     the active lanes hit distinct banks whatever their cells.  No lane
+//     waits on another's cell (no __match_any_sync, no serial leader).
+//     `copies` is the most, up to 32, whose bins fit 48 KB, so it is fixed
+//     by the grid (4 at grid 120, 8 at grid 64).
+//   * Sectors.  A drawn element costs a 32-byte sector of the block and
+//     one of the months, which L2 serves once a row is in it.  Where a
+//     `monthly_mean` sample row fits in shared memory beside the bins and
+//     has at least as many draws as elements (NETFLIX_HIGH's rows of
+//     16,384), the staged body copies the row's values in once by
+//     cp.async.bulk behind an mbarrier, and its months, clamped to the
+//     grid, as bytes, and gathers from shared memory.  Elsewhere
+//     (NETFLIX_HIGH's rows of 32,768 and more, NETFLIX_LOW's 256 draws a
+//     row, and every `alod` row: EAGLET's are 1-8 MB) the direct body
+//     gathers from global memory.  The launcher is told which body to run;
+//     both run the same loop, differing only in where an element is read,
+//     so they agree bit for bit.
+
 // Determinism.  PyTorch's scatter-adds on the card (index_add_,
 // scatter_add_, a weighted bincount) add floats with atomics in an order
 // that changes from launch to launch; the platform needs wave == per-task
-// == repeat runs bit for bit.  So nothing here adds a float with an
-// atomic.  Every sum has one fixed order that depends on neither the wave
-// width B, nor the slot, nor the run:
-//   * one CTA of kWarps warps per (task b, sample s); warp w takes the
-//     draws d = w, w + kWarps, ...;
-//   * the mean and the sum of squared deviations of a row: each lane adds
-//     its elements j = lane, lane + 32, ... in order, then a fixed xor
-//     shuffle tree (every lane ends with the same bits: a + b == b + a);
-//   * binning, 32 elements a round: lanes with one cell are found with
-//     __match_any_sync; the lowest of them adds the group's values in lane
-//     order and adds that to its warp's own bins in shared memory;
-//   * the warps' bins are added in warp order into the (b, s) partial,
-//     written to scratch; a second kernel adds the samples of each task
-//     in sample order.
-// Counts are whole numbers below 2^24 (checked by the wrapper), so they
-// are exact whatever the order.  The cell arithmetic is the reference's
-// IEEE fp32 divide and multiply (__fdiv_rn, __fmul_rn) and a truncation,
-// with no fast-math flags, so a cell is the reference's to the bit.
+// == repeat runs bit for bit.  So nothing here uses an atomic.  Every sum
+// has one fixed order that depends on the shape alone (draws, ds, sl, grid
+// and the statistic fix `groups` and `copies`), not on the wave width B,
+// the slot, the body, the index form or the run:
+//   * the mean and the sum of squared deviations of an `alod` row: each
+//     lane adds its elements j = lane, lane + 32, ... in order, then a
+//     fixed xor shuffle tree (every lane ends with the same bits);
+//   * a bin copy: the warp's batches in order; in a batch, the lanes of
+//     the copy in lane order; a lane's kBatch elements in order;
+//   * a CTA's partial: each warp's copies in copy order, then the warps in
+//     warp order, written to scratch at (b, s, g);
+//   * a task's sum (sum_samples_kernel): thread w of 32 adds (s, g) for
+//     s = w, w + 32, ... and g = 0 .. groups - 1 in that order; the 32
+//     results are added in w order.
+// kernels/subsample_grid.py::plan fixes the shape's split, and the test
+// tests/test_torch_subsample.py emulates the order on the CPU.  Counts are
+// whole numbers below 2^24 (checked by the wrapper), so they are exact
+// whatever the order.  The cell arithmetic is the reference's IEEE fp32
+// divide and multiply (__fdiv_rn, __fmul_rn) and a truncation, with no
+// fast-math flags, so a cell is the reference's to the bit.
 //
 // Two index sources, one template:
 //   * Draw (subsample_grid_seeded_launch, the platform's path): idx[b] is
 //     jax.random.randint(PRNGKey(seeds[b]), (draws, ns, ds), 0, sl), drawn
-//     in the kernel (threefry.cuh): the CTA (b, s) derives the split keys
-//     of seed b once, and element (d, s, j) is the draw at the flat
-//     counter n = (d * ns + s) * ds + j.  The indices never exist in
-//     memory.  `alod` visits a row three times (mean, deviations,
-//     binning); the first pass keeps each index it draws in a per-warp
-//     stash of ds ints in shared memory, and the later passes read it
-//     there (each lane reads back only what it wrote).  Where the stash
-//     would take the CTA past 48 KB of shared memory (ds above about
-//     1,300 at grid 64), the later passes draw the index again.
+//     in the kernel (threefry.cuh): element (d, s, j) is the draw at the
+//     flat counter n = (d * ns + s) * ds + j.  The indices never exist in
+//     memory.
 //   * Read (subsample_grid_launch): idx from memory, as given.  It is the
 //     oracle the draw form is held against: with the same indices the
 //     two add the same values in the same order, so they agree bit for
@@ -63,23 +95,22 @@
 // threefry_randint_launch writes the drawn indices out, [B, n] int32, so
 // that the card's draws can be held against prng.randint.
 //
-// Bound: operations, for the draw form.  Each drawn element costs one
-// Threefry-2x32 hash, about 75 32-bit integer operations, when the
-// span's multiplier is 0 (every power-of-two sl, which the platform's
-// blocks have), and two hashes and three remainders, about 150, when it
-// is not.  At 16.7 T INT32 operations a second (derived: 64 INT32
-// results a clock an SM x 132 SMs x 1.98 GHz; the data sheet lists no
-// INT32 rate) that outweighs the bytes: no index is read, each drawn
-// element of the block (and of the months) once, and a few fp32
-// operations an element.  The gather is random: each 4-byte element
-// costs a 32-byte sector that no neighbour shares, which is the thesis'
-// cache-hostile access pattern; `alod` reads each row's elements three
-// times, the second and third from L1/L2.  The read form also reads 4
-// bytes of index a drawn element and is bound by bytes.  Later work:
-// keep a row's values in registers, stage bins across draws.
+// Bound: operations for the draw form where a row's draws are few beside
+// its sectors, else bytes.  Each drawn element costs one Threefry-2x32
+// hash, about 75 32-bit integer operations, when the span's multiplier is
+// 0 (every power-of-two sl, which the platform's blocks have), and two
+// hashes and three remainders, about 150, when it is not, at 16.7 T INT32
+// operations a second (derived: 64 INT32 results a clock an SM x 132 SMs
+// x 1.98 GHz; the data sheet lists no INT32 rate).  The bytes: each
+// distinct element touched once (and its month), at sector granularity
+// the sectors touched; NETFLIX_HIGH's 16,384 draws a row touch nearly
+// every sector of it.  The read form also reads 4 bytes of index a drawn
+// element and is bound by bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "threefry.cuh"
 
@@ -87,47 +118,98 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxGrid = 512;  // bins a warp holds in shared memory
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBatch = 8;               // indices a lane draws before loading
+constexpr int kMaxGrid = 512;
+constexpr int kMaxStagedGrid = 256;     // staged months are bytes
+constexpr size_t kMaxSmem = 232448 - 128;  // 227 KB a CTA, less s_bar
+constexpr uint32_t kChunk = 16384;      // bytes a bulk copy
+constexpr int kMaxDevices = 64;
 
 enum Statistic { kAlod = 0, kMonthlyMean = 1 };
+enum Body { kDirect = 0, kStaged = 1 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
   return v;
 }
 
-// Adds `value` into bin `cell` of this warp's bins for every lane with
-// `active`, in a fixed order: the lanes that share a cell are added in
-// lane order by the lowest of them.  Warp-collective.
-__device__ __forceinline__ void bin_add(float* __restrict__ bins,
-                                        unsigned* __restrict__ counts,
-                                        float* __restrict__ stage, int lane,
-                                        bool active, int cell, float value) {
-  const int key = active ? cell : -1;
-  const unsigned peers = __match_any_sync(kFull, key);
-  stage[lane] = value;
-  __syncwarp();
-  if (active && lane == __ffs(peers) - 1) {
-    float acc = value;
-    unsigned rest = peers & (peers - 1);  // the leader's own bit cleared
-    while (rest) {
-      const int l = __ffs(rest) - 1;
-      acc = __fadd_rn(acc, stage[l]);
-      rest &= rest - 1;
+// Adds value[k] into cell[k] for the k whose bit is set in `valid` (a
+// prefix of the batch: a lane's elements run in order to the end), into
+// this lane's copy of the warp's bins ([grid][copies] of {sum, count}, the
+// count an fp32 whole number).  The lanes of one copy take turns in lane
+// order, a lane its elements in k order.  Warp-collective.
+__device__ __forceinline__ void bin_batch(float2* __restrict__ bins,
+                                          int copies, int lane,
+                                          const int (&cell)[kBatch],
+                                          const float (&value)[kBatch],
+                                          unsigned valid) {
+  const int copy = lane & (copies - 1);
+  const int phase = lane / copies;
+  const int n = __popc(valid);  // the valid k are always a prefix
+  for (int p = 0; p < 32 / copies; ++p) {
+    if (p == phase) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (k >= n) break;
+        float2& bin = bins[cell[k] * copies + copy];
+        bin = make_float2(__fadd_rn(bin.x, value[k]), __fadd_rn(bin.y, 1.0f));
+      }
     }
-    bins[cell] = __fadd_rn(bins[cell], acc);
-    counts[cell] += static_cast<unsigned>(__popc(peers));
+    __syncwarp();
   }
-  __syncwarp();
 }
 
 // Read: indices from memory, idx [B, draws, ns, ds] int32.
 struct ReadIndices {
   const int32_t* __restrict__ idx;
+
+  struct Task {};  // nothing to derive a task
+  __device__ __forceinline__ Task task(int64_t) const { return Task{}; }
 
   struct Row {
     const int32_t* __restrict__ base;  // &idx[b, 0, s, 0]
@@ -136,16 +218,30 @@ struct ReadIndices {
       return __ldg(base + d * draw_stride + j);
     }
   };
-  __device__ __forceinline__ Row row(int64_t b, int64_t s, int64_t ns,
-                                     int draws, int ds) const {
+  __device__ __forceinline__ Row row(const Task&, int64_t b, int64_t s,
+                                     int64_t ns, int draws, int ds) const {
     return Row{idx + ((b * draws) * ns + s) * ds, ns * ds};
   }
 };
 
-// Draw: jax's randint(PRNGKey(seeds[b]), (draws, ns, ds), 0, sl).
+// Draw: jax's randint(PRNGKey(seeds[b]), (draws, ns, ds), 0, sl).  POW2:
+// sl is a power of two above 1 and the multiplier is 0 (the platform's
+// blocks), so a draw is one hash and a mask, with no branch, and a lane's
+// kBatch hashes interleave.
+template <bool POW2>
 struct DrawIndices {
   const int32_t* __restrict__ seeds;
   threefry::Span span;  // sl and its multiplier
+
+  struct Task {
+    threefry::Key k1, k2;  // jax.random.split(PRNGKey(seeds[b]))
+  };
+  __device__ __forceinline__ Task task(int64_t b) const {
+    const threefry::Key key = threefry::jax_key(__ldg(seeds + b));
+    return Task{span.multiplier ? threefry::jax_split_first(key)
+                                : threefry::Key{0u, 0u},
+                threefry::jax_split_second(key)};
+  }
 
   struct Row {
     threefry::Key k1, k2;
@@ -154,131 +250,319 @@ struct DrawIndices {
     __device__ __forceinline__ int operator()(int d, int j) const {
       const uint32_t n = static_cast<uint32_t>(d) * draw_stride + base +
                          static_cast<uint32_t>(j);
-      return static_cast<int>(threefry::randint_at(k1, k2, n, span));
+      if constexpr (POW2) {
+        return static_cast<int>(threefry::bits_at(k2, n) & span.pow2_mask);
+      } else {
+        return static_cast<int>(threefry::randint_at(k1, k2, n, span));
+      }
     }
   };
-  __device__ __forceinline__ Row row(int64_t b, int64_t s, int64_t ns,
-                                     int /*draws*/, int ds) const {
-    const threefry::Key key = threefry::jax_key(__ldg(seeds + b));
-    const threefry::Key k1 = span.multiplier
-                                 ? threefry::jax_split_first(key)
-                                 : threefry::Key{0u, 0u};
-    return Row{k1, threefry::jax_split_second(key),
-               static_cast<uint32_t>(s * ds), static_cast<uint32_t>(ns * ds),
-               span};
+  __device__ __forceinline__ Row row(const Task& t, int64_t /*b*/,
+                                     int64_t s, int64_t ns, int /*draws*/,
+                                     int ds) const {
+    return Row{t.k1, t.k2, static_cast<uint32_t>(s * ds),
+               static_cast<uint32_t>(ns * ds), span};
   }
 };
 
-// `stash_ds` is ds when each warp keeps its row's indices in shared memory
-// for `alod`'s second and third passes, else 0 (they are fetched again
-// from the source).
-template <int STAT, class Indices>
-__global__ void __launch_bounds__(kThreads)
+// out[k] = index(d[k], j[k]) for k < kBatch, or only for k < n (the
+// warp's last, partial batch).  A full batch takes no branch, so its
+// kBatch hashes interleave.
+template <class Index>
+__device__ __forceinline__ void hash_batch(const Index& index,
+                                           const int (&d)[kBatch],
+                                           const int (&j)[kBatch], int n,
+                                           int (&out)[kBatch]) {
+  if (n >= kBatch) {
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) out[k] = index(d[k], j[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) out[k] = k < n ? index(d[k], j[k]) : 0;
+  }
+}
+
+// Where an element of the CTA's sample row is read: global memory (the
+// direct body) or the row staged in shared memory (the staged body, whose
+// months are already clamped to the grid; `monthly_mean` only).
+template <int STAT, bool STAGED>
+struct RowSource {
+  static_assert(!STAGED || STAT == kMonthlyMean, "alod is never staged");
+  const float* __restrict__ data;
+  const int32_t* __restrict__ months;
+  const float* __restrict__ s_data;
+  const uint8_t* __restrict__ s_months;
+  int grid;
+
+  __device__ __forceinline__ float value(int ix) const {
+    if constexpr (STAGED) {
+      return s_data[ix];
+    } else {
+      return __ldg(data + ix);
+    }
+  }
+  __device__ __forceinline__ int cell(int ix) const {
+    if constexpr (STAGED) {
+      return s_months[ix];
+    } else {
+      return min(max(__ldg(months + ix), 0), grid - 1);
+    }
+  }
+};
+
+// One CTA per (task b, sample s, group g): blockIdx.x = s * groups + g,
+// blockIdx.y = b.  Shared memory: bins [kWarps][grid][copies] of {sum,
+// count}, then for the staged body the row's sl fp32 values and its sl
+// months as bytes.
+template <int STAT, bool STAGED, class Indices>
+__global__ void __launch_bounds__(kThreads, 3)
 grid_partial_kernel(const float* __restrict__ data,
                     const int32_t* __restrict__ months,
                     const int32_t* __restrict__ rows, const Indices indices,
                     float* __restrict__ scratch, int64_t ns, int64_t sl,
-                    int draws, int ds, int grid, int stash_ds) {
-  extern __shared__ float smem[];
-  float* bins_all = smem;                                   // [kWarps][grid]
-  unsigned* counts_all =
-      reinterpret_cast<unsigned*>(smem + kWarps * grid);    // [kWarps][grid]
-  float* stage_all = smem + 2 * kWarps * grid;              // [kWarps][32]
-  int32_t* stash_all = reinterpret_cast<int32_t*>(
-      stage_all + kWarps * 32);                             // [kWarps][stash_ds]
+                    int draws, int ds, int grid, int groups, int copies) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ uint64_t s_bar;
+  const int n_bins = kWarps * grid * copies;
+  float2* bins_all = reinterpret_cast<float2*>(smem);
+  float* s_data = smem + 2 * n_bins;
+  uint8_t* s_months = reinterpret_cast<uint8_t*>(s_data + sl);
 
-  const int64_t s = blockIdx.x;
+  const int64_t s = blockIdx.x / groups;
+  const int g = static_cast<int>(blockIdx.x % groups);
   const int64_t b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kWarps * grid; i += kThreads) {
-    bins_all[i] = 0.0f;
-    counts_all[i] = 0u;
-  }
-  __syncthreads();
-
-  float* bins = bins_all + warp * grid;
-  unsigned* counts = counts_all + warp * grid;
-  float* stage = stage_all + warp * 32;
-  int32_t* stash = stash_all + warp * stash_ds;
-
-  const int64_t slot = rows[b];
+  const int64_t slot = __ldg(rows + b);
   const float* __restrict__ row_data = data + (slot * ns + s) * sl;
   const int32_t* __restrict__ row_months =
       STAT == kMonthlyMean ? months + (slot * ns + s) * sl : nullptr;
-  const float sl_f = static_cast<float>(sl);
-  const float grid_f = static_cast<float>(grid);
-  const float ds_f = static_cast<float>(ds);
-  const auto index = indices.row(b, s, ns, draws, ds);
 
-  for (int d = warp; d < draws; d += kWarps) {
-    // the index of element j of this row once the first pass has run
-    auto again = [&](int j) { return stash_ds ? stash[j] : index(d, j); };
-    float mean = 0.0f, sd = 0.0f;
-    if constexpr (STAT == kAlod) {
-      float acc = 0.0f;
-      for (int j = lane; j < ds; j += 32) {
-        const int ix = index(d, j);
-        if (stash_ds) stash[j] = ix;
-        acc = __fadd_rn(acc, __ldg(row_data + ix));
+  // one thread of warp 1 derives the task's keys (two hashes) for the CTA
+  // while thread 0 starts the staged body's copy
+  __shared__ typename Indices::Task s_task;
+  if (threadIdx.x == 32) s_task = indices.task(b);
+
+  const uint32_t bar = smem_addr(&s_bar);
+  if constexpr (STAGED) {
+    // the draws below overlap the row's copy
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      const uint32_t bytes = static_cast<uint32_t>(sl) * 4u;
+      mbar_expect_tx(bar, bytes);
+      for (uint32_t off = 0; off < bytes; off += kChunk) {
+        const uint32_t n = bytes - off < kChunk ? bytes - off : kChunk;
+        bulk_copy(smem_addr(s_data) + off,
+                  reinterpret_cast<const char*>(row_data) + off, n, bar);
       }
-      mean = __fdiv_rn(warp_sum(acc), ds_f);
-      float sq = 0.0f;
-      for (int j = lane; j < ds; j += 32) {
-        const float dev = __fsub_rn(__ldg(row_data + again(j)), mean);
-        sq = __fadd_rn(sq, __fmul_rn(dev, dev));
-      }
-      sd = __fadd_rn(__fsqrt_rn(__fdiv_rn(warp_sum(sq), ds_f)), 1e-6f);
     }
-    for (int j0 = 0; j0 < ds; j0 += 32) {
-      const int j = j0 + lane;
-      const bool active = j < ds;
-      int cell = 0;
-      float value = 0.0f;
-      if (active) {
-        const int ix = STAT == kAlod ? again(j) : index(d, j);
-        const float x = __ldg(row_data + ix);
-        if constexpr (STAT == kAlod) {
-          const float pos = __fdiv_rn(static_cast<float>(ix), sl_f);
-          cell = __float2int_rz(__fmul_rn(pos, grid_f));
-          value = fabsf(__fdiv_rn(__fsub_rn(x, mean), sd));
-        } else {
-          cell = __ldg(row_months + ix);
-          value = x;
-        }
-        cell = min(max(cell, 0), grid - 1);
-      }
-      bin_add(bins, counts, stage, lane, active, cell, value);
+    const int4* __restrict__ src = reinterpret_cast<const int4*>(row_months);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(s_months);
+    for (int64_t i = threadIdx.x; i < sl / 4; i += kThreads) {
+      const int4 m = __ldg(src + i);
+      dst[i] = static_cast<uint32_t>(min(max(m.x, 0), grid - 1)) |
+               static_cast<uint32_t>(min(max(m.y, 0), grid - 1)) << 8 |
+               static_cast<uint32_t>(min(max(m.z, 0), grid - 1)) << 16 |
+               static_cast<uint32_t>(min(max(m.w, 0), grid - 1)) << 24;
+    }
+  }
+  {
+    float4* z = reinterpret_cast<float4*>(smem);
+    for (int i = threadIdx.x; i < n_bins / 2; i += kThreads) {
+      z[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
   __syncthreads();
 
-  float* out = scratch + (b * ns + s) * 2 * static_cast<int64_t>(grid);
-  for (int c = threadIdx.x; c < grid; c += kThreads) {
-    float acc = 0.0f;
-    unsigned n = 0u;
-    for (int w = 0; w < kWarps; ++w) {
-      acc = __fadd_rn(acc, bins_all[w * grid + c]);
-      n += counts_all[w * grid + c];
+  float2* bins = bins_all + warp * grid * copies;
+  const RowSource<STAT, STAGED> src{row_data, row_months, s_data, s_months,
+                                    grid};
+  const auto index = indices.row(s_task, b, s, ns, draws, ds);
+  int ix[kBatch];
+  float x[kBatch];
+  int cell[kBatch];
+  unsigned valid = 0u;
+
+  if constexpr (STAT == kAlod) {
+    // warp w of group g: draw d = g * kWarps + w, elements j = lane + 32 i
+    const int d = g * kWarps + warp;
+    const int n_i = (ds + 31) / 32;
+    // draw the batch of i in [i0, i0 + kBatch), then load it
+    auto draw = [&](int i0) {
+      valid = 0u;
+      int dk[kBatch], jk[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int j = lane + 32 * (i0 + k);
+        const bool on = i0 + k < n_i && j < ds;
+        valid |= static_cast<unsigned>(on) << k;
+        dk[k] = d;
+        jk[k] = on ? j : 0;
+      }
+      hash_batch(index, dk, jk, n_i - i0, ix);
+    };
+    auto load = [&]() {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        x[k] = valid >> k & 1u ? src.value(ix[k]) : 0.0f;
+      }
+    };
+    auto fetch = [&](int i0) {
+      draw(i0);
+      load();
+    };
+    if (d < draws) {
+      draw(0);
+      load();
+      const float ds_f = static_cast<float>(ds);
+      const float sl_f = static_cast<float>(sl);
+      const float grid_f = static_cast<float>(grid);
+      float acc = 0.0f;
+      for (int i0 = 0; i0 < n_i; i0 += kBatch) {
+        if (i0 > 0) fetch(i0);
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (valid >> k & 1u) acc = __fadd_rn(acc, x[k]);
+        }
+      }
+      const float mean = __fdiv_rn(warp_sum(acc), ds_f);
+      float sq = 0.0f;
+      for (int i0 = 0; i0 < n_i; i0 += kBatch) {
+        if (n_i > kBatch) fetch(i0);
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (valid >> k & 1u) {
+            const float dev = __fsub_rn(x[k], mean);
+            sq = __fadd_rn(sq, __fmul_rn(dev, dev));
+          }
+        }
+      }
+      const float sd =
+          __fadd_rn(__fsqrt_rn(__fdiv_rn(warp_sum(sq), ds_f)), 1e-6f);
+      for (int i0 = 0; i0 < n_i; i0 += kBatch) {
+        if (n_i > kBatch) fetch(i0);
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const float pos = __fdiv_rn(static_cast<float>(ix[k]), sl_f);
+          cell[k] = min(max(__float2int_rz(__fmul_rn(pos, grid_f)), 0),
+                        grid - 1);
+          x[k] = fabsf(__fdiv_rn(__fsub_rn(x[k], mean), sd));
+        }
+        bin_batch(bins, copies, lane, cell, x, valid);
+      }
     }
-    out[c] = acc;
-    out[grid + c] = static_cast<float>(n);
+  } else {
+    // the (b, s) row's draws * ds elements e = d * ds + j as 32-element
+    // rows t (e = 32 t + lane); group g takes rows [g, g + 1) * per_group,
+    // warp w of it [w, w + 1) * per_warp of those
+    const int n_e = draws * ds;
+    const int n_t = (n_e + 31) / 32;
+    const int per_group = (n_t + groups - 1) / groups;
+    const int per_warp = (per_group + kWarps - 1) / kWarps;
+    const int g_end = min(n_t, (g + 1) * per_group);
+    const int t_begin = min(g_end, g * per_group + warp * per_warp);
+    const int t_end = min(g_end, t_begin + per_warp);
+    // draw the indices of rows [t0, t0 + kBatch) below t_end
+    auto draw = [&](int t0, int (&out)[kBatch]) {
+      unsigned v = 0u;
+      int dk[kBatch], jk[kBatch];
+      int e = 32 * t0 + lane;
+      int d = e / ds;
+      int j = e - d * ds;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const bool on = t0 + k < t_end && e < n_e;
+        v |= static_cast<unsigned>(on) << k;
+        dk[k] = on ? d : 0;
+        jk[k] = on ? j : 0;
+        e += 32;
+        j += 32;
+        while (j >= ds) {
+          j -= ds;
+          ++d;
+        }
+      }
+      hash_batch(index, dk, jk, t_end - t0, out);
+      return v;
+    };
+    if (t_begin < t_end) valid = draw(t_begin, ix);
+    if constexpr (STAGED) mbar_wait(bar, 0);
+    for (int t0 = t_begin; t0 < t_end; t0 += kBatch) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const bool on = valid >> k & 1u;
+        x[k] = on ? src.value(ix[k]) : 0.0f;
+        cell[k] = on ? src.cell(ix[k]) : 0;
+      }
+      int next[kBatch] = {};
+      const unsigned next_valid =
+          t0 + kBatch < t_end ? draw(t0 + kBatch, next) : 0u;
+      bin_batch(bins, copies, lane, cell, x, valid);
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) ix[k] = next[k];
+      valid = next_valid;
+    }
+  }
+  __syncthreads();
+
+  // each warp's copies in copy order, into copy 0
+  for (int i = threadIdx.x; i < kWarps * grid; i += kThreads) {
+    float2* cell_bins = bins_all + i * copies;
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int k = 0; k < copies; ++k) {
+      acc = make_float2(__fadd_rn(acc.x, cell_bins[k].x),
+                        __fadd_rn(acc.y, cell_bins[k].y));
+    }
+    cell_bins[0] = acc;
+  }
+  __syncthreads();
+  // then the warps in warp order
+  float* out = scratch + ((b * ns + s) * groups + g) * 2 *
+                             static_cast<int64_t>(grid);
+  for (int c = threadIdx.x; c < grid; c += kThreads) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 v = bins_all[(w * grid + c) * copies];
+      acc = make_float2(__fadd_rn(acc.x, v.x), __fadd_rn(acc.y, v.y));
+    }
+    out[c] = acc.x;
+    out[grid + c] = acc.y;
   }
 }
 
-// out[b, r, c] = sum over s in order of scratch[b, s, r, c].
-__global__ void __launch_bounds__(kThreads)
+// out[b, k] for k < 2 * grid: thread (w, lane) of a CTA of kSumWarps
+// warps adds scratch[b, s, g, k] over s = w, w + kSumWarps, ... and g in
+// order; then the warps' sums in warp order.  blockIdx.y picks 32 of the
+// k.
+constexpr int kSumWarps = 32;
+
+__global__ void __launch_bounds__(kSumWarps * 32)
 sum_samples_kernel(const float* __restrict__ scratch, float* __restrict__ out,
-                   int64_t ns, int grid) {
+                   int64_t ns, int groups, int grid) {
+  __shared__ float part[kSumWarps][33];
   const int64_t b = blockIdx.x;
-  const float* __restrict__ task = scratch + b * ns * 2 * grid;
-  for (int k = threadIdx.x; k < 2 * grid; k += kThreads) {
-    float acc = 0.0f;
-    for (int64_t s = 0; s < ns; ++s) {
-      acc = __fadd_rn(acc, task[s * 2 * grid + k]);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.y * 32 + lane;
+  const int width = 2 * grid;
+  float acc = 0.0f;
+  if (k < width) {
+    const float* __restrict__ task = scratch + b * ns * groups * width + k;
+    for (int64_t s = warp; s < ns; s += kSumWarps) {
+      const float* __restrict__ p = task + s * groups * width;
+#pragma unroll 8
+      for (int g = 0; g < groups; ++g) acc = __fadd_rn(acc, p[g * width]);
     }
-    out[b * 2 * grid + k] = acc;
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && k < width) {
+    float total = 0.0f;
+    for (int w = 0; w < kSumWarps; ++w) {
+      total = __fadd_rn(total, part[w][lane]);
+    }
+    out[b * width + k] = total;
   }
 }
 
@@ -301,23 +585,76 @@ threefry_randint_kernel(const int32_t* __restrict__ seeds,
   }
 }
 
-constexpr size_t kStashSmem = 48 * 1024;  // no opt-in attribute needed
 constexpr uint64_t kCounters = 1ull << 32;  // a key's flat positions
 
-bool bad_shape(int64_t b, int64_t ns, int draws, int ds, int grid,
-               int statistic, const void* months) {
-  return grid < 1 || grid > kMaxGrid || draws < 0 || ds < 0 || b > 65535 ||
-         ns > 2147483647 ||
-         (statistic != kAlod && statistic != kMonthlyMean) ||
-         (statistic == kMonthlyMean && months == nullptr);
+// Shared memory of a CTA of `body` (the dynamic part).
+size_t smem_bytes(int64_t sl, int grid, int body, int copies) {
+  size_t bytes = sizeof(float2) * kWarps * grid * copies;
+  if (body == kStaged) bytes += (sizeof(float) + 1) * sl;
+  return bytes;
 }
 
-// Both kernels on `st`; the partial kernel's template over `Indices`.
+bool bad_shape(int64_t b, int64_t ns, int64_t sl, int draws, int ds,
+               int grid, int statistic, const void* data, const void* months,
+               int body, int groups, int copies) {
+  if (grid < 1 || grid > kMaxGrid || draws < 0 || ds < 0 || b > 65535 ||
+      ns < 0 || groups < 1 || copies < 1 || copies > 32 ||
+      (copies & (copies - 1)) != 0 || ns * groups > 2147483647 ||
+      static_cast<int64_t>(draws) * ds > 2147483647 - 31 ||
+      (statistic != kAlod && statistic != kMonthlyMean) ||
+      (statistic == kMonthlyMean && months == nullptr) ||
+      (body != kDirect && body != kStaged) ||
+      smem_bytes(sl, grid, body, copies) > kMaxSmem) {
+    return true;
+  }
+  if (statistic == kAlod && groups * kWarps < draws) return true;
+  if (body == kStaged &&
+      (statistic != kMonthlyMean || sl % 4 != 0 || grid > kMaxStagedGrid ||
+       reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
+       reinterpret_cast<uintptr_t>(months) % 16 != 0)) {
+    return true;
+  }
+  return false;
+}
+
+template <int STAT, bool STAGED, class Indices>
+cudaError_t launch_partial(dim3 blocks, size_t smem, cudaStream_t st,
+                           const float* x, const int32_t* mo,
+                           const int32_t* r, Indices indices, float* part,
+                           int64_t ns, int64_t sl, int draws, int ds,
+                           int grid, int groups, int copies) {
+  auto kern = grid_partial_kernel<STAT, STAGED, Indices>;
+  // The dynamic shared-memory ceiling, raised to kMaxSmem once a device
+  // and kernel.  The attribute is the process's and takes effect at once,
+  // so a ceiling set to each launch's own size would let one thread lower
+  // it between another thread's set and launch; a fixed ceiling never
+  // moves.  It is only a ceiling: each launch's `smem` sets its occupancy.
+  // Raised for every launch size, since the static barrier and keys count
+  // against the 48 KB a launch may take without it.
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return err;
+    raised[dev].store(true, std::memory_order_release);
+  }
+  kern<<<blocks, kThreads, smem, st>>>(x, mo, r, indices, part, ns, sl, draws,
+                                       ds, grid, groups, copies);
+  return cudaGetLastError();
+}
+
+// Both kernels on `st`; the partial kernel's template over the statistic,
+// the body and `Indices`.
 template <class Indices>
 int launch(const void* data, const void* months, const void* rows,
            Indices indices, void* scratch, void* out, int64_t b, int64_t ns,
-           int64_t sl, int draws, int ds, int grid, int statistic,
-           bool stash, cudaStream_t st) {
+           int64_t sl, int draws, int ds, int grid, int statistic, int body,
+           int groups, int copies, cudaStream_t st) {
   if (b == 0) return static_cast<int>(cudaSuccess);
   const float* x = static_cast<const float*>(data);
   const int32_t* mo = static_cast<const int32_t*>(months);
@@ -325,27 +662,29 @@ int launch(const void* data, const void* months, const void* rows,
   float* part = static_cast<float*>(scratch);
   float* o = static_cast<float*>(out);
   if (ns > 0) {
-    size_t smem = sizeof(float) * (2 * kWarps * grid + kWarps * 32);
-    const size_t stash_bytes = sizeof(int32_t) * kWarps * ds;
-    const int stash_ds = stash && statistic == kAlod &&
-                                 smem + stash_bytes <= kStashSmem
-                             ? ds
-                             : 0;
-    smem += sizeof(int32_t) * kWarps * stash_ds;
-    const dim3 blocks(static_cast<unsigned>(ns), static_cast<unsigned>(b));
-    if (statistic == kAlod) {
-      grid_partial_kernel<kAlod, Indices><<<blocks, kThreads, smem, st>>>(
-          x, mo, r, indices, part, ns, sl, draws, ds, grid, stash_ds);
+    const size_t smem = smem_bytes(sl, grid, body, copies);
+    const dim3 blocks(static_cast<unsigned>(ns * groups),
+                      static_cast<unsigned>(b));
+    cudaError_t err;
+    if (statistic == kAlod) {  // never staged (bad_shape)
+      err = launch_partial<kAlod, false>(blocks, smem, st, x, mo, r, indices,
+                                         part, ns, sl, draws, ds, grid,
+                                         groups, copies);
     } else {
-      grid_partial_kernel<kMonthlyMean, Indices>
-          <<<blocks, kThreads, smem, st>>>(x, mo, r, indices, part, ns, sl,
-                                           draws, ds, grid, 0);
+      err = body == kStaged
+                ? launch_partial<kMonthlyMean, true>(
+                      blocks, smem, st, x, mo, r, indices, part, ns, sl,
+                      draws, ds, grid, groups, copies)
+                : launch_partial<kMonthlyMean, false>(
+                      blocks, smem, st, x, mo, r, indices, part, ns, sl,
+                      draws, ds, grid, groups, copies);
     }
-    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sum_samples_kernel<<<static_cast<unsigned>(b), kThreads, 0, st>>>(
-      part, o, ns, grid);
+  const dim3 blocks(static_cast<unsigned>(b),
+                    static_cast<unsigned>((2 * grid + 31) / 32));
+  sum_samples_kernel<<<blocks, kSumWarps * 32, 0, st>>>(part, o, ns, groups,
+                                                        grid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,19 +693,23 @@ int launch(const void* data, const void* months, const void* rows,
 // Launch both kernels on `stream` (PyTorch's current stream), the indices
 // read from `idx` [b, draws, ns, ds].  Pointers are device pointers; the
 // caller has checked shapes, dtypes, contiguity and that rows lie in [0,
-// n_slots) and indices in [0, sl).  `scratch` holds b * ns * 2 * grid
-// floats.  Returns cudaGetLastError() after the launches.
+// n_slots) and indices in [0, sl).  `body` (0 direct, 1 staged), `groups`
+// and `copies` are kernels/subsample_grid.py::plan's.  `scratch` holds
+// b * ns * groups * 2 * grid floats.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int subsample_grid_launch(const void* data, const void* months,
                                      const void* rows, const void* idx,
                                      void* scratch, void* out, int64_t b,
                                      int64_t ns, int64_t sl, int draws, int ds,
-                                     int grid, int statistic, void* stream) {
-  if (bad_shape(b, ns, draws, ds, grid, statistic, months)) {
+                                     int grid, int statistic, int body,
+                                     int groups, int copies, void* stream) {
+  if (bad_shape(b, ns, sl, draws, ds, grid, statistic, data, months, body,
+                groups, copies)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(data, months, rows,
                 ReadIndices{static_cast<const int32_t*>(idx)}, scratch, out,
-                b, ns, sl, draws, ds, grid, statistic, false,
+                b, ns, sl, draws, ds, grid, statistic, body, groups, copies,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -377,19 +720,28 @@ extern "C" int subsample_grid_launch(const void* data, const void* months,
 extern "C" int subsample_grid_seeded_launch(
     const void* data, const void* months, const void* rows, const void* seeds,
     void* scratch, void* out, int64_t b, int64_t ns, int64_t sl, int draws,
-    int ds, int grid, int statistic, uint32_t multiplier, void* stream) {
+    int ds, int grid, int statistic, int body, int groups, int copies,
+    uint32_t multiplier, void* stream) {
   const uint64_t per_draw = static_cast<uint64_t>(ns) * ds;
-  if (bad_shape(b, ns, draws, ds, grid, statistic, months) || sl < 1 ||
-      sl > 2147483647 ||
+  if (bad_shape(b, ns, sl, draws, ds, grid, statistic, data, months, body,
+                groups, copies) ||
+      sl < 1 || sl > 2147483647 ||
       (per_draw > 0 &&
        static_cast<uint64_t>(draws) > (kCounters - 1) / per_draw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const DrawIndices indices{
-      static_cast<const int32_t*>(seeds),
-      threefry::make_span(static_cast<uint32_t>(sl), multiplier)};
-  return launch(data, months, rows, indices, scratch, out, b, ns, sl, draws,
-                ds, grid, statistic, true, static_cast<cudaStream_t>(stream));
+  const threefry::Span span =
+      threefry::make_span(static_cast<uint32_t>(sl), multiplier);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* s32 = static_cast<const int32_t*>(seeds);
+  if (multiplier == 0u && span.pow2_mask != 0u) {
+    return launch(data, months, rows, DrawIndices<true>{s32, span}, scratch,
+                  out, b, ns, sl, draws, ds, grid, statistic, body, groups,
+                  copies, st);
+  }
+  return launch(data, months, rows, DrawIndices<false>{s32, span}, scratch,
+                out, b, ns, sl, draws, ds, grid, statistic, body, groups,
+                copies, st);
 }
 
 // out [b, n] int32 = jax.random.randint(PRNGKey(seeds[b]), (n,), lo,

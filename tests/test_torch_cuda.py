@@ -8,6 +8,7 @@ installed:
 """
 
 import re
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import subsample_grid as sgrid
+import _grid_order  # tests/_grid_order.py, beside this file
 
 # The kernel and its plain version add the same fp32 values in the same
 # order without fused multiply-adds, so they should agree bit for bit;
@@ -992,3 +995,147 @@ def test_seeded_grid_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
                                   draw_size=8, grid=16,
                                   statistic="monthly_mean")
     assert ops.launch_count("subsample_grid") == before
+
+
+# -- subsample_grid's two bodies, its split and its order -----------------------
+
+
+def test_grid_kernel_bins_without_match_any():
+    """The kernel bins into per-lane copies in a fixed order: no
+    ``__match_any_sync`` and no serial leader (comments aside)."""
+    code = re.sub(r"//[^\n]*", "", GRID_SOURCE.read_text())
+    assert "bin_batch" in code and "__syncwarp" in code
+    assert "__match_any_sync" not in code and "__ffs" not in code
+
+
+# data shape, workload: the staged body where the plan takes it (a row with
+# as many draws as elements) and forced where it is not; ``alod`` is never
+# staged, so a staged body forced on it raises
+BODY_CASES = [((3, 8, 4096), 8, 2048, 120), ((3, 8, 16384), 8, 2048, 120),
+              ((2, 4, 32768), 8, 2048, 120), ((3, 8, 4096), 30, 256, 64),
+              ((3, 5, 300), 9, 77, 120), ((2, 3, 1000), 8, 300, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("case", BODY_CASES)
+def test_grid_staged_body_equals_direct_body(cuda, statistic, case):
+    """Forced on the same input, the two bodies add the same values in the
+    same order: bit for bit, in both index forms."""
+    shape, draws, ds, grid = case
+    data, months, rows, _ = _grid_inputs(*shape, 3, draws, ds, grid,
+                                         sum(shape), cuda)
+    seeds = torch.tensor([5, -9, 77], dtype=torch.int32, device=cuda)
+    idx = prng.randint(prng.PRNGKey(seeds), (draws, shape[1], ds), 0,
+                       shape[2])
+    kw = dict(grid=grid, statistic=statistic)
+    if statistic == "alod" or not sgrid.stageable(shape[2], grid, statistic):
+        assert not sgrid.stageable(shape[2], grid, statistic)
+        with pytest.raises(ValueError):
+            sgrid.subsample_grid(data, months, rows, idx, body="staged", **kw)
+        return
+    staged = sgrid.subsample_grid_seeded(data, months, rows, seeds,
+                                         draws=draws, draw_size=ds,
+                                         body="staged", **kw)
+    direct = sgrid.subsample_grid_seeded(data, months, rows, seeds,
+                                         draws=draws, draw_size=ds,
+                                         body="direct", **kw)
+    assert torch.equal(staged, direct)
+    assert torch.equal(sgrid.subsample_grid(data, months, rows, idx,
+                                            body="staged", **kw), staged)
+    assert torch.equal(sgrid.subsample_grid(data, months, rows, idx,
+                                            body="direct", **kw), staged)
+    _assert_grid_close(staged, ref.subsample_grid_ref(data, months, rows,
+                                                      idx, **kw))
+
+
+@pytest.mark.cuda
+def test_grid_staged_launches_from_two_threads(cuda):
+    """Two threads, each on its own stream, launch the staged body at once
+    on rows of two lengths (40 KB and 190 KB of dynamic shared memory):
+    every launch runs and equals the same launch made alone."""
+    kw = dict(draws=8, draw_size=2048, grid=120, statistic="monthly_mean",
+              body="staged")
+    inputs = {}
+    for sl in (2048, 32768):
+        data, months, rows, _ = _grid_inputs(2, 8, sl, 3, 8, 2048, 120, sl,
+                                             cuda)
+        seeds = torch.tensor([3, -1, 40], dtype=torch.int32, device=cuda)
+        alone = sgrid.subsample_grid_seeded(data, months, rows, seeds, **kw)
+        inputs[sl] = (data, months, rows, seeds, alone)
+    torch.cuda.synchronize()
+
+    def launches(sl):
+        data, months, rows, seeds, alone = inputs[sl]
+        stream = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(stream):
+            outs = [sgrid.subsample_grid_seeded(data, months, rows, seeds,
+                                                **kw) for _ in range(40)]
+        stream.synchronize()
+        return [bool(torch.equal(out, alone)) for out in outs]
+
+    with ThreadPoolExecutor(2) as pool:
+        results = list(pool.map(launches, [2048, 32768, 2048, 32768]))
+    assert all(all(r) for r in results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("sl", [4096, 20000])
+def test_grid_task_does_not_depend_on_the_wave_at_the_split(cuda, statistic,
+                                                            sl):
+    """With a (task, sample) cut into several CTAs (groups 2 staged at sl
+    4,096, 4 direct at 20,000 for monthly_mean; 4 for alod's 30 draws),
+    each task of waves of 16 and 3 equals the task alone, bit for bit."""
+    draws, ds = (8, 2048) if statistic == "monthly_mean" else (30, 256)
+    data, months, rows, _ = _grid_inputs(5, 6, sl, 16, draws, ds, 120, sl,
+                                         cuda)
+    cut = sgrid.plan_for(data, months, draws, ds, 120, statistic)
+    assert cut.groups > 1
+    seeds = torch.arange(16, dtype=torch.int32, device=cuda) * 31 - 7
+    kw = dict(draws=draws, draw_size=ds, grid=120, statistic=statistic)
+    wave = ops.subsample_grid_seeded(data, months, rows, seeds, **kw)
+    three = ops.subsample_grid_seeded(data, months, rows[4:7].contiguous(),
+                                      seeds[4:7].contiguous(), **kw)
+    assert torch.equal(three, wave[4:7])
+    for b in range(16):
+        one = ops.subsample_grid_seeded(data, months,
+                                        rows[b:b + 1].contiguous(),
+                                        seeds[b:b + 1].contiguous(), **kw)
+        assert torch.equal(wave[b], one[0]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+def test_grid_kernel_at_grid_512(cuda, statistic):
+    """At the widest grid the kernel takes (one bin copy a warp, 32
+    phases), against its plain version and the read form."""
+    data, months, rows, idx = _grid_inputs(3, 8, 4096, 4, 8, 500, 512, 512,
+                                           cuda)
+    seeds = torch.arange(4, dtype=torch.int32, device=cuda)
+    idx = prng.randint(prng.PRNGKey(seeds), (8, 8, 500), 0, 4096)
+    kw = dict(grid=512, statistic=statistic)
+    got = ops.subsample_grid_seeded(data, months, rows, seeds, draws=8,
+                                    draw_size=500, **kw)
+    assert torch.equal(got, ops.subsample_grid(data, months, rows, idx, **kw))
+    _assert_grid_close(got, ref.subsample_grid_ref(data, months, rows, idx,
+                                                   **kw))
+    assert float(got[:, 1].sum()) == 4 * 8 * 8 * 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("case", _grid_order.CASES)
+def test_grid_kernel_equals_its_order_emulated(cuda, statistic, case):
+    """The kernel equals the CPU emulation of its summation order
+    (tests/_grid_order.py) bit for bit, in each body it can take."""
+    arrays = _grid_order.inputs(*case, seed=sum(case))
+    grid = case[-1]
+    want = _grid_order.emulate(*arrays, grid=grid, statistic=statistic)
+    data, months, rows, idx = (torch.from_numpy(a).to(cuda) for a in arrays)
+    bodies = (("direct", "staged")
+              if sgrid.stageable(case[2], grid, statistic) else ("direct",))
+    for body in bodies:
+        got = sgrid.subsample_grid(data, months, rows, idx, grid=grid,
+                                   statistic=statistic, body=body)
+        assert torch.equal(got.cpu(), torch.from_numpy(want)), body

@@ -27,8 +27,10 @@ from repro_torch.core import subsample as pss
 from repro_torch.data import EagletSpec, NetflixSpec, eaglet_dataset, \
     netflix_dataset
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import subsample_grid as sgrid
 from repro_torch.platform import compute as pc
 from repro_torch.platform import driver as port_driver
+import _grid_order  # tests/_grid_order.py, beside this file
 
 RTOL, ATOL_SCALE = 2e-5, 1e-5
 COUNT_KEYS = ("hits", "count")
@@ -208,6 +210,65 @@ def test_op_rejects_what_the_kernel_does_not_take(case):
         rows = rows[:1]
     with pytest.raises((ValueError, TypeError)):
         ops.subsample_grid(data, months, rows, idx, **kw)
+
+
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+@pytest.mark.parametrize("case", _grid_order.CASES)
+def test_grid_order_emulation_matches_plain_version(case, statistic):
+    """The kernel's fixed order (tests/_grid_order.py), one fp32 add at a
+    time on the CPU, against the plain version on the same indices at
+    shapes that take each branch of it: counts equal, sums within the
+    stated tolerance.  The card tests hold the kernel to this emulation bit
+    for bit."""
+    data, months, rows, idx = _grid_order.inputs(*case, seed=sum(case))
+    grid = case[-1]
+    got = _grid_order.emulate(data, months, rows, idx, grid=grid,
+                              statistic=statistic)
+    want = ref.subsample_grid_ref(
+        *(torch.from_numpy(a) for a in (data, months, rows, idx)),
+        grid=grid, statistic=statistic).numpy()
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=RTOL,
+                               atol=ATOL_SCALE * float(np.abs(want[:, 0]).max()))
+
+
+def test_grid_plan_is_fixed_by_the_shape():
+    """``subsample_grid``'s cut depends on the shape alone: a forced body
+    keeps the groups and copies of the one chosen (so the order, and the
+    bits, stay); the staged body is taken where a row fits beside the bins
+    and has as many draws as elements, refused where it does not fit."""
+    nh = dict(draws=8, draw_size=2048, grid=120, statistic="monthly_mean")
+    for sl, body, groups in ((16384, "staged", 2), (32768, "direct", 4),
+                             (65536, "direct", 4)):
+        cut = sgrid.plan(sl, **nh)
+        assert (cut.body, cut.groups, cut.copies) == (body, groups, 4)
+        other = "direct" if body == "staged" else "staged"
+        if sgrid.stageable(sl, 120, "monthly_mean"):
+            assert sgrid.plan(sl, **nh, body=other) == sgrid.Plan(
+                other, groups, 4)
+        else:
+            with pytest.raises(ValueError):
+                sgrid.plan(sl, **nh, body=other)
+    # a row just inside and one just past shared memory
+    last = max(sl for sl in range(4, 65536, 4)
+               if sgrid.stageable(sl, 120, "monthly_mean"))
+    assert sgrid.staged_bytes(last, 120) <= sgrid.MAX_SMEM
+    assert sgrid.staged_bytes(last + 4, 120) > sgrid.MAX_SMEM
+    assert sgrid.plan(last, 8, 2 * last, 120, "monthly_mean").body == "staged"
+    assert sgrid.plan(last + 4, 8, 2 * last, 120,
+                      "monthly_mean").body == "direct"
+    # EAGLET's rows never fit; NETFLIX_LOW's 256 draws a row never pay
+    assert sgrid.plan(524288, 30, 256, 64, "alod") == sgrid.Plan("direct", 4,
+                                                                 8)
+    assert sgrid.plan(32768, 8, 32, 120, "monthly_mean").body == "direct"
+    # alod is never staged, whatever its row
+    assert not sgrid.stageable(4096, 64, "alod")
+    with pytest.raises(ValueError):
+        sgrid.plan(4096, 30, 256, 64, "alod", body="staged")
+    # unaligned data, or months past a byte, go direct
+    assert sgrid.plan(16384, **nh, aligned=False).body == "direct"
+    assert sgrid.plan(4096, 8, 2048, 512, "monthly_mean").body == "direct"
+    assert sgrid.copies_for(512) == 1 and sgrid.copies_for(8) == 32
 
 
 def test_alod_ignores_the_months_plane():
