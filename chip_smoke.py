@@ -103,6 +103,18 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 9. The decode ≡ prefill invariant for ``recurrentgemma-2b``: full width,
    depth cut to 8 layers, float32 weights, at P = 64 (shorter than the
    window) and P = 2,112 (longer).
+10. Between steps 4b/4c and the 512-movie jobs, on the same datasets: the
+   platform's data plane and recovery, each job bit for bit against its
+   run without them and its launches counted (waves plus warm-ups).  10a
+   the ``moments`` job with a ``ReplicatedDataStore`` (3 nodes, balanced
+   claims, prefetch, block cache), no index drawn on the host; 10b
+   NETFLIX_HIGH and EAGLET with the same; 10c NETFLIX_HIGH under a seeded
+   ``FaultPlan`` (a worker crash, a node killed and revived, a latency
+   spike) with leases, every planned event fired; 10d the ``moments``
+   job checkpointed (saves and bytes printed), then crashed at a save and
+   resumed, launching only for the missing tasks; 10e bench_balance.py's
+   degraded data plane (10 ms a fetch, one node of three 5x slower) at
+   512 movies, balanced off and on, both makespans printed.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -1289,13 +1301,14 @@ def _netflix(n_movies: int):
 
 
 def _spec(samples, *, wave="on", backend="threaded", device="cuda",
-          knee_count=64):
+          knee_count=64, **kw):
     from repro_torch.platform import PlatformSpec, WaveOptions
 
     mean_bytes = float(np.mean([a.nbytes for a in samples.values()]))
     return PlatformSpec(platform="BTS", n_workers=2, backend=backend,
                         waves=WaveOptions(wave=wave, max_wave=16),
-                        knee_bytes=knee_count * mean_bytes, device=device)
+                        knee_bytes=knee_count * mean_bytes, device=device,
+                        **kw)
 
 
 def _assert_bitwise(a, b, what):
@@ -1780,22 +1793,27 @@ def _plan_shapes(samples, months, workload, knee_bytes, engine="torch"):
 
 
 def grid_job(ops, Platform, label, samples, months, workload, *, wave,
-             backend="threaded", knee_count=64):
+             backend="threaded", knee_count=64, platform_kw=None,
+             spec_kw=None):
     """One job of the paper's workloads through ``Platform.run`` on the
     card, under ``torch.profiler``, the launch counts zeroed just before
     and read just after.  Prints its makespan, compile phase, waves,
     launches (which must be waves or tasks plus one warm-up per block
     shape), arena bytes and the device's busy share of the execute
-    window; checks the result.  Returns the report and the launches."""
+    window; checks the result.  ``platform_kw`` (a datastore, a fault
+    injector) go to ``Platform``, ``spec_kw`` to its spec.  Returns the
+    report and the launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    spec = _spec(samples, wave=wave, backend=backend, knee_count=knee_count)
+    spec = _spec(samples, wave=wave, backend=backend, knee_count=knee_count,
+                 **(spec_kw or {}))
     shapes = _plan_shapes(samples, months, workload, spec.knee_bytes)
     warm_ups, ns = len(shapes), next(iter(shapes))[0]
     torch.cuda.synchronize()
     ops.reset_launch_count()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rep = Platform(spec).run(samples, months, workload)
+        rep = Platform(spec, **(platform_kw or {})).run(samples, months,
+                                                       workload)
         torch.cuda.synchronize()
     launches = ops.launch_count("subsample_grid")
     waved = bool(rep.wave_sizes)
@@ -1851,7 +1869,8 @@ def paper_workload_jobs(ops, Platform, ss, samples, months, eaglet):
     """Steps 4c and 4b: the Netflix catalogue as NETFLIX_LOW (wave
     "auto", which waves) and NETFLIX_HIGH (wave on and off, bitwise
     equal); EAGLET at the thesis' 400 families x 131,072 markers (wave on
-    and off, bitwise equal).  Returns the launches of the five jobs."""
+    and off, bitwise equal).  Returns the launches of the five jobs and
+    the waved NETFLIX_HIGH and EAGLET reports."""
     t0 = time.perf_counter()
     launches = 0
     _, n = grid_job(ops, Platform, "step 4c", samples, months,
@@ -1864,6 +1883,7 @@ def paper_workload_jobs(ops, Platform, ss, samples, months, eaglet):
                       ss.NETFLIX_HIGH, wave="off")
     launches += n
     _assert_bitwise(on.result, off.result, "NETFLIX_HIGH wave vs per-task")
+    waved = {"NETFLIX_HIGH": on}
     print(f"step 4c: NETFLIX_HIGH wave == per-task bitwise "
           f"({time.perf_counter() - t0!r} s for step 4c)")
     t0 = time.perf_counter()
@@ -1875,9 +1895,10 @@ def paper_workload_jobs(ops, Platform, ss, samples, months, eaglet):
                       ss.EAGLET, wave="off")
     launches += n
     _assert_bitwise(on.result, off.result, "EAGLET wave vs per-task")
+    waved["EAGLET"] = on
     print(f"step 4b: EAGLET wave == per-task bitwise "
           f"({time.perf_counter() - t0!r} s for step 4b)")
-    return launches
+    return launches, waved
 
 
 def paper_workload_invariants(ops, Platform, ss):
@@ -1897,6 +1918,285 @@ def paper_workload_invariants(ops, Platform, ss):
                         "simulated")
         print(f"{label}: threaded (waves) == simulated bitwise over "
               f"{thr.n_tasks} tasks")
+
+
+# phase 10 — the platform's data plane, faults and checkpoint/resume
+
+# the job store's block cache: room for the whole catalogue (the cache
+# holds the store's own arrays, no copy)
+CACHE_BYTES = 1 << 30
+# bench_balance.py's degraded data plane (benchmarks/bench_balance.py:60-85):
+# 10 ms a fetch, the first of three nodes 5x slower, each sample on two
+BALANCE_LAT, BALANCE_DEGRADE = 10e-3, 5.0
+# 10d: a save every 32 leaves (a moments leaf is 512 KB at the catalogue's
+# 65,536 columns: at most 278 x 512 KB a save, 8 saves, 0.6 GB in all),
+# the crash at the 4th
+CKPT_EVERY, CKPT_CRASH_AT = 32, 4
+
+
+def _job_store():
+    """The jobs' data plane: three nodes holding every sample, the
+    adaptive replication controller deciding once in 10,000 fetches (as
+    bench_balance.py sets it; by default once in 64, which shrinks an
+    idle plane to one node within a task) so that the three stay in
+    service for the faults to strike."""
+    from repro_torch.core.datastore import (ReplicatedDataStore,
+                                            ReplicationPolicy)
+
+    return ReplicatedDataStore(
+        n_initial=3, policy=ReplicationPolicy(window=10_000, max_replicas=3))
+
+
+def _degraded_store(select):
+    """bench_balance.py's store: three nodes, the first 5x slower, each
+    sample placed on two (``put_all(..., replication=2)``)."""
+    from repro_torch.core.datastore import (ReplicatedDataStore,
+                                            ReplicationPolicy)
+
+    store = ReplicatedDataStore(
+        n_initial=3, select=select, latency=lambda nbytes: BALANCE_LAT,
+        policy=ReplicationPolicy(fetch_slo=BALANCE_LAT, window=10_000,
+                                 max_replicas=3))
+    store.nodes[0].latency = lambda nbytes: BALANCE_LAT * BALANCE_DEGRADE
+    return store
+
+
+def _store_kw(**extra):
+    """Spec keywords of a job with a datastore: balanced claims, prefetch
+    and the block cache."""
+    from repro_torch.core.blockcache import CacheOptions
+    from repro_torch.platform import ScheduleOptions
+
+    return dict(schedule=ScheduleOptions(balanced="on", prefetch="on"),
+                cache=CacheOptions(capacity_bytes=CACHE_BYTES), **extra)
+
+
+def moments_job(ops, prng, Platform, label, samples, months, spec, warm_ups,
+                platform_kw=None, resume_from=None):
+    """The ``moments`` job through ``Platform.run``, the launch counts
+    zeroed just before and read just after and ``prng.randint`` counted.
+    Fails unless ``subsample_stats`` launched once a wave plus one warm-up
+    a block shape and nothing drew indices outside the kernel.  Returns
+    the report and its run() wall seconds."""
+    from repro_torch.platform import MOMENTS
+
+    host_draws = []
+    randint = prng.randint
+
+    def counted_randint(*args, **kwargs):
+        host_draws.append(1)
+        return randint(*args, **kwargs)
+
+    prng.randint = counted_randint
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_count()
+        t0 = time.perf_counter()
+        rep = Platform(spec, **(platform_kw or {})).run(
+            samples, months, MOMENTS, resume_from=resume_from)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_count("subsample_stats")
+        drawn = ops.launch_count("threefry_randint")
+    finally:
+        prng.randint = randint
+    print(f"{label}: {rep.n_tasks} tasks, makespan {rep.makespan!r} s, "
+          f"run() wall {wall!r} s, phases {rep.phases}, "
+          f"{len(rep.wave_sizes)} waves ({sum(rep.wave_sizes)} tasks), "
+          f"subsample_stats launches {launches} (+ {warm_ups} warm-ups), "
+          f"threefry_randint launches {drawn}, prng.randint calls "
+          f"{len(host_draws)}")
+    if launches != len(rep.wave_sizes) + warm_ups or not rep.wave_sizes:
+        raise AssertionError(f"{label}: {launches} subsample_stats launches "
+                             f"for {len(rep.wave_sizes)} waves and "
+                             f"{warm_ups} warm-ups")
+    if drawn or host_draws:
+        raise AssertionError(f"{label}: indices drawn outside the kernel")
+    return rep, wall
+
+
+def _plane_stats(rep):
+    return (f"datastore_stats {json.dumps(rep.datastore_stats)}, "
+            f"prefetch_stats {json.dumps(rep.prefetch_stats)}, "
+            f"cache_stats {json.dumps(rep.cache_stats)}")
+
+
+def _fault_plan(n_tasks):
+    """The first seeded plan (from seed 0 up) whose worker crash falls at
+    the worker's first claim, which each worker makes; its node kill,
+    revival and latency spike fall within the job's completions.  So
+    every planned event can fire."""
+    from repro_torch.platform.faults import FaultPlan
+
+    for seed in range(10_000):
+        plan = FaultPlan.from_seed(seed, n_workers=2, n_nodes=3,
+                                   n_tasks=n_tasks, revive_after=8)
+        crash = [e for e in plan.events if e.kind == "worker_crash"]
+        if crash[0].at_claims == 1 and all(
+                e.at_completions <= n_tasks for e in plan.events):
+            return seed, plan
+    raise AssertionError("no seed below 10,000 gives such a plan")
+
+
+def data_plane_and_recovery(ops, prng, Platform, ss, samples, months, eaglet,
+                            step4, waved):
+    """Phase 10: the jobs of steps 4, 4c and 4b again with the platform's
+    data plane and recovery, each bit for bit against its run without
+    them, with the launch counts zeroed just before and read just after
+    each.  10a ``moments`` with a ``ReplicatedDataStore`` (3 nodes,
+    balanced claims, prefetch, block cache); 10b NETFLIX_HIGH and EAGLET
+    with the same; 10c NETFLIX_HIGH under a seeded ``FaultPlan`` (a worker
+    crash, a node killed and revived, a latency spike) with leases; 10d
+    ``moments`` checkpointed, crashed at a save and resumed; 10e
+    bench_balance's degraded data plane at 512 movies, balanced off and
+    on, both makespans printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.platform import MOMENTS, FaultOptions, ScheduleOptions
+    from repro_torch.platform.faults import (FaultEvent, FaultInjector,
+                                             FaultPlan, InjectedCrash)
+
+    card = _card_line()
+    # 10a — moments with a datastore
+    store = _job_store()
+    rep, _ = moments_job(ops, prng, Platform, "10a moments + datastore",
+                         samples, months, _spec(samples, **_store_kw()),
+                         step4["warm_ups"], platform_kw={"datastore": store})
+    _assert_bitwise(step4["result"], rep.result, "10a: moments with a store")
+    print(f"10a: bit for bit equal to step 4; makespan {rep.makespan!r} s "
+          f"against step 4's {step4['makespan']!r} s ({card}); "
+          f"{_plane_stats(rep)}; fetches by node "
+          f"{json.dumps(store.fetch_counts())}")
+    # where the store's time goes: the fetches alone (FIFO claims, inline
+    # fetches, no cache), then with balanced claims; and one task's
+    # fetch_many of its 64 samples alone on the host
+    layers = {"full": rep.makespan}
+    for arm, sched in (("fetch_only", dict(balanced="off", prefetch="off")),
+                       ("fetch_balanced", dict(balanced="on",
+                                               prefetch="off"))):
+        rep, _ = moments_job(ops, prng, Platform, f"10a {arm}", samples,
+                             months, _spec(samples, schedule=ScheduleOptions(
+                                 **sched)), step4["warm_ups"],
+                             platform_kw={"datastore": _job_store()})
+        _assert_bitwise(step4["result"], rep.result, f"10a: {arm}")
+        layers[arm] = rep.makespan
+    store = _job_store()
+    store.put_all(samples)
+    ids = sorted(samples)
+    one_task_ms = _host_ms(lambda: store.fetch_many(ids[:64]), reps=50)
+    store.close()
+    print(f"10a layers: makespan without a store {step4['makespan']!r} s, "
+          f"fetches alone {layers['fetch_only']!r} s, + balanced claims "
+          f"{layers['fetch_balanced']!r} s, + prefetch and cache "
+          f"{layers['full']!r} s; one task's fetch_many of 64 samples "
+          f"alone on the host {one_task_ms!r} ms ({card})")
+
+    # 10b — the paper's workloads with a datastore
+    for name, (smp, mo) in (("NETFLIX_HIGH", (samples, months)),
+                            ("EAGLET", eaglet)):
+        wl = getattr(ss, name)
+        store = _job_store()
+        rep, _ = grid_job(ops, Platform, f"10b {name} + datastore", smp, mo,
+                          wl, wave="on", platform_kw={"datastore": store},
+                          spec_kw=_store_kw())
+        _assert_bitwise(waved[name].result, rep.result,
+                        f"10b: {name} with a store")
+        print(f"10b {name}: bit for bit equal to its run without the store; "
+              f"makespan {rep.makespan!r} s against "
+              f"{waved[name].makespan!r} s, both under the profiler "
+              f"({card}); {_plane_stats(rep)}")
+
+    # 10c — faults: a crash, a node killed and revived, a latency spike
+    seed, plan = _fault_plan(waved["NETFLIX_HIGH"].n_tasks)
+    inj = FaultInjector(plan)
+    rep, _ = grid_job(ops, Platform, "10c NETFLIX_HIGH + faults", samples,
+                      months, ss.NETFLIX_HIGH, wave="on",
+                      platform_kw={"datastore": _job_store(),
+                                   "fault_injector": inj},
+                      spec_kw=_store_kw(faults=FaultOptions(
+                          lease_seconds=1.0)))
+    _assert_bitwise(waved["NETFLIX_HIGH"].result, rep.result,
+                    "10c: NETFLIX_HIGH under faults")
+    events = [(e.kind, e.target, e.at_claims or e.at_completions)
+              for e in plan.events]
+    print(f"10c: seed {seed}, plan {json.dumps(events)}; fired "
+          f"{rep.fault_events}, restarts {rep.restarts}; bit for bit equal "
+          f"to the fault-free run; makespan {rep.makespan!r} s ({card})")
+    if rep.restarts < 1 or rep.fault_events != len(plan.events):
+        raise AssertionError(f"10c: {rep.restarts} restarts, "
+                             f"{rep.fault_events} of {len(plan.events)} "
+                             "planned events fired")
+
+    # 10d — checkpoint, crash, resume
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="ckpt_", dir=root)
+    try:
+        full = os.path.join(ckpt_root, "full")
+        rep, wall = moments_job(
+            ops, prng, Platform, "10d moments checkpointed", samples, months,
+            _spec(samples, faults=FaultOptions(checkpoint_dir=full,
+                                               checkpoint_every=CKPT_EVERY)),
+            step4["warm_ups"])
+        _assert_bitwise(step4["result"], rep.result,
+                        "10d: checkpointed moments")
+        print(f"10d: {rep.checkpoint_saves} saves every {CKPT_EVERY} "
+              f"leaves, {rep.checkpoint_bytes} array bytes written and "
+              f"fsynced; makespan {rep.makespan!r} s against step 4's "
+              f"{step4['makespan']!r} s without checkpointing ({card})")
+        crashed = os.path.join(ckpt_root, "crashed")
+        inj = FaultInjector(FaultPlan((FaultEvent(
+            "checkpoint_crash", at_saves=CKPT_CRASH_AT),)))
+        try:
+            Platform(_spec(samples, faults=FaultOptions(
+                checkpoint_dir=crashed, checkpoint_every=CKPT_EVERY)),
+                fault_injector=inj).run(samples, months, MOMENTS)
+        except InjectedCrash as err:
+            print(f"10d: the run raised InjectedCrash ({err})")
+        else:
+            raise AssertionError("10d: the checkpoint crash did not fire")
+        rep, wall = moments_job(ops, prng, Platform, "10d resumed", samples,
+                                months, _spec(samples), step4["warm_ups"],
+                                resume_from=crashed)
+        _assert_bitwise(step4["result"], rep.result, "10d: resumed moments")
+        missing = rep.n_tasks - rep.tasks_restored
+        print(f"10d: resumed with {rep.tasks_restored} of {rep.n_tasks} "
+              f"tasks restored, {sum(rep.wave_sizes)} run; bit for bit "
+              f"equal to step 4; makespan {rep.makespan!r} s ({card})")
+        if rep.tasks_restored <= 0 or sum(rep.wave_sizes) != missing:
+            raise AssertionError(f"10d: {rep.tasks_restored} restored, "
+                                 f"{sum(rep.wave_sizes)} run of {missing} "
+                                 "missing")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # 10e — a degraded data plane, balanced off and on
+    small, small_months = _netflix(512)
+    out = {}
+    for arm, select, sched in (
+            ("off", "static", dict(balanced="off", speculation="off",
+                                   prefetch="off")),
+            ("on", "response_time", dict(balanced="on", speculation="auto",
+                                         prefetch="on"))):
+        store = _degraded_store(select)
+        store.put_all(small, replication=2)
+        rep, _ = moments_job(
+            ops, prng, Platform, f"10e balanced={arm}", small, small_months,
+            _spec(small, schedule=ScheduleOptions(**sched)),
+            len(_plan_shapes(small, small_months, MOMENTS,
+                             _spec(small).knee_bytes, engine="kernel")),
+            platform_kw={"datastore": store})
+        counts = store.fetch_counts()
+        out[arm] = rep
+        print(f"10e balanced={arm}: makespan {rep.makespan!r} s, fetches "
+              f"by node {json.dumps(counts)} (node 0 {BALANCE_DEGRADE}x "
+              f"slower), speculative launches {rep.speculative_launches}, "
+              f"prefetch {json.dumps(rep.prefetch_stats)} ({card})")
+    _assert_bitwise(out["off"].result, out["on"].result,
+                    "10e: balanced off vs on")
+    print(f"10e: makespan balanced off {out['off'].makespan!r} s, on "
+          f"{out['on'].makespan!r} s, ratio "
+          f"{out['off'].makespan / out['on'].makespan!r}; bit for bit equal")
 
 
 def main() -> None:
@@ -2001,6 +2301,8 @@ def main() -> None:
     print(f"per-task run: {per.n_tasks} tasks, makespan {per.makespan!r} s, "
           f"phases {per.phases}, device_dispatches {per.device_dispatches}; "
           f"bit-identical to the wave run ({time.perf_counter() - t0!r} s)")
+    step4 = {"result": wave.result, "makespan": wave.makespan,
+             "warm_ups": warm_ups, "n_cols": n_cols}
     del wave, per
 
     # phase 3f — subsample_grid on real blocks of the paper's datasets;
@@ -2017,9 +2319,16 @@ def main() -> None:
           "dataset's generation")
     grid_timing["job_shapes_ms"] = grid_split(
         ops, prng, ss, subsample_grid, (samples, months), eaglet)
-    grid_launches = paper_workload_jobs(ops, Platform, ss, samples, months,
-                                        eaglet)
-    del samples, months, eaglet
+    grid_launches, waved = paper_workload_jobs(ops, Platform, ss, samples,
+                                               months, eaglet)
+
+    # phase 10 — the data plane, faults and checkpoint/resume, on the same
+    # catalogue and EAGLET dataset
+    t0 = time.perf_counter()
+    data_plane_and_recovery(ops, prng, Platform, ss, samples, months, eaglet,
+                            step4, waved)
+    print(f"phase 10: {time.perf_counter() - t0!r} s")
+    del samples, months, eaglet, waved
     torch.cuda.empty_cache()
 
     small, small_months = _netflix(512)

@@ -1,7 +1,8 @@
 """The thesis' control plane, copied from the reference package with only
 its import paths changed: tiny-task sizing (kneepoint), the two-phase
-dynamic scheduler, job-level recovery, the estimator behind approximate
-queries, SLO pool sizing, the block cache and prefetch.
+dynamic scheduler, the adaptive-replication data plane, job-level
+recovery, the estimator behind approximate queries, SLO pool sizing, the
+block cache and prefetch.
 
 Unlike the reference's ``core/__init__.py`` this one imports no engine,
 so importing the package loads neither JAX nor torch."""
@@ -27,6 +28,11 @@ from repro_torch.core.scheduler import (
     TwoPhaseScheduler,
     simulate_job,
 )
+from repro_torch.core.datastore import (
+    DataNode,
+    ReplicatedDataStore,
+    ReplicationPolicy,
+)
 from repro_torch.core.estimator import (
     EstimateSnapshot,
     ReplayStopper,
@@ -44,3 +50,9 @@ from repro_torch.core.recovery import (
     recovery_overhead_budget,
 )
 from repro_torch.core import slo
+
+# NOTE: repro_torch.core.tiny_task is intentionally NOT imported here — it
+# is a facade over repro_torch.platform (which itself imports
+# repro_torch.core); importing it eagerly would create a package-level
+# cycle.  `from repro_torch.core import tiny_task` still works as a plain
+# submodule import.

@@ -7,8 +7,11 @@ simulated (virtual-time) execution backends, and runs each map task on
 ``PlatformSpec.device`` through a hand-written CUDA kernel: the
 ``moments`` workload through ``subsample_stats``, the paper's EAGLET and
 Netflix workloads (``repro_torch.core.subsample``) through
-``subsample_grid``.  The multi-tenant service, the datastore, faults,
-checkpoints and sharded waves come in later slices.
+``subsample_grid``.  A job can take a replicated datastore with balanced
+scheduling and prefetch (:class:`~repro_torch.core.datastore.ReplicatedDataStore`),
+a seeded fault plan (:mod:`repro_torch.platform.faults`) and
+checkpoint/resume; the multi-tenant service and sharded waves come in
+later slices.
 """
 
 from repro_torch.core.blockcache import CacheOptions

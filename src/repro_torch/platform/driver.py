@@ -7,7 +7,8 @@ One object composes the pieces the thesis argues only win *together*:
 
 :class:`Platform` takes a dataset (sample dict) + a stats workload (or a
 custom map callable), runs the offline kneepoint phase to size tasks,
-partitions them into tasks, executes them on a pluggable backend — real threads
+partitions them through the replicated :class:`~repro_torch.core.datastore`
+shards, executes them on a pluggable backend — real threads
 (:class:`~repro_torch.platform.backend.ThreadedBackend`) or virtual-time
 scale-out (:class:`~repro_torch.platform.backend.SimulatedBackend`) — streams
 partials through the deterministic async reduce tree, and emits a
@@ -31,26 +32,30 @@ vanilla Hadoop ≈ 4× BashReduce startup, ≈ 21% startup tax from monitoring,
 ≈ 20% per-task runtime tax, BashReduce ≈ 12% scheduling overhead).
 
 This is the PyTorch port of the reference driver.  Its map tasks run on
-``PlatformSpec.device`` (the card unless the caller asks for the CPU).  A
-datastore, fault injection, checkpoint/resume, sharded waves and the
-virtual-time scale-out come in later slices of the port; asking for any of
-them raises :class:`NotImplementedError`.
+``PlatformSpec.device`` (the card unless the caller asks for the CPU).  It
+takes everything the reference's driver takes — the replicated datastore
+with balanced scheduling and prefetch, fault injection, checkpoint/resume
+and the virtual-time scale-out — except sharded waves, a later slice of
+the port: ``mesh_devices`` raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import estimator as est_mod
 from repro_torch.core import kneepoint as kp
 from repro_torch.core import scheduler as sch
 from repro_torch.core import slo as slo_mod
-from repro_torch.core.blockcache import CacheOptions
+from repro_torch.core.blockcache import BlockCache, CacheOptions
+from repro_torch.core.prefetch import TaskPrefetcher
 from repro_torch.platform import compute as pc
 from repro_torch.platform import telemetry as tel
 from repro_torch.platform.monitor import (
@@ -217,8 +222,9 @@ class PlatformSpec:
     # failure model (DESIGN.md §12).  ``lease_seconds`` arms lease-based
     # task reclamation: a claimed task whose lease lapses is requeued
     # (first completion wins; per-task seeds keep the race bit-exact).
-    # ``checkpoint_dir`` (checkpoint/resume) is a later slice of the port
-    # and raises NotImplementedError when set.
+    # ``checkpoint_dir`` persists completed reduce-tree partials every
+    # ``checkpoint_every`` leaves so an interrupted job resumes via
+    # ``Platform.run(resume_from=...)`` executing only missing tasks.
     # ``max_respawns`` bounds per-worker crash respawns.
     lease_seconds: Optional[float] = None
     checkpoint_dir: Optional[str] = None
@@ -338,6 +344,7 @@ class JobReport:
     tasks_restored: int = 0        # leaves restored from a checkpoint
     checkpoint_saves: int = 0      # committed checkpoint steps this run
     fault_events: int = 0          # injected faults that fired this run
+    checkpoint_bytes: int = 0      # array bytes handed to those saves
 
 
 def make_tasks(sample_sizes: Sequence[int], sizing: str,
@@ -624,6 +631,16 @@ def resolve_speculation(spec: PlatformSpec):
     return {"off": False, "on": True, "auto": "auto"}[spec.speculation]
 
 
+def build_prefetcher(n_workers: int) -> TaskPrefetcher:
+    """The platform's prefetch pipe: ~2 waves/worker of look-ahead and
+    one background fetch stream per worker.  Deeper pipes cannot raise
+    data-plane throughput past nodes × parallelism / latency — they
+    only add queueing (the contention term of §3.5)."""
+    return TaskPrefetcher(min_depth=max(2, n_workers),
+                          max_depth=max(4, 2 * n_workers),
+                          workers=max(2, min(2 * n_workers, 8)))
+
+
 def slo_worker_decision(spec: PlatformSpec, plat: PlatformConfig,
                         plan: JobPlan) -> Optional[slo_mod.ScaleDecision]:
     """SLO-aware pool sizing (thesis §4.2.3 / Fig 12-13): with a target
@@ -644,6 +661,103 @@ def slo_worker_decision(spec: PlatformSpec, plat: PlatformConfig,
         slo_seconds=spec.slo_seconds)
 
 
+class JobCheckpointer:
+    """Persist completed reduce-tree leaf partials during execution
+    (DESIGN.md §12).  Every ``every`` newly completed leaves the full
+    set of accumulated partials is saved through
+    :class:`~repro_torch.checkpoint.manager.CheckpointManager` (atomic
+    tmp+rename, async, fsynced), so a crash at ANY point leaves the
+    newest committed step restorable.  :meth:`load` gives the partials
+    back as ``{task_id: {name: array}}``; the resumed job offers them
+    into a full-size reduce tree and executes only the missing tasks —
+    the tree's fixed shape makes the combined result bit-identical to
+    an uninterrupted run.  The files are the reference's, so a job
+    checkpointed by either package resumes in the other.
+
+    ``injector`` is an optional
+    :class:`~repro_torch.platform.faults.FaultInjector` whose
+    :meth:`~repro_torch.platform.faults.FaultInjector.checkpoint_tick`
+    fires planned mid-save crashes."""
+
+    def __init__(self, directory: str, n_tasks: int, *, every: int = 8,
+                 restored: Optional[Dict[int, Dict[str, Any]]] = None,
+                 injector=None, keep: int = 2, telemetry=None):
+        self.mgr = CheckpointManager(directory, keep=keep)
+        self.n_tasks = n_tasks
+        self.every = max(int(every), 1)
+        self.injector = injector
+        self.telemetry = telemetry
+        self.saves = 0
+        self.bytes_written = 0
+        self._lock = threading.Lock()
+        self._partials: Dict[int, Dict[str, Any]] = dict(restored or {})
+        self._since = 0
+        self._step = self.mgr.all_steps()[-1] if self.mgr.all_steps() \
+            else 0
+
+    def offer(self, task_id: int, value: Any) -> None:
+        """Record one completed leaf; saves when a full interval of new
+        leaves has accumulated.  The save snapshot is taken under the
+        lock; serialization runs on the manager's background thread."""
+        due = False
+        with self._lock:
+            if task_id not in self._partials:
+                self._partials[task_id] = value
+                self._since += 1
+                if self._since >= self.every:
+                    self._since = 0
+                    self._step += 1
+                    step = self._step
+                    snap = dict(self._partials)
+                    due = True
+        if not due:
+            return
+        if self.injector is not None:
+            self.injector.checkpoint_tick()
+        state: Dict[str, np.ndarray] = {}
+        for tid, partial in snap.items():
+            for name, arr in partial.items():
+                state[f"{tid}/{name}"] = np.asarray(arr)
+        state["__meta__/completed"] = np.asarray(sorted(snap),
+                                                 dtype=np.int64)
+        state["__meta__/n_tasks"] = np.asarray(self.n_tasks,
+                                               dtype=np.int64)
+        self.mgr.save(step, state)
+        self.saves += 1
+        self.bytes_written += sum(a.nbytes for a in state.values())
+        if self.telemetry is not None:
+            self.telemetry.emit("checkpoint_saved", step=step,
+                                n_leaves=len(snap))
+
+    def finish(self) -> None:
+        """Join the in-flight save and surface any parked background
+        error (a failed async save must fail the job, never vanish)."""
+        self.mgr.wait()
+
+    @staticmethod
+    def load(directory: str) -> Tuple[Dict[int, Dict[str, Any]],
+                                      Optional[int]]:
+        """Restore ``({task_id: partial}, n_tasks)`` from the newest
+        committed checkpoint; ``({}, None)`` when none exists."""
+        mgr = CheckpointManager(directory)
+        flat = mgr.restore_latest()
+        if flat is None:
+            return {}, None
+        partials: Dict[int, Dict[str, Any]] = {}
+        n_tasks: Optional[int] = None
+        for key, arr in flat.items():
+            # names are JAX key paths of flat-dict keys: "['12/sum']"
+            if key.startswith("['") and key.endswith("']"):
+                key = key[2:-2]
+            if key.startswith("__meta__/"):
+                if key == "__meta__/n_tasks":
+                    n_tasks = int(arr)
+                continue
+            tid, name = key.split("/", 1)
+            partials.setdefault(int(tid), {})[name] = np.asarray(arr)
+        return partials, n_tasks
+
+
 def _not_in_port(requested: bool, what: str, slice_name: str) -> None:
     """Options whose modules the port has not reached yet raise rather
     than run without them."""
@@ -654,29 +768,26 @@ def _not_in_port(requested: bool, what: str, slice_name: str) -> None:
 
 
 class Platform:
-    """The end-to-end driver.  ``map_fn`` replaces the workload engine
-    with a custom per-task callable ``(task, block, months, seed) ->
-    partial`` (overhead benchmarks).
-
-    ``datastore`` and ``fault_injector`` are accepted for the reference's
-    signature and raise :class:`NotImplementedError` unless ``None``: the
-    data plane and fault injection are later slices of the port."""
+    """The end-to-end driver.  ``datastore`` is an optional
+    :class:`~repro_torch.core.datastore.ReplicatedDataStore`; ``map_fn``
+    replaces the workload engine with a custom per-task callable
+    ``(task, block, months, seed) -> partial`` (overhead benchmarks);
+    ``fault_injector`` is an optional
+    :class:`~repro_torch.platform.faults.FaultInjector` driving a seeded
+    :class:`~repro_torch.platform.faults.FaultPlan` through the run
+    (DESIGN.md §12).  Sharded waves (``mesh_devices``) are a later slice
+    of the port and raise :class:`NotImplementedError`."""
 
     def __init__(self, spec: PlatformSpec = PlatformSpec(), *,
                  datastore=None, map_fn: Optional[MapFn] = None,
                  fault_injector=None):
-        _not_in_port(datastore is not None, "a datastore",
-                     "core/datastore.py with balanced scheduling and "
-                     "prefetch")
-        _not_in_port(fault_injector is not None, "fault_injector",
-                     "platform/faults.py")
-        _not_in_port(spec.checkpoint_dir is not None, "checkpoint_dir",
-                     "checkpoint/manager.py with JobCheckpointer")
         _not_in_port(spec.mesh_devices is not None, "mesh_devices",
                      "sharded waves")
         self.device = pc.check_device(spec.device)
         self.spec = spec
+        self.datastore = datastore
         self.map_fn = map_fn
+        self.fault_injector = fault_injector
         # one bus per driver; the simulated backend emits virtual
         # timestamps, so its bus must not fall back to wall time
         self.telemetry = tel.TelemetryBus(
@@ -728,26 +839,24 @@ class Platform:
     def run(self, samples: Dict[int, np.ndarray],
             months: Dict[int, np.ndarray], workload, *,
             resume_from: Optional[str] = None) -> JobReport:
-        """Kneepoint → partition → schedule/execute → streaming reduce.
+        """Kneepoint → distribute → schedule/execute → streaming reduce.
 
-        ``resume_from`` (resume from a checkpoint) is a later slice of the
-        port and raises :class:`NotImplementedError`."""
-        _not_in_port(resume_from is not None, "resume_from",
-                     "checkpoint/manager.py with JobCheckpointer")
+        ``resume_from`` names a checkpoint directory written by a prior
+        (interrupted) run of the same job: its committed leaf partials
+        are restored into the reduce tree and only the missing tasks
+        execute — bit-identical to an uninterrupted run (§12)."""
         spec = self.spec
         plat = self._platform_config()
         engine = ("custom" if self.map_fn is not None
                   else pc.resolve_engine(workload.statistic, spec.engine))
         phases: Dict[str, float] = {}
-        # validated up front: balanced="on" / prefetch="on" without a
-        # datastore (and any bad mode string) must error, never silently
-        # run FIFO or fetch inline
-        balanced_enabled(spec, False)
-        prefetch_enabled(spec, False)
+        # validated up front: balanced="on" without a datastore (and any
+        # bad mode string) must error, never silently run FIFO
+        balanced_on = balanced_enabled(spec, self.datastore is not None)
 
         # phases 1-2 — offline kneepoint (thesis §3.2: ≈3% of online
         # time; a custom map_fn is calibrated on itself, not the workload
-        # engine), then partition
+        # engine), then partition + distribute onto the data plane
         plan = plan_job(samples, months, workload,
                         sizing=plat.task_sizing, engine=engine,
                         n_exec=self._n_exec_workers(),
@@ -758,8 +867,39 @@ class Platform:
         bus = self.telemetry
         bus.emit("job_planned", n_tasks=len(plan.tasks),
                  knee_bytes=plan.knee_bytes, engine=engine)
-        phases["distribute"] = plan.partition_seconds
-        tasks, task_shape = plan.tasks, plan.task_shape
+        if self.datastore is not None:
+            self.datastore.telemetry = bus
+            # worker-side block cache (DESIGN.md §14): attached once and
+            # kept on the store across runs so repeat queries over the
+            # same dataset hit warm blocks
+            if spec.cache.enabled and self.datastore.cache is None:
+                self.datastore.cache = BlockCache(spec.cache)
+        if self.fault_injector is not None:
+            self.fault_injector.telemetry = bus
+        t0 = time.perf_counter()
+        if self.datastore is not None:
+            self.datastore.put_all({i: samples[i] for i in plan.ids})
+            if balanced_on:
+                # seed the per-node response-time EMAs (phase-1 probe of
+                # the data plane) so the first claims are not blind
+                self.datastore.probe()
+        phases["distribute"] = (plan.partition_seconds
+                                + time.perf_counter() - t0)
+        tasks, ids, task_shape = plan.tasks, plan.ids, plan.task_shape
+
+        # resume (DESIGN.md §12): restore committed leaf partials and
+        # execute only the missing tasks; the tree keeps its full shape
+        # so the combined result is bit-identical to an unbroken run
+        restored: Dict[int, Dict[str, Any]] = {}
+        if resume_from is not None:
+            restored, ckpt_n = JobCheckpointer.load(resume_from)
+            if ckpt_n is not None and ckpt_n != len(tasks):
+                raise ValueError(
+                    f"checkpoint at {resume_from!r} holds partials for "
+                    f"{ckpt_n} tasks but this plan produced {len(tasks)}"
+                    " — resume needs the same dataset, sizing and knee")
+        run_tasks = ([t for t in tasks if t.task_id not in restored]
+                     if restored else tasks)
 
         # SLO-aware pool sizing (slo.choose_workers over the knee-derived
         # throughput model); explicit sim worker lists are respected
@@ -789,6 +929,42 @@ class Platform:
                              float(mo.nbytes) if engine == "torch" else 0.0))
             return pc.run_map_task(block, mo, task_seed, workload, engine,
                                    device=self.device)
+
+        fetch = None
+        locality_score = None
+        on_scheduler = None
+        if self.datastore is not None:
+            store = self.datastore
+
+            # the fetch models the data plane only: blocks still come
+            # from plan.build_block, and wave mode's arena stays resident
+            def fetch(task: sch.Task):
+                store.fetch_many([ids[sid] for sid in task.sample_ids])
+
+            if balanced_on:
+                def locality_score(task: sch.Task) -> float:
+                    return store.predicted_task_fetch(
+                        [ids[sid] for sid in task.sample_ids])
+
+                def on_scheduler(live) -> None:
+                    # a node turning degraded/down re-ranks ready tasks
+                    store.on_state_change = \
+                        lambda node: live.request_rerank()
+                    # cache admissions/evictions shift locality scores
+                    # the same way (DESIGN.md §14)
+                    if store.cache is not None:
+                        store.cache.on_change = \
+                            lambda: live.request_rerank()
+        prefetcher = (build_prefetcher(n_eff)
+                      if prefetch_enabled(spec, fetch is not None)
+                      else None)
+        if prefetcher is not None and self.datastore is not None \
+                and self.datastore.cache is not None:
+            # cache-resident tasks need no background fetch: their
+            # claim-time ensure() is served worker-side for free
+            prefetcher.resident = (
+                lambda task, _s=self.datastore, _ids=ids:
+                _s.cache_covers([_ids[sid] for sid in task.sample_ids]))
 
         # phase 3 — warmup: one task per distinct block shape (the kernel
         # library builds at its first launch, which is startup cost, Fig
@@ -879,6 +1055,32 @@ class Platform:
             else:
                 tree = StreamingReduceTree(len(tasks))
                 emit = tree.offer
+        # restored leaves enter the tree (and any estimator) first,
+        # exactly as if those tasks had just completed — BEFORE the
+        # checkpoint/injector wraps so they neither re-save nor tick the
+        # injector's completion clock
+        for tid in sorted(restored):
+            emit(tid, restored[tid])
+        if restored:
+            bus.emit("checkpoint_restored", n=len(restored),
+                     task_ids=tuple(sorted(restored)))
+        ckpt: Optional[JobCheckpointer] = None
+        if spec.checkpoint_dir is not None and tree is not None:
+            ckpt = JobCheckpointer(
+                spec.checkpoint_dir, len(tasks),
+                every=spec.checkpoint_every, restored=restored,
+                injector=self.fault_injector, telemetry=bus)
+            prev_emit = emit
+
+            def emit(tid, v, _prev=prev_emit, _c=ckpt):
+                _prev(tid, v)
+                _c.offer(tid, v)
+
+        injector = self.fault_injector
+        if injector is not None:
+            if self.datastore is not None:
+                injector.attach_store(self.datastore)
+            emit = injector.wrap_emit(emit)
         # execute-window anchor for the critical-path analyzer: bus time
         # just before the backend starts (0.0 on a virtual bus — the sim
         # clock opens at startup_time, so the window equals the virtual
@@ -887,15 +1089,25 @@ class Platform:
         t0 = time.perf_counter()
         try:
             outcome = self._backend(n_eff).run(
-                tasks, compute=compute_task, fetch=None, plat=plat,
+                run_tasks, compute=compute_task, fetch=fetch, plat=plat,
                 cfg=self._scheduler_cfg(plat), emit=emit,
                 shape_key=task_shape, compute_wave=compute_wave,
                 max_wave=spec.max_wave if wave_on else 1,
                 wave_cap=(ctx.cap if wave_on else None),
+                locality_score=locality_score,
+                prefetcher=prefetcher,
+                on_scheduler=on_scheduler,
                 stopper=stopper,
+                crash_hook=(injector.worker_tick
+                            if injector is not None else None),
                 max_respawns=spec.max_respawns,
                 telemetry=bus)
             phases["execute"] = time.perf_counter() - t0
+            if ckpt is not None:
+                # surface any parked async-save error: a job that "ran"
+                # but silently failed to persist its restore point must
+                # not report success (§12 durability contract)
+                ckpt.finish()
 
             # phase 5 — drain the reduce tree, finalize the statistic.
             # An early-stopped job finalizes over its executed subset in
@@ -904,7 +1116,8 @@ class Platform:
             result, reduce_info = None, None
             if tree is not None:
                 if stopper is not None and stopper.stopped:
-                    executed = {r.task_id for r in outcome.results}
+                    executed = ({r.task_id for r in outcome.results}
+                                | set(restored))
                     if sim_partials is not None:
                         root = StreamingReduceTree.combine_subset(
                             len(tasks),
@@ -924,7 +1137,35 @@ class Platform:
         except BaseException:
             if tree is not None:
                 tree.close()           # unblock the combiner thread
+            if ckpt is not None:
+                # let the save in flight land before the error leaves
+                # run(), so a resume reads a directory no thread still
+                # writes; the job's own error is the one raised
+                try:
+                    ckpt.finish()
+                except Exception as save_err:  # noqa: BLE001
+                    warnings.warn(f"checkpoint save failed while the job "
+                                  f"failed: {save_err!r}", RuntimeWarning)
             raise
+        finally:
+            if prefetcher is not None:
+                stats = prefetcher.stats()
+                bus.emit("prefetch_stats",
+                         hits=int(stats["prefetch_hits"]),
+                         misses=int(stats["prefetch_misses"]))
+                prefetcher.close()
+            if self.datastore is not None:
+                self.datastore.on_state_change = None
+                self.datastore.telemetry = None
+                if self.datastore.cache is not None:
+                    # the cache (and its contents) outlives the run; the
+                    # rerank hook must not — it closes over this run's
+                    # scheduler
+                    self.datastore.cache.on_change = None
+
+        if self.datastore is not None:
+            for r in outcome.results:
+                self.datastore.report_exec_time(r.exec_time)
 
         if stopper is not None:
             ci = stopper.snapshot()
@@ -941,12 +1182,66 @@ class Platform:
                             plan.knee_bytes, plan.knee_res, engine, phases,
                             result, reduce_info, dispatch=dispatch,
                             scale_decision=decision, n_workers_used=n_eff,
-                            stopper=stopper)
+                            prefetch_stats=(stats if prefetcher is not None
+                                            else None),
+                            stopper=stopper,
+                            tasks_restored=len(restored),
+                            checkpoint_saves=(ckpt.saves
+                                              if ckpt is not None else 0),
+                            checkpoint_bytes=(ckpt.bytes_written
+                                              if ckpt is not None else 0),
+                            fault_events=(len(injector.fired)
+                                          if injector is not None else 0))
 
-    def run_scaleout(self, *args, **kwargs) -> JobReport:
-        """Virtual-time scale-out over a calibrated cost model: a later
-        slice of the port."""
-        _not_in_port(True, "run_scaleout", "the virtual-time scale-out")
+    # -- virtual-time scale-out over a cost model ----------------------------
+    def run_scaleout(self, sample_sizes: Sequence[int], *,
+                     per_sample_exec: Optional[float] = None,
+                     exec_model: Optional[Callable[[sch.Task], float]] = None,
+                     fetch_model: Optional[Callable[[sch.Task], float]] = None,
+                     ) -> JobReport:
+        """Run the scheduling/distribution layers in virtual time over a
+        calibrated cost model (datasets too large to materialize: Fig
+        10-13 sweeps).  No statistics are computed (``result=None``) and
+        nothing runs on the device."""
+        assert (per_sample_exec is None) != (exec_model is None), \
+            "pass exactly one of per_sample_exec / exec_model"
+        spec = self.spec
+        plat = self._platform_config()
+        decision = None
+        if (spec.slo_seconds is not None and per_sample_exec is not None
+                and not spec.sim_workers and len(sample_sizes)):
+            # SLO-aware sizing from the calibrated cost model (Fig 12/13)
+            mean_bytes = float(np.mean(np.asarray(sample_sizes)))
+            decision = slo_mod.choose_workers(
+                max(spec.n_workers, 1),
+                bytes_per_second_per_worker=(mean_bytes
+                                             / float(per_sample_exec)),
+                startup_seconds=plat.startup_time * spec.startup_scale,
+                slo_seconds=spec.slo_seconds)
+        if exec_model is None:
+            rate = float(per_sample_exec)
+            exec_model = lambda t: rate * len(t.sample_ids)   # noqa: E731
+        n_eff = decision.cores if decision is not None \
+            else self._n_exec_workers()
+        t0 = time.perf_counter()
+        tasks = make_tasks(list(sample_sizes), plat.task_sizing,
+                           spec.knee_bytes, n_eff)
+        phases = {"plan": 0.0, "distribute": time.perf_counter() - t0,
+                  "compile": 0.0}
+        workers = (list(spec.sim_workers) if spec.sim_workers else n_eff)
+        backend = SimulatedBackend(workers, exec_model=exec_model,
+                                   fetch_model=fetch_model,
+                                   startup_scale=spec.startup_scale)
+        t0 = time.perf_counter()
+        outcome = backend.run(tasks, compute=None, fetch=None, plat=plat,
+                              cfg=self._scheduler_cfg(plat),
+                              emit=lambda tid, v: None)
+        phases["execute"] = time.perf_counter() - t0
+        phases["reduce"] = 0.0
+        return self._report(plat, outcome, tasks, float(sum(sample_sizes)),
+                            spec.knee_bytes, None, "cost-model", phases,
+                            None, None, backend_name="simulated",
+                            scale_decision=decision, n_workers_used=n_eff)
 
     # -- monitor surface (DESIGN.md §15) -------------------------------------
     def monitor_snapshot(self) -> Dict[str, Any]:
@@ -974,10 +1269,19 @@ class Platform:
                 knee_bytes: Optional[float],
                 knee_res: Optional[kp.KneepointResult], engine: str,
                 phases: Dict[str, float], result, reduce_info, *,
-                dispatch: pc.DispatchStats,
-                scale_decision: Optional[slo_mod.ScaleDecision],
-                n_workers_used: int,
-                stopper=None) -> JobReport:
+                backend_name: Optional[str] = None,
+                dispatch: Optional[pc.DispatchStats] = None,
+                scale_decision: Optional[slo_mod.ScaleDecision] = None,
+                n_workers_used: Optional[int] = None,
+                prefetch_stats: Optional[Dict[str, float]] = None,
+                stopper=None,
+                tasks_restored: int = 0,
+                checkpoint_saves: int = 0,
+                checkpoint_bytes: int = 0,
+                fault_events: int = 0,
+                ) -> JobReport:
+        backend_name = backend_name or self.spec.backend
+        dispatch = dispatch or pc.DispatchStats()
         execs = sorted(r.exec_time for r in outcome.results)
         median = execs[len(execs) // 2] if execs else 0.0
         stragglers = sum(1 for e in execs if median and e > 2.0 * median)
@@ -992,10 +1296,10 @@ class Platform:
             throughput_bps=total_bytes / max(outcome.makespan, 1e-12),
             startup_time=plat.startup_time * (
                 self.spec.startup_scale
-                if self.spec.backend == "simulated" else 1.0),
+                if backend_name == "simulated" else 1.0),
             result=result,
             kneepoint=knee_res,
-            backend=self.spec.backend,
+            backend=backend_name,
             engine=engine,
             phases=phases,
             queue_depths=outcome.queue_depths,
@@ -1005,6 +1309,8 @@ class Platform:
             speculative_launches=outcome.speculative_launches,
             restarts=outcome.restarts,
             calibration_seconds=outcome.calibration_seconds,
+            datastore_stats=(self.datastore.stats()
+                             if self.datastore is not None else None),
             reduce_info=reduce_info,
             device_dispatches=dispatch.device_dispatches,
             bytes_uploaded=dispatch.bytes_uploaded,
@@ -1013,9 +1319,18 @@ class Platform:
             scale_decision=(f"{scale_decision.cores} cores: "
                             f"{scale_decision.reason}"
                             if scale_decision is not None else None),
-            n_workers_used=n_workers_used,
-            tasks_executed=executed,
-            tasks_cancelled=max(len(tasks) - executed, 0),
+            n_workers_used=(n_workers_used if n_workers_used is not None
+                            else self._n_exec_workers()),
+            prefetch_stats=prefetch_stats,
+            cache_stats=(self.datastore.cache.stats()
+                         if self.datastore is not None
+                         and self.datastore.cache is not None else None),
+            tasks_executed=executed + tasks_restored,
+            tasks_cancelled=max(len(tasks) - executed - tasks_restored, 0),
             stop_reason=(stopper.stop_reason if stopper is not None
                          else None),
-            final_ci=(snap.as_dict() if snap is not None else None))
+            final_ci=(snap.as_dict() if snap is not None else None),
+            tasks_restored=tasks_restored,
+            checkpoint_saves=checkpoint_saves,
+            checkpoint_bytes=checkpoint_bytes,
+            fault_events=fault_events)

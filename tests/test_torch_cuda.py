@@ -1139,3 +1139,81 @@ def test_grid_kernel_equals_its_order_emulated(cuda, statistic, case):
         got = sgrid.subsample_grid(data, months, rows, idx, grid=grid,
                                    statistic=statistic, body=body)
         assert torch.equal(got.cpu(), torch.from_numpy(want)), body
+
+
+# -- the platform's data plane and recovery on the card
+
+
+def _platform_job(engine):
+    from repro_torch.core import subsample as ss
+    from repro_torch.data import NetflixSpec, netflix_dataset
+    from repro_torch.platform import MOMENTS
+
+    samples, months = netflix_dataset(NetflixSpec(n_movies=96,
+                                                  mean_ratings=400))
+    mean = float(np.mean([a.nbytes for a in samples.values()]))
+    return samples, months, (MOMENTS if engine == "kernel"
+                             else ss.NETFLIX_LOW), 8 * mean
+
+
+def _platform_spec(knee, **kw):
+    from repro_torch.platform import PlatformSpec, WaveOptions
+
+    return PlatformSpec(platform="BTS", n_workers=2, knee_bytes=knee,
+                        waves=WaveOptions(wave="on", max_wave=4), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["kernel", "torch"])
+def test_job_with_a_store_equals_the_job_without_on_the_card(cuda, engine):
+    """A datastore with balanced scheduling, prefetch and the block cache
+    models the data plane only: the job's result on the card is the
+    plain job's bit for bit."""
+    from repro_torch.core.blockcache import CacheOptions
+    from repro_torch.core.datastore import ReplicatedDataStore
+    from repro_torch.platform import Platform, ScheduleOptions
+
+    samples, months, wl, knee = _platform_job(engine)
+    plain = Platform(_platform_spec(knee)).run(samples, months, wl)
+    store = ReplicatedDataStore(n_initial=3)
+    rep = Platform(_platform_spec(
+        knee, schedule=ScheduleOptions(balanced="on", prefetch="on"),
+        cache=CacheOptions(capacity_bytes=1 << 24)),
+        datastore=store).run(samples, months, wl)
+    assert rep.engine == engine
+    for key in plain.result:
+        assert np.array_equal(np.asarray(plain.result[key]),
+                              np.asarray(rep.result[key])), key
+    assert sum(store.fetch_counts().values()) > 0
+    assert rep.prefetch_stats is not None and rep.cache_stats is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["kernel", "torch"])
+def test_resume_is_bitwise_on_the_card(cuda, engine, tmp_path):
+    """A job checkpointed and crashed at its second save resumes on the
+    card to the uninterrupted result bit for bit, launching only for the
+    missing tasks."""
+    from repro_torch.platform import FaultOptions, Platform
+    from repro_torch.platform.driver import JobCheckpointer
+    from repro_torch.platform.faults import (FaultEvent, FaultInjector,
+                                             FaultPlan, InjectedCrash)
+
+    samples, months, wl, knee = _platform_job(engine)
+    plain = Platform(_platform_spec(knee)).run(samples, months, wl)
+    d = str(tmp_path / "ck")
+    inj = FaultInjector(FaultPlan((FaultEvent("checkpoint_crash",
+                                              at_saves=2),)))
+    with pytest.raises(InjectedCrash):
+        Platform(_platform_spec(knee, faults=FaultOptions(
+            checkpoint_dir=d, checkpoint_every=2)),
+            fault_injector=inj).run(samples, months, wl)
+    restored, n_tasks = JobCheckpointer.load(d)
+    assert n_tasks == plain.n_tasks and 0 < len(restored) < n_tasks
+    rep = Platform(_platform_spec(knee)).run(samples, months, wl,
+                                             resume_from=d)
+    for key in plain.result:
+        assert np.array_equal(np.asarray(plain.result[key]),
+                              np.asarray(rep.result[key])), key
+    assert rep.tasks_restored == len(restored)
+    assert sum(rep.wave_sizes) == plain.n_tasks - len(restored)

@@ -37,6 +37,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.core.subsample\n"
         "import repro_torch.models.rglru\n"
         "import repro_torch.configs.recurrentgemma_2b\n"
+        "import repro_torch.core.datastore, repro_torch.core.tiny_task\n"
+        "import repro_torch.platform.faults, repro_torch.checkpoint\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"

@@ -16,12 +16,17 @@ inside each 8-row group differs, a few fp32 ulps in Σ and Σ².  ``var`` is
 the size of Σ²/n (about 1 for this unit-variance data), not of ``var``.
 ``count`` and everything integral agree exactly."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 import repro.platform as ref_platform
 import repro_torch.platform as port_platform
+from repro.core import scheduler as ref_sch
+from repro.core import tiny_task as ref_tiny_task
 from repro.platform import driver as ref_driver
+from repro_torch.core import scheduler as port_sch
 from repro_torch.platform import driver as port_driver
 
 WL_SHAPE = dict(draws=4, draw_size=16)
@@ -132,26 +137,121 @@ def test_invariant_to_wave_size():
         _assert_bitwise(results[0], other)
 
 
-@pytest.mark.parametrize("option", ["datastore", "fault_injector",
-                                    "checkpoint_dir", "mesh_devices",
-                                    "resume_from", "run_scaleout"])
+@pytest.mark.parametrize("option", ["mesh_devices"])
 def test_deferred_options_raise(option):
-    samples, months = _dataset(n=4)
+    """Sharded waves are the one option of the reference's ``Platform``
+    the port has not reached; the datastore, fault injection,
+    checkpoint/resume and ``run_scaleout`` run (tests/test_torch_datastore.py,
+    tests/test_torch_faults.py and the tests below)."""
     spec_kw = dict(device="cpu", knee_bytes=KNEE)
-    init_kw = {}
-    if option == "checkpoint_dir":
-        spec_kw["faults"] = port_driver.FaultOptions(checkpoint_dir="ckpt")
-    elif option == "mesh_devices":
-        spec_kw["waves"] = port_driver.WaveOptions(mesh_devices=1)
-    elif option in ("datastore", "fault_injector"):
-        init_kw[option] = object()
+    spec_kw["waves"] = port_driver.WaveOptions(mesh_devices=1)
     with pytest.raises(NotImplementedError, match="later slice"):
-        plat = port_platform.Platform(port_platform.PlatformSpec(**spec_kw),
-                                      **init_kw)
-        if option == "resume_from":
-            plat.run(samples, months, PORT_WL, resume_from="ckpt")
-        elif option == "run_scaleout":
-            plat.run_scaleout([4, 4], per_sample_exec=1e-3)
+        port_platform.Platform(port_platform.PlatformSpec(**spec_kw))
+
+
+def _scaleout_specs(pkg, driver, case):
+    common = dict(seed=3, startup_scale=0.5)
+    if case == "bts":
+        return pkg.PlatformSpec(platform="BTS", n_workers=4,
+                                backend="simulated", knee_bytes=6_000.0,
+                                **common)
+    if case == "btt_hetero":
+        workers = tuple(
+            ref_sch.SimWorker(i, speed=0.5 if i == 0 else 1.0)
+            if pkg is ref_platform else
+            port_sch.SimWorker(i, speed=0.5 if i == 0 else 1.0)
+            for i in range(3))
+        return pkg.PlatformSpec(platform="BTT", backend="simulated",
+                                sim_workers=workers, **common)
+    if case == "vh":
+        return pkg.PlatformSpec(platform="VH", n_workers=8,
+                                backend="simulated", **common)
+    # SLO-aware pool sizing from the cost model
+    return pkg.PlatformSpec(
+        platform="BTS", n_workers=16, backend="simulated",
+        knee_bytes=6_000.0,
+        schedule=driver.ScheduleOptions(slo_seconds=0.5), **common)
+
+
+def _scaleout_report(rep):
+    return (rep.makespan, rep.n_tasks, rep.scale_decision, rep.queue_depths,
+            rep.n_workers_used, rep.task_size_bytes, rep.max_task_bytes,
+            rep.startup_time, rep.backend, rep.engine, rep.result,
+            rep.restarts, rep.speculative_launches, rep.tasks_executed)
+
+
+@pytest.mark.parametrize("case", ["bts", "btt_hetero", "vh", "slo"])
+@pytest.mark.parametrize("model", ["per_sample", "exec_fetch"])
+def test_run_scaleout_equals_reference(case, model):
+    rng = np.random.default_rng(4)
+    sizes = [int(s) for s in rng.integers(500, 4_000, 96)]
+    if model == "per_sample":
+        kw = dict(per_sample_exec=2e-3)
+    else:
+        kw = dict(exec_model=lambda t: 1e-3 + 1e-6 * t.size_bytes,
+                  fetch_model=lambda t: 5e-4 * len(t.sample_ids))
+    ref = ref_platform.Platform(_scaleout_specs(
+        ref_platform, ref_driver, case)).run_scaleout(sizes, **kw)
+    port_spec = dataclasses.replace(_scaleout_specs(
+        port_platform, port_driver, case), device="cpu")
+    port = port_platform.Platform(port_spec).run_scaleout(sizes, **kw)
+    assert _scaleout_report(port) == _scaleout_report(ref)
+    assert port.n_tasks > 1 and port.result is None
+    assert port.engine == "cost-model" and port.backend == "simulated"
+    if case == "slo" and model == "per_sample":
+        assert port.scale_decision is not None
+
+
+def test_run_scaleout_needs_exactly_one_cost_model():
+    plat = port_platform.Platform(port_platform.PlatformSpec(
+        backend="simulated", knee_bytes=KNEE, device="cpu"))
+    with pytest.raises(AssertionError):
+        plat.run_scaleout([4, 4])
+    with pytest.raises(AssertionError):
+        plat.run_scaleout([4, 4], per_sample_exec=1e-3,
+                          exec_model=lambda t: 1e-3)
+
+
+def test_tiny_task_facade_equals_platform_run():
+    from repro_torch.core import tiny_task
+
+    samples, months = _dataset()
+    rep = tiny_task.run_subsampling_job(samples, months, PORT_WL,
+                                        n_workers=2, knee_bytes=KNEE,
+                                        seed=5, device="cpu")
+    spec = port_platform.PlatformSpec(platform="BTS", n_workers=2,
+                                      backend="threaded", knee_bytes=KNEE,
+                                      seed=5, device="cpu")
+    want = port_platform.Platform(spec).run(samples, months, PORT_WL)
+    _assert_bitwise(rep.result, want.result)
+    assert rep.n_tasks == want.n_tasks
+    ref = ref_tiny_task.run_subsampling_job(samples, months, REF_WL,
+                                            n_workers=2, knee_bytes=KNEE,
+                                            seed=5)
+    np.testing.assert_array_equal(rep.result["count"], ref.result["count"])
+    for key in ("mean", "var"):
+        np.testing.assert_allclose(rep.result[key], ref.result[key],
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
+    # the same facade surface as the reference's
+    assert tiny_task.PLATFORMS.keys() == ref_tiny_task.PLATFORMS.keys()
+    parts = tiny_task._pad_to_common([np.ones(3, np.float32),
+                                      np.ones(5, np.float32)])
+    assert {p.shape for p in parts} == {
+        p.shape for p in ref_tiny_task._pad_to_common(
+            [np.ones(3, np.float32), np.ones(5, np.float32)])}
+
+
+def test_tiny_task_facade_defaults_to_the_card():
+    import torch
+
+    from repro_torch.core import tiny_task
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    samples, months = _dataset(n=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tiny_task.run_subsampling_job(samples, months, PORT_WL,
+                                      knee_bytes=KNEE)
 
 
 def test_engine_resolution():
