@@ -115,6 +115,21 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    resumed, launching only for the missing tasks; 10e bench_balance.py's
    degraded data plane (10 ms a fetch, one node of three 5x slower) at
    512 movies, balanced off and on, both makespans printed.
+11. After phase 10, on the same datasets: the multi-tenant service
+   (``PlatformService``, step 4's spec), each step's launches counted and
+   no index drawn on the host.  11a registers both datasets; the first
+   ``moments`` query (seed 0) builds its query class (arena and warm-ups)
+   and equals step 4 bit for bit; 11b repeats it three times, bit for
+   bit, uploading only slot and seed vectors (8 bytes a task) and
+   launching no warm-up;
+   11c runs four ``moments`` jobs, NETFLIX_HIGH and EAGLET at once under
+   ``torch.profiler``, each equal to its seed alone on the same service
+   (and the paper workloads to steps 4c and 4b), launches equal to the
+   service's dispatches, and prints the fused dispatches, wave sizes,
+   latencies, queue waits and the device's busy share; 11d stops a
+   ``moments`` job early (epsilon 0.5) and cancels another mid-run beside
+   a peer that stays equal to step 4; 11e closes the service and checks
+   that the card's allocated memory is back within 64 MB.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -2199,6 +2214,307 @@ def data_plane_and_recovery(ops, prng, Platform, ss, samples, months, eaglet,
           f"{out['off'].makespan / out['on'].makespan!r}; bit for bit equal")
 
 
+# phase 11 — the multi-tenant service on the same catalogue and EAGLET
+
+# 11d: the early-stopped moments job's error target: a CI half-width of
+# 0.5 (ratings 1-5) once 32 tasks are in; a 2,048-movie catalogue on the
+# CPU gave 0.18 at 32 tasks
+SVC_EPSILON, SVC_MIN_TASKS = 0.5, 32
+# 11e: what the allocator may keep above its level before phase 11
+SVC_MEMORY_SLACK = 64 << 20
+SVC_KERNELS = ("subsample_stats", "subsample_grid")
+SVC_REPEATS = 3          # 11b: repeats of the first query
+
+
+class _ServiceStep:
+    """One step of phase 11: the launch counts zeroed on entry and read on
+    exit, ``prng.randint`` counted in between; fails on exit if a step
+    drew an index outside the kernels."""
+
+    def __init__(self, ops, prng, label):
+        self.ops, self.prng, self.label = ops, prng, label
+        self.host_draws = 0
+        self.launches = {}
+
+    def __enter__(self):
+        self._randint = self.prng.randint
+
+        def counted(*args, **kwargs):
+            self.host_draws += 1
+            return self._randint(*args, **kwargs)
+
+        self.prng.randint = counted
+        torch.cuda.synchronize()
+        self.ops.reset_launch_count()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.prng.randint = self._randint
+        self.launches = {k: self.ops.launch_count(k)
+                         for k in SVC_KERNELS + ("threefry_randint",)}
+        if exc[0] is None and (self.host_draws
+                               or self.launches["threefry_randint"]):
+            raise AssertionError(f"{self.label}: indices drawn outside the "
+                                 "kernels")
+        return False
+
+    def total(self):
+        return sum(self.launches[k] for k in SVC_KERNELS)
+
+
+def _reduce_drain_s(n_leaves: int, n_cols: int):
+    """Host seconds for a ``StreamingReduceTree`` to take ``n_leaves``
+    ``moments`` partials of ``n_cols`` columns, offered at once, and give
+    its root: plain (as ``Platform.run`` builds it without an error
+    target) and with a ``SubsampleEstimator`` fed each leaf (as the
+    service builds every job's)."""
+    from repro_torch.core.estimator import SubsampleEstimator
+    from repro_torch.platform.reduce import StreamingReduceTree
+
+    rng = np.random.default_rng(0)
+    stats = rng.standard_normal((16, 2, n_cols)).astype(np.float32)
+    leaves = [{"sum": stats[i % 16, 0], "sumsq": stats[i % 16, 1],
+               "count": np.float32(512.0)} for i in range(n_leaves)]
+    out = {}
+    for label, est in (("plain", None),
+                       ("estimator", SubsampleEstimator("moments"))):
+        tree = StreamingReduceTree(n_leaves, estimator=est)
+        t0 = time.perf_counter()
+        for i, leaf in enumerate(leaves):
+            tree.offer(i, leaf)
+        tree.result(timeout=600)
+        out[label] = time.perf_counter() - t0
+    return out
+
+
+def service_on_the_card(ops, prng, ss, samples, months, eaglet, step4,
+                        waved):
+    """Phase 11: ``PlatformService`` with step 4's spec (threaded, 2
+    workers, waves of 16, explicit knees) over the Netflix catalogue and
+    EAGLET, each step's launches counted.  11a the first ``moments``
+    query (plan, arena, warm-ups) ≡ step 4; 11b the same query again,
+    uploading only slot and seed vectors and launching no warm-up; 11c
+    four ``moments`` jobs, NETFLIX_HIGH and EAGLET at once, each ≡ its
+    seed alone on the same service (and the paper workloads ≡ steps
+    4c/4b), launches ≡ the service's dispatches, under
+    ``torch.profiler``; 11d an early-stopped ``moments`` job and a
+    cancelled one beside a peer that stays ≡ step 4; 11e ``close()``
+    frees the card.  Returns each kernel's launches over 11a–11d."""
+    import gc
+
+    from repro_torch.platform import PlatformService
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    svc = PlatformService(_spec(samples))
+    try:
+        launches = _service_steps(ops, prng, ss, svc, samples, months, eaglet,
+                                  step4, waved)
+    finally:
+        svc.close()
+
+    # 11e — the card back: the handles (and their arenas) went with the
+    # steps' frame
+    del svc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    print(f"11e: memory_allocated {mem_before} bytes before phase 11, "
+          f"{mem_after} after close() and the handles dropped")
+    if abs(mem_after - mem_before) > SVC_MEMORY_SLACK:
+        raise AssertionError(f"11e: {mem_after - mem_before} bytes still "
+                             "allocated after the service closed")
+    return launches
+
+
+def _service_steps(ops, prng, ss, svc, samples, months, eaglet, step4,
+                   waved):
+    """11a–11d on ``svc``; returns each kernel's launches over them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.platform import MOMENTS, ApproxOptions, CancelledError
+
+    card = _card_line()
+    e_samples, e_months = eaglet
+    launches = dict.fromkeys(SVC_KERNELS, 0)
+    netflix = svc.register_dataset(samples, months, name="netflix")
+    eag = svc.register_dataset(e_samples, e_months, name="eaglet",
+                               knee_bytes=_spec(e_samples).knee_bytes)
+
+    # 11a — the first moments query builds the class (a ticket's latency
+    # runs from the ticket, which submit() makes once the class is built:
+    # the host wall around submit and result holds the build too)
+    with _ServiceStep(ops, prng, "11a") as step:
+        t0 = time.perf_counter()
+        first = svc.submit(netflix, MOMENTS, seed=0)
+        res = first.result(timeout=600)
+        wall = time.perf_counter() - t0
+    _assert_bitwise(step4["result"], res, "11a: the service's first query")
+    n_tasks = first.n_tasks
+    (mqc,) = netflix._classes.values()
+    print(f"11a: moments seed 0 bit for bit equal to step 4; submit to "
+          f"result {wall!r} s (the class's plan, arena pack and upload and "
+          f"warm-up, then the job), the ticket's latency {first.latency!r} "
+          f"s, against step 4's run() wall {step4['wall']!r} s; "
+          f"bytes_uploaded {first.bytes_uploaded!r} (arena "
+          f"{mqc.arena_bytes!r}), subsample_stats launches "
+          f"{step.launches['subsample_stats']} ({first.device_dispatches} "
+          f"waves + {step4['warm_ups']} warm-ups) ({card})")
+    if (step.launches["subsample_stats"]
+            != first.device_dispatches + step4["warm_ups"]
+            or first.bytes_uploaded != mqc.arena_bytes + 8.0 * n_tasks):
+        raise AssertionError("11a: launches or bytes off")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+
+    # 11b — the same query again, three times: the class is cached.  Each
+    # wave's host span (the class's wave call, as the service times it) is
+    # recorded, so a repeat's latency splits into its waves and the rest
+    spans = []
+    run = mqc.wave_ctx.run
+
+    def timed_run(tasks, seeds):
+        t_wave = time.perf_counter()
+        values = run(tasks, seeds)
+        spans.append((t_wave, time.perf_counter()))
+        return values
+
+    mqc.wave_ctx.run = timed_run
+    with _ServiceStep(ops, prng, "11b") as step:
+        repeats = []
+        for _ in range(SVC_REPEATS):
+            del spans[:]
+            t0 = time.perf_counter()
+            again = svc.submit(netflix, MOMENTS, seed=0)
+            res = again.result(timeout=600)
+            t1 = time.perf_counter()
+            waves_s = sorted(b - a for a, b in spans)
+            repeats.append((t1 - t0, again, {
+                "waves": len(spans), "wave_s_median":
+                waves_s[len(waves_s) // 2], "wave_s_max": waves_s[-1],
+                "first_wave_after_submit_s": min(a for a, _ in spans) - t0,
+                "waves_span_s": max(b for _, b in spans) - min(
+                    a for a, _ in spans),
+                "result_after_last_wave_s": t1 - max(b for _, b in spans)}))
+            _assert_bitwise(step4["result"], res, "11b: the repeated query")
+    mqc.wave_ctx.run = run
+    drain = _reduce_drain_s(n_tasks, step4["n_cols"])
+    waves = sum(t.device_dispatches for _, t, _ in repeats)
+    print(f"11b: {SVC_REPEATS} repeats, each bit for bit; submit to result "
+          f"{[w for w, _, _ in repeats]!r} s, ticket latencies "
+          f"{[t.latency for _, t, _ in repeats]!r} s, against step 4's "
+          f"set-up {step4['setup']!r} s + makespan {step4['makespan']!r} s; "
+          f"where a repeat's time goes (host): "
+          f"{json.dumps([split for _, _, split in repeats])}; a reduce "
+          f"tree's drain of {n_tasks} such leaves offered at once, host s "
+          f"{json.dumps(drain)}; bytes_uploaded {[t.bytes_uploaded for _, t, _ in repeats]} (8 a "
+          f"task), subsample_stats launches "
+          f"{step.launches['subsample_stats']} for {waves} waves ({card})")
+    if (any(t.bytes_uploaded != 8.0 * n_tasks for _, t, _ in repeats)
+            or step.launches["subsample_stats"] != waves):
+        raise AssertionError("11b: a repeat uploaded an arena or "
+                             "launched a warm-up")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+
+    # 11c — six jobs at once, each against its seed alone
+    jobs = ([("moments", netflix, MOMENTS, s) for s in (1, 2, 3, 4)]
+            + [("NETFLIX_HIGH", netflix, ss.NETFLIX_HIGH, 0),
+               ("EAGLET", eag, ss.EAGLET, 0)])
+    alone = {}
+    for label, handle, wl, seed in jobs:
+        ticket = svc.submit(handle, wl, seed=seed)
+        alone[label, seed] = ticket.result(timeout=600)
+        print(f"11c alone: {label} seed {seed}: latency "
+              f"{ticket.latency!r} s, {ticket.device_dispatches} waves, "
+              f"bytes_uploaded {ticket.bytes_uploaded!r}")
+    for name in ("NETFLIX_HIGH", "EAGLET"):
+        _assert_bitwise(waved[name].result, alone[name, 0],
+                        f"11c: {name} against its Platform.run")
+    before = svc.stats()
+    with _ServiceStep(ops, prng, "11c") as step:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tickets = [(label, seed, svc.submit(handle, wl, seed=seed))
+                       for label, handle, wl, seed in jobs]
+            got = [t.result(timeout=600) for _, _, t in tickets]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    after = svc.stats()
+    for (label, seed, _), result in zip(tickets, got):
+        _assert_bitwise(alone[label, seed], result,
+                        f"11c: {label} seed {seed} beside five others")
+    dispatched = after["device_dispatches"] - before["device_dispatches"]
+    fused = after["fused_dispatches"] - before["fused_dispatches"]
+    sizes = list(after["wave_sizes"])[len(before["wave_sizes"]):]
+    window_ms, busy_ms, by_kind = _execute_window(
+        prof, "platform kernels", ("subsample_stats", "grid_partial_kernel",
+                                   "sum_samples_kernel"))
+    one_shot = (4 * (step4["setup"] + step4["makespan"])
+                + sum(sum(waved[name].phases.get(p, 0.0) for p in (
+                    "plan", "distribute", "compile"))
+                      + waved[name].makespan
+                      for name in ("NETFLIX_HIGH", "EAGLET")))
+    print(f"11c: six jobs at once, each bit for bit its seed alone; wall "
+          f"{wall!r} s (under the profiler) against {one_shot!r} s for "
+          f"six one-shot jobs with their set-ups; {dispatched} "
+          f"dispatches, {fused} fused ({fused / max(dispatched, 1)!r}), "
+          f"wave_sizes {sizes}; launches {json.dumps(step.launches)}; "
+          f"execute window {window_ms!r} ms, device busy {busy_ms!r} ms "
+          f"(share {busy_ms / window_ms!r}), device ms by kind "
+          f"{json.dumps(by_kind)} ({card})")
+    for label, seed, t in tickets:
+        print(f"11c {label} seed {seed}: {t.n_tasks} tasks, latency "
+              f"{t.latency!r} s, queue wait {t.queue_wait!r} s, "
+              f"{t.device_dispatches} waves")
+    if step.total() != dispatched:
+        raise AssertionError(f"11c: {step.total()} launches for "
+                             f"{dispatched} dispatches")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+
+    # 11d — early stop and cancel beside a peer
+    with _ServiceStep(ops, prng, "11d") as step:
+        peer = svc.submit(netflix, MOMENTS, seed=0)
+        eps = svc.submit(netflix, MOMENTS, seed=5, approx=ApproxOptions(
+            epsilon=SVC_EPSILON, min_tasks=SVC_MIN_TASKS))
+        victim = svc.submit(netflix, MOMENTS, seed=6)
+        deadline = time.monotonic() + 120
+        while victim.progress()[0] == 0 and time.monotonic() < deadline:
+            time.sleep(1e-3)
+        at_cancel = victim.progress()[0]
+        cancelled = svc.cancel(victim)
+        res = peer.result(timeout=600)
+        eps.result(timeout=600)
+        try:
+            victim.result(timeout=60)
+        except CancelledError:
+            pass
+        else:
+            raise AssertionError("11d: the cancelled job gave a result")
+    _assert_bitwise(step4["result"], res, "11d: the peer")
+    print(f"11d: the peer bit for bit equal to step 4; early stop: "
+          f"{eps.tasks_executed} of {eps.n_tasks} tasks executed, "
+          f"{eps.tasks_cancelled} cancelled, {eps.stop_reason!r}, final "
+          f"CI half-width {eps.final_ci['half_width']!r} over "
+          f"{eps.final_ci['tasks_in']} tasks; cancelled job: "
+          f"{at_cancel} of {victim.n_tasks} leaves in at the cancel, "
+          f"status {victim.status!r}; "
+          f"launches {json.dumps(step.launches)}")
+    if not (eps.tasks_executed < eps.n_tasks and eps.tasks_cancelled
+            and "converged" in (eps.stop_reason or "")):
+        raise AssertionError("11d: the epsilon job did not stop early")
+    if (not cancelled or victim.status != "cancelled"
+            or not 0 < at_cancel < victim.n_tasks):
+        raise AssertionError("11d: the job was not cancelled mid-run")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+    return launches
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -2302,7 +2618,9 @@ def main() -> None:
           f"phases {per.phases}, device_dispatches {per.device_dispatches}; "
           f"bit-identical to the wave run ({time.perf_counter() - t0!r} s)")
     step4 = {"result": wave.result, "makespan": wave.makespan,
-             "warm_ups": warm_ups, "n_cols": n_cols}
+             "warm_ups": warm_ups, "n_cols": n_cols, "wall": wall,
+             "setup": sum(wave.phases.get(p, 0.0)
+                          for p in ("plan", "distribute", "compile"))}
     del wave, per
 
     # phase 3f — subsample_grid on real blocks of the paper's datasets;
@@ -2328,6 +2646,12 @@ def main() -> None:
     data_plane_and_recovery(ops, prng, Platform, ss, samples, months, eaglet,
                             step4, waved)
     print(f"phase 10: {time.perf_counter() - t0!r} s")
+
+    # phase 11 — the multi-tenant service on the same datasets
+    t0 = time.perf_counter()
+    svc_launches = service_on_the_card(ops, prng, ss, samples, months, eaglet,
+                                       step4, waved)
+    print(f"phase 11: {time.perf_counter() - t0!r} s")
     del samples, months, eaglet, waved
     torch.cuda.empty_cache()
 
@@ -2368,7 +2692,8 @@ def main() -> None:
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:138",
-        "launches": launches, "library_ms": None, **timing}, {
+        "launches": launches, "library_ms": None,
+        "service_launches": svc_launches["subsample_stats"], **timing}, {
         "name": "rwkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:69",
@@ -2389,7 +2714,8 @@ def main() -> None:
         "name": "subsample_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_grid.cu",
         "replaces": "src/repro/core/subsample.py:53",
-        "launches": grid_launches, "library_ms": None, **grid_timing}]}))
+        "launches": grid_launches, "library_ms": None,
+        "service_launches": svc_launches["subsample_grid"], **grid_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,11 @@ Netflix workloads (``repro_torch.core.subsample``) through
 ``subsample_grid``.  A job can take a replicated datastore with balanced
 scheduling and prefetch (:class:`~repro_torch.core.datastore.ReplicatedDataStore`),
 a seeded fault plan (:mod:`repro_torch.platform.faults`) and
-checkpoint/resume; the multi-tenant service and sharded waves come in
-later slices.
+checkpoint/resume.  The multi-tenant service
+(:class:`PlatformService`, :mod:`repro_torch.platform.service`) registers
+datasets once, keeps one device-resident arena a query class and fuses
+waves of several jobs into one launch.  Sharded waves (``mesh_devices``)
+come in a later slice and raise.
 """
 
 from repro_torch.core.blockcache import CacheOptions
@@ -27,6 +30,16 @@ from repro_torch.platform.driver import (
     WaveOptions,
 )
 from repro_torch.platform.monitor import MonitorOptions
+from repro_torch.platform.service import (
+    AdmissionError,
+    AdmissionPolicy,
+    CancelledError,
+    DatasetHandle,
+    JobTicket,
+    PartialEstimate,
+    PlatformService,
+    QueryClass,
+)
 from repro_torch.platform.telemetry import TelemetryConfig
 
 __all__ = [
@@ -43,4 +56,13 @@ __all__ = [
     "CacheOptions",
     "MonitorOptions",
     "TelemetryConfig",
+    # multi-tenant service
+    "PlatformService",
+    "AdmissionPolicy",
+    "DatasetHandle",
+    "JobTicket",
+    "PartialEstimate",
+    "AdmissionError",
+    "CancelledError",
+    "QueryClass",
 ]

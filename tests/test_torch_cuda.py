@@ -1217,3 +1217,45 @@ def test_resume_is_bitwise_on_the_card(cuda, engine, tmp_path):
                               np.asarray(rep.result[key])), key
     assert rep.tasks_restored == len(restored)
     assert sum(rep.wave_sizes) == plain.n_tasks - len(restored)
+
+
+# -- the multi-tenant service on the card
+
+
+@pytest.mark.cuda
+def test_service_fused_waves_equal_jobs_alone_on_the_card(cuda):
+    """Two ``moments`` jobs and two NETFLIX_LOW jobs submitted together
+    ride fused waves (one launch carrying tasks of several jobs, each
+    drawing from its own job's seed), and each equals the same job
+    submitted alone to the same service bit for bit; the kernels launch
+    once a dispatch."""
+    from repro_torch.core import subsample as ss
+    from repro_torch.platform import MOMENTS, PlatformService, PlatformSpec
+    from repro_torch.platform import WaveOptions
+
+    samples, months, _, knee = _platform_job("kernel")
+    # one worker and waves wider than a job: the first claim of each
+    # query class fills its job's run of tasks with the peer's
+    spec = PlatformSpec(platform="BTS", n_workers=1, knee_bytes=knee,
+                        waves=WaveOptions(wave="on", max_wave=16))
+    jobs = [(wl, seed) for wl in (MOMENTS, ss.NETFLIX_LOW) for seed in (1, 2)]
+    kernels = ("subsample_stats", "subsample_grid")
+    with PlatformService(spec) as svc:
+        handle = svc.register_dataset(samples, months)
+        alone = {(wl.name, seed): svc.submit(handle, wl, seed=seed).result(
+            timeout=300) for wl, seed in jobs}
+        before = svc.stats()
+        launched = sum(ops.launch_count(k) for k in kernels)
+        with svc._pool._cond:       # every job queued before the first claim
+            tickets = {(wl.name, seed): svc.submit(handle, wl, seed=seed)
+                       for wl, seed in jobs}
+        got = {key: t.result(timeout=300) for key, t in tickets.items()}
+        torch.cuda.synchronize()
+        after = svc.stats()
+        launched = sum(ops.launch_count(k) for k in kernels) - launched
+    assert after["fused_dispatches"] - before["fused_dispatches"] >= 2
+    assert launched == after["device_dispatches"] - before["device_dispatches"]
+    for key, result in got.items():
+        for name in result:
+            assert np.array_equal(np.asarray(alone[key][name]),
+                                  np.asarray(result[name])), (key, name)

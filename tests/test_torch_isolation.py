@@ -13,7 +13,7 @@ import torch
 from repro_torch.config import get_config
 from repro_torch.launch import serve
 from repro_torch.models import Model
-from repro_torch.platform import Platform, PlatformSpec
+from repro_torch.platform import Platform, PlatformService, PlatformSpec
 from repro_torch.platform import compute as pc
 from repro_torch.serving import ServingEngine
 
@@ -39,6 +39,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.configs.recurrentgemma_2b\n"
         "import repro_torch.core.datastore, repro_torch.core.tiny_task\n"
         "import repro_torch.platform.faults, repro_torch.checkpoint\n"
+        "import repro_torch.platform.service\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
@@ -64,6 +65,8 @@ def test_default_device_without_a_card_raises():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Platform(PlatformSpec())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PlatformService(PlatformSpec())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pc.BlockArena(device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
