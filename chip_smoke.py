@@ -130,6 +130,26 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    ``moments`` job early (epsilon 0.5) and cancels another mid-run beside
    a peer that stays equal to step 4; 11e closes the service and checks
    that the card's allocated memory is back within 64 MB.
+12. After phase 11, on the same datasets: sharded waves
+   (``mesh_devices``), each step's launches counted from 0 and no index
+   drawn on the host.  12a step 4's spec at ``mesh_devices=1`` ≡ step 4
+   bit for bit, one launch a wave (plus the warm-ups), its waves and its
+   set-up and makespan beside step 4's and beside the unsharded job's
+   rerun just after it (two workers cut a job's tail into waves by
+   timing, so the counts may differ by a wave); 12b NETFLIX_HIGH
+   (waved) and EAGLET at ``mesh_devices=1`` ≡ steps 4c and 4b; 12c below
+   the driver, a ``ShardedBlockArena`` over a mesh of four streams of the
+   one card holding step 4's plan and the catalogue's NETFLIX_HIGH plan:
+   its physical layout checked on the card, every wave of the plan
+   through ``run_map_wave_sharded`` ≡ ``run_map_wave`` bit for bit with
+   one launch an occupied entry, then the waves again under
+   ``torch.profiler`` (host ms, device ms and whether the streams'
+   kernels overlapped, a wave); 12d the service at ``mesh_devices=1`` ≡
+   11a; 12e ``mesh_devices=2`` raises ``ValueError`` on a machine with
+   one card (with two or more, 12a runs at mesh 2); 12f the elastic
+   pool's simulated session (``launch.elastic.demo_elastic_run``), its
+   reports printed.  The kernel table gives each platform kernel's
+   ``sharded_launches`` over 12a–12d.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -1316,12 +1336,13 @@ def _netflix(n_movies: int):
 
 
 def _spec(samples, *, wave="on", backend="threaded", device="cuda",
-          knee_count=64, **kw):
+          knee_count=64, mesh_devices=None, **kw):
     from repro_torch.platform import PlatformSpec, WaveOptions
 
     mean_bytes = float(np.mean([a.nbytes for a in samples.values()]))
     return PlatformSpec(platform="BTS", n_workers=2, backend=backend,
-                        waves=WaveOptions(wave=wave, max_wave=16),
+                        waves=WaveOptions(wave=wave, max_wave=16,
+                                          mesh_devices=mesh_devices),
                         knee_bytes=knee_count * mean_bytes, device=device,
                         **kw)
 
@@ -2515,6 +2536,300 @@ def _service_steps(ops, prng, ss, svc, samples, months, eaglet, step4,
     return launches
 
 
+# phase 12 — sharded waves (mesh_devices) and the elastic pool
+
+MESH_STREAMS = 4         # 12c: entries of one card in the wave mesh
+
+
+def _setup_s(rep):
+    """A job's set-up: its plan, distribute and compile phases."""
+    return sum(rep.phases.get(p, 0.0)
+               for p in ("plan", "distribute", "compile"))
+
+
+def _plan_waves(plan, max_wave=16, n_exec=2):
+    """The waves ``build_wave_context`` cuts a plan into when one worker
+    claims at a time: each shape bucket in FIFO runs of its claim cap."""
+    from repro_torch.platform import compute as pc
+
+    by_key = {}
+    for task in plan.tasks:
+        by_key.setdefault(plan.task_shape(task), []).append(task)
+    waves = []
+    for group in by_key.values():
+        cap = pc.pow2_ceil(min(max_wave, -(-len(group) // n_exec)))
+        waves += [group[i:i + cap] for i in range(0, len(group), cap)]
+    return waves
+
+
+def _check_sharded_layout(sharded, plain, plan, label):
+    """Each task's block on its entry at its local row is the plain
+    arena's block of that task, and each tail row holds the block of
+    logical slot ``unshard_slot(dev, local) % b`` (compared on the
+    card)."""
+    from repro_torch.platform import compute as pc
+
+    by_key = {}
+    for task in plan.tasks:
+        by_key.setdefault(plan.task_shape(task), []).append(task)
+    checked = 0
+    for key, group in by_key.items():
+        shards, shard_months = sharded.bucket(key)
+        data, months = plain.bucket(key)
+        per_dev = sharded._per_dev[key]
+        for dev in range(sharded.n_dev):
+            for local in range(per_dev):
+                task = group[pc.unshard_slot(dev, local, sharded.n_dev)
+                             % len(group)]
+                _, row = plain._slot[task.task_id]
+                same = torch.equal(shards[dev][local], data[row]) and (
+                    months is None
+                    or torch.equal(shard_months[dev][local], months[row]))
+                if not same:
+                    raise AssertionError(f"12c {label}: entry {dev} row "
+                                         f"{local} is not task "
+                                         f"{task.task_id}'s block")
+                checked += 1
+    return checked
+
+
+def _profiled_waves(prof, kernel_names, occupied):
+    """Per wave of a profiled run of sharded waves: the device ms of its
+    kernels (summed) and whether two of its launches ran at once (two
+    streams overlapping).  ``kernel_names[0]`` is the device function a
+    launch runs once; the kernels from a wave's first such function to
+    the next wave's are the wave's.  The trace may start with a warm-up
+    wave (its kernels, before the waves', are left out): the profiler can
+    miss the first kernels after it starts."""
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and any(k in e.name for k in kernel_names))
+    firsts = [k for k in kernels if kernel_names[0] in k[2]]
+    if len(firsts) < sum(occupied):
+        raise AssertionError(f"12c: the profiler saw {len(firsts)} "
+                             f"{kernel_names[0]} kernels for "
+                             f"{sum(occupied)} launches")
+    firsts = firsts[len(firsts) - sum(occupied):]
+    starts = np.cumsum([0] + list(occupied))
+    out = []
+    for k in range(len(occupied)):
+        mine = firsts[starts[k]:starts[k + 1]]
+        lo = mine[0][0]
+        hi = firsts[starts[k + 1]][0] if k + 1 < len(occupied) else np.inf
+        device_ms = sum(e - s for s, e, _ in kernels if lo <= s < hi) / 1e3
+        overlap = any(mine[j][0] < max(m[1] for m in mine[:j])
+                      for j in range(1, len(mine)))
+        out.append((device_ms, overlap))
+    return out
+
+
+def sharded_below_the_driver(ops, ss, samples, months, spec):
+    """12c: a ``ShardedBlockArena`` over a wave mesh of four streams on
+    one card, holding step 4's plan (``moments``) and the catalogue's
+    NETFLIX_HIGH plan: every wave of the plan through
+    ``run_map_wave_sharded`` ≡ ``run_map_wave`` on a plain arena bit for
+    bit, one launch an occupied entry, the physical layout checked on the
+    card; then the same waves again under ``torch.profiler``.  Returns
+    each kernel's launches in the compared runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import WaveMesh
+    from repro_torch.platform import MOMENTS
+    from repro_torch.platform import compute as pc
+    from repro_torch.platform.driver import plan_job
+
+    mesh = WaveMesh((torch.device("cuda", 0),) * MESH_STREAMS)
+    card = _card_line()
+    launches = dict.fromkeys(SVC_KERNELS, 0)
+    for label, wl, engine, kernel, names in (
+            ("moments", MOMENTS, "kernel", "subsample_stats",
+             ("subsample_stats",)),
+            ("NETFLIX_HIGH", ss.NETFLIX_HIGH, "torch", "subsample_grid",
+             ("grid_partial_kernel", "sum_samples_kernel"))):
+        t0 = time.perf_counter()
+        plan = plan_job(samples, months, wl, sizing="kneepoint",
+                        engine=engine, n_exec=2, knee_bytes=spec.knee_bytes)
+        with_months = engine == "torch"
+        sharded = pc.ShardedBlockArena.pack(plan.tasks, plan.task_shape,
+                                            plan.build_block, mesh,
+                                            with_months=with_months)
+        t_sharded = time.perf_counter() - t0
+        plain = pc.BlockArena.pack(plan.tasks, plan.task_shape,
+                                   plan.build_block,
+                                   with_months=with_months,
+                                   device=mesh.devices[0])
+        torch.cuda.synchronize()
+        rows = _check_sharded_layout(sharded, plain, plan, label)
+        waves = _plan_waves(plan)
+        seeded = [(w, np.asarray([spec.seed + t.task_id for t in w],
+                                 np.int32)) for w in waves]
+        occupied, host_ms = [], []
+        for wave, seeds in seeded:
+            want = pc.run_map_wave(plain, wave, seeds, wl, engine)
+            torch.cuda.synchronize()
+            ops.reset_launch_count()
+            got = pc.run_map_wave_sharded(sharded, wave, seeds, wl, engine)
+            n = ops.launch_count(kernel)
+            occupied.append(len(set(sharded.dev_slots(wave)[1].tolist())))
+            if n != occupied[-1]:
+                raise AssertionError(f"12c {label}: {n} launches for "
+                                     f"{occupied[-1]} occupied entries")
+            launches[kernel] += n
+            for w, g in zip(want, got, strict=True):
+                _assert_bitwise(w, g, f"12c {label}: sharded vs unsharded "
+                                "wave")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pc.run_map_wave_sharded(sharded, *seeded[0], wl, engine)
+            torch.cuda.synchronize()
+            for wave, seeds in seeded:
+                t_wave = time.perf_counter()
+                pc.run_map_wave_sharded(sharded, wave, seeds, wl, engine)
+                host_ms.append((time.perf_counter() - t_wave) * 1e3)
+            torch.cuda.synchronize()
+        per_wave = _profiled_waves(prof, names, occupied)
+        overlapped = sum(1 for _, o in per_wave if o)
+        print(f"12c {label}: {len(plan.tasks)} tasks over {MESH_STREAMS} "
+              f"streams of cuda:0, per entry "
+              f"{sorted(sharded._per_dev.values())} rows a bucket; sharded "
+              f"pack {t_sharded!r} s; layout checked on {rows} rows; "
+              f"{len(waves)} waves, each bit for bit the unsharded wave, "
+              f"{sum(occupied)} launches = occupied entries "
+              f"{occupied}; profiled: host ms a wave "
+              f"{json.dumps(host_ms)}, device ms a wave "
+              f"{json.dumps([d for d, _ in per_wave])}, waves whose streams' "
+              f"kernels overlapped {overlapped} of {len(per_wave)} ({card})")
+        del sharded, plain, seeded
+        torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_waves_on_the_card(ops, prng, ss, Platform, samples, months,
+                              eaglet, step4, waved):
+    """Phase 12: sharded waves on the card.  12a step 4's spec at
+    ``mesh_devices=1`` ≡ step 4 (launches ≡ waves + warm-ups, every task
+    in one wave of at most 16), beside the unsharded job rerun; 12b
+    NETFLIX_HIGH and EAGLET at ``mesh_devices=1`` ≡ steps 4c and 4b;
+    12c four streams on one card below the driver; 12d the service at
+    ``mesh_devices=1`` ≡ 11a; 12e a mesh of more cards than
+    the machine has raises (or, with two cards or more, 12a at mesh 2);
+    12f the elastic pool's demo session.  Each step's launches are
+    counted from 0; returns each kernel's launches over 12a–12d."""
+    from repro_torch.launch.elastic import demo_elastic_run
+    from repro_torch.platform import MOMENTS, PlatformService
+    from repro_torch.platform import compute as pc
+
+    card = _card_line()
+    launches = dict.fromkeys(SVC_KERNELS, 0)
+
+    # 12a — the main path on a 1-device mesh
+    spec = _spec(samples, mesh_devices=1)
+    with _ServiceStep(ops, prng, "12a") as step:
+        rep = Platform(spec).run(samples, months, MOMENTS)
+    _assert_bitwise(step4["result"], rep.result, "12a: mesh 1 vs step 4")
+    n = step.launches["subsample_stats"]
+    print(f"12a: moments at mesh_devices=1 bit for bit equal to step 4; "
+          f"{rep.device_dispatches} waves (step 4: {step4['dispatches']}), "
+          f"subsample_stats launches {n} ({len(rep.wave_sizes)} waves + "
+          f"{step4['warm_ups']} warm-ups); set-up {_setup_s(rep)!r} s, "
+          f"makespan {rep.makespan!r} s, against step 4's set-up "
+          f"{step4['setup']!r} s, makespan {step4['makespan']!r} s ({card})")
+    # two workers cut a job's tail into waves by timing (step 4's own
+    # reruns take 18 or 19 waves), so the waves are held to the
+    # partition's rules here, and equal dispatches at every mesh size
+    # with one worker (tests/test_torch_sharded.py, the card tests)
+    if (n != len(rep.wave_sizes) + step4["warm_ups"]
+            or sum(rep.wave_sizes) != rep.n_tasks
+            or max(rep.wave_sizes) > 16):
+        raise AssertionError("12a: waves or launches off")
+    # the unsharded job again at this point of the process, so that
+    # mesh 1 is compared with a job run as late as itself
+    again = Platform(_spec(samples)).run(samples, months, MOMENTS)
+    _assert_bitwise(step4["result"], again.result, "12a: unsharded rerun")
+    print(f"12a: the unsharded job rerun just after: set-up "
+          f"{_setup_s(again)!r} s, makespan {again.makespan!r} s, "
+          f"{again.device_dispatches} waves ({card})")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+
+    # 12b — the paper's workloads on a 1-device mesh
+    e_samples, e_months = eaglet
+    for label, (smp, mo), wl in (
+            ("NETFLIX_HIGH", (samples, months), ss.NETFLIX_HIGH),
+            ("EAGLET", (e_samples, e_months), ss.EAGLET)):
+        with _ServiceStep(ops, prng, "12b") as step:
+            rep, _ = grid_job(ops, Platform, f"12b {label}", smp, mo, wl,
+                              wave="on", spec_kw={"mesh_devices": 1})
+        _assert_bitwise(waved[label].result, rep.result,
+                        f"12b: {label} at mesh 1 vs step 4c/4b")
+        print(f"12b: {label} at mesh_devices=1 bit for bit equal to its "
+              f"step 4c/4b run; {rep.device_dispatches} waves (then "
+              f"{waved[label].device_dispatches}), makespan "
+              f"{rep.makespan!r} s (then {waved[label].makespan!r} s)")
+        for k in SVC_KERNELS:
+            launches[k] += step.launches[k]
+
+    # 12c — four streams on one card, below the driver
+    with _ServiceStep(ops, prng, "12c"):
+        below = sharded_below_the_driver(ops, ss, samples, months,
+                                         _spec(samples))
+    for k in SVC_KERNELS:
+        launches[k] += below[k]
+
+    # 12d — the service on a 1-device mesh
+    with _ServiceStep(ops, prng, "12d") as step:
+        with PlatformService(_spec(samples, mesh_devices=1)) as svc:
+            handle = svc.register_dataset(samples, months, name="netflix")
+            ticket = svc.submit(handle, MOMENTS, seed=0)
+            res = ticket.result(timeout=600)
+            (qc,) = handle._classes.values()
+            if not isinstance(qc.wave_ctx.arena, pc.ShardedBlockArena):
+                raise AssertionError("12d: the class's arena is not sharded")
+            del handle, qc
+    _assert_bitwise(step4["result"], res, "12d: the service at mesh 1")
+    print(f"12d: the service at mesh_devices=1 bit for bit equal to 11a "
+          f"(step 4); {ticket.device_dispatches} waves, subsample_stats "
+          f"launches {step.launches['subsample_stats']}, ticket latency "
+          f"{ticket.latency!r} s")
+    if step.launches["subsample_stats"] != (ticket.device_dispatches
+                                             + step4["warm_ups"]):
+        raise AssertionError("12d: launches off")
+    for k in SVC_KERNELS:
+        launches[k] += step.launches[k]
+
+    # 12e — more cards than the machine has
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        few = {i: samples[i] for i in range(64)}
+        try:
+            Platform(_spec(few, mesh_devices=2)).run(
+                few, {i: months[i] for i in few}, MOMENTS)
+        except ValueError as err:
+            print(f"12e: {n_cards} card(s); mesh_devices=2 raised "
+                  f"ValueError: {err}")
+        else:
+            raise AssertionError("12e: mesh_devices=2 ran on one card")
+    else:
+        rep = Platform(_spec(samples, mesh_devices=2)).run(samples, months,
+                                                           MOMENTS)
+        _assert_bitwise(step4["result"], rep.result, "12e: mesh 2")
+        print(f"12e: {n_cards} cards; moments at mesh_devices=2 bit for "
+              f"bit equal to step 4, makespan {rep.makespan!r} s")
+
+    # 12f — the elastic pool's simulated session, on the card's host
+    out = demo_elastic_run([1e8, 1e9, 1e8], slo_seconds=30.0)
+    print("12f: elastic demo reports " + json.dumps(out["reports"])
+          + "; events " + json.dumps([[e.action, e.size, e.reason]
+                                      for e in out["events"]]))
+    if (not all(r["met_slo"] for r in out["reports"])
+            or out["reports"][1]["restarts"] < 1):
+        raise AssertionError("12f: the elastic session missed an SLO or "
+                             "did not restart")
+    return launches
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -2619,6 +2934,7 @@ def main() -> None:
           f"bit-identical to the wave run ({time.perf_counter() - t0!r} s)")
     step4 = {"result": wave.result, "makespan": wave.makespan,
              "warm_ups": warm_ups, "n_cols": n_cols, "wall": wall,
+             "dispatches": wave.device_dispatches,
              "setup": sum(wave.phases.get(p, 0.0)
                           for p in ("plan", "distribute", "compile"))}
     del wave, per
@@ -2652,6 +2968,12 @@ def main() -> None:
     svc_launches = service_on_the_card(ops, prng, ss, samples, months, eaglet,
                                        step4, waved)
     print(f"phase 11: {time.perf_counter() - t0!r} s")
+
+    # phase 12 — sharded waves and the elastic pool, on the same datasets
+    t0 = time.perf_counter()
+    sharded_launches = sharded_waves_on_the_card(
+        ops, prng, ss, Platform, samples, months, eaglet, step4, waved)
+    print(f"phase 12: {time.perf_counter() - t0!r} s")
     del samples, months, eaglet, waved
     torch.cuda.empty_cache()
 
@@ -2693,7 +3015,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:138",
         "launches": launches, "library_ms": None,
-        "service_launches": svc_launches["subsample_stats"], **timing}, {
+        "service_launches": svc_launches["subsample_stats"],
+        "sharded_launches": sharded_launches["subsample_stats"], **timing}, {
         "name": "rwkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:69",
@@ -2715,7 +3038,9 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/subsample_grid.cu",
         "replaces": "src/repro/core/subsample.py:53",
         "launches": grid_launches, "library_ms": None,
-        "service_launches": svc_launches["subsample_grid"], **grid_timing}]}))
+        "service_launches": svc_launches["subsample_grid"],
+        "sharded_launches": sharded_launches["subsample_grid"],
+        **grid_timing}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,2 +1,4 @@
-"""Parameter definitions for one card (the reference's logical-axis
-sharding rules wait for the multi-card slices)."""
+"""Parameter definitions for one card, and the wave mesh's placement
+(:func:`~repro_torch.parallel.sharding.wave_sharding`) and host gather
+(:func:`~repro_torch.parallel.collectives.gather_shards`); the reference's
+logical-axis sharding rules wait for the port's training loop."""

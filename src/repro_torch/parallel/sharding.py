@@ -1,16 +1,22 @@
-"""Parameter definitions, reduced to what a single card needs.
+"""Parameter definitions, and the wave mesh's placement.
 
 A tree of :class:`ParamDef` describes every parameter and cache leaf of a
 model: shape, logical axis names, dtype and initializer, as in the
 reference's ``repro.parallel.sharding``.  The logical names are kept so
 that the trees compare one to one with the reference's; the mesh rules
-that map them onto devices wait for the multi-card slices.
+that map them onto devices wait for the port's training loop.
+
+:func:`wave_sharding` is the platform's placement over a wave mesh
+(``repro_torch.launch.mesh``): the reference's ``NamedSharding(mesh,
+P("wave"))``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -67,3 +73,29 @@ def init_params(defs, dtype: torch.dtype, device: torch.device,
 def tree_shapes(tree) -> Any:
     """The shape of every leaf (a ParamDef's or a tensor's) as a tuple."""
     return tree_map(lambda x: tuple(x.shape), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveSharding:
+    """A leading axis split over a wave mesh: a device-major ``[n_dev *
+    per_dev, ...]`` array becomes ``n_dev`` contiguous blocks, block ``d``
+    one tensor on the mesh's entry ``d``."""
+
+    mesh: Any
+
+    def place(self, array: np.ndarray) -> List[torch.Tensor]:
+        n_dev = self.mesh.n_dev
+        if array.shape[0] % n_dev:
+            raise ValueError(f"a leading axis of {array.shape[0]} does not "
+                             f"split over {n_dev} devices")
+        per_dev = array.shape[0] // n_dev
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        return [host[d * per_dev:(d + 1) * per_dev].to(device)
+                for d, device in enumerate(self.mesh.devices)]
+
+
+def wave_sharding(mesh) -> WaveSharding:
+    """Leading-axis placement over the platform's wave mesh
+    (``launch.mesh.make_wave_mesh``): the arena's task axis — one
+    contiguous block a device."""
+    return WaveSharding(mesh)

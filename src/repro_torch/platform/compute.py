@@ -35,10 +35,21 @@ from its seed itself (jax's exact threefry draws).  Per-task
 accumulation order is independent of the wave partition and of the
 slot, so wave and per-task execution are bit-identical for a fixed
 seed.
+
+Sharded wave execution: :class:`ShardedBlockArena` partitions each shape
+bucket over a wave mesh (``repro_torch.launch.mesh``: a list of devices,
+one CUDA stream an entry) with the reference's interleaved
+slot→(device, local-slot) placement (:func:`shard_slot`);
+:func:`run_map_wave_sharded` splits a wave into each entry's lanes,
+launches the unsharded wave's kernel over them on every entry's stream,
+then gathers the partials on the host in mesh order.  A task's partial
+depends only on its block and seed, so sharded results are bit-identical
+to the unsharded wave's at every mesh size.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Any, Callable, Dict, List, MutableSequence, Optional, Sequence, Tuple
@@ -49,6 +60,8 @@ import torch
 from repro_torch.core import subsample as ss
 from repro_torch.device import check_device
 from repro_torch.kernels import ops
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import wave_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +274,123 @@ class BlockArena:
 
 
 # ---------------------------------------------------------------------------
+# Sharded block arena (multi-device wave execution)
+# ---------------------------------------------------------------------------
+
+
+def shard_slot(index: int, n_dev: int) -> Tuple[int, int]:
+    """Interleaved slot→(device, local-slot) indirection: logical bucket
+    index ``i`` lives on device ``i % n_dev`` at local slot ``i // n_dev``.
+
+    Interleaving — rather than contiguous blocks per device — is what
+    bounds per-device wave occupancy: the scheduler claims waves as
+    contiguous FIFO runs of the bucket, and any contiguous run of ``w``
+    logical slots touches each device at most ``ceil(w / n_dev)`` times,
+    so every entry gets a near-equal share of a wave."""
+    return index % n_dev, index // n_dev
+
+
+def unshard_slot(device: int, local: int, n_dev: int) -> int:
+    """Inverse of :func:`shard_slot` (exact round-trip for any
+    ``0 <= device < n_dev``)."""
+    return local * n_dev + device
+
+
+def shard_wave_width(cap: int, n_dev: int) -> int:
+    """The lanes one device contributes to a full wave of a bucket whose
+    (mesh-invariant) claim cap is ``cap``, rounded to a power of two: the
+    reference pins its per-device kernel width to this.  The port's
+    kernels take the width at run time and launch over an entry's own
+    lanes, unpadded, so nothing here depends on it; it states the
+    placement's occupancy bound."""
+    return pow2_ceil(-(-max(cap, 1) // max(n_dev, 1)))
+
+
+class ShardedBlockArena(BlockArena):
+    """A :class:`BlockArena` partitioned over a wave mesh: each shape
+    bucket's rows are permuted so device ``d`` holds the contiguous
+    physical rows ``[d * per_dev, (d+1) * per_dev)`` — exactly its
+    interleaved logical slots — uploaded once, one tensor an entry
+    (:func:`~repro_torch.parallel.sharding.wave_sharding`).  Tail rows
+    (bucket size not a multiple of the mesh) wrap-copy earlier blocks so
+    every physical row is valid data; no lane reads them.
+
+    ``bucket(key)`` gives the entries' tensors as lists in mesh order.
+    The base-class ``_slot`` keeps the *physical* row (the row of the
+    entries' blocks concatenated); ``_dev_slot`` adds the (device,
+    local-slot) view the sharded dispatch uses."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh.devices[0])
+        self.mesh = mesh
+        self.n_dev = mesh.n_dev
+        self._dev_slot: Dict[int, Tuple[Any, int, int]] = {}
+        self._per_dev: Dict[Any, int] = {}
+
+    @classmethod
+    def pack(cls, tasks: Sequence, shape_key: Callable, build: Callable,
+             mesh=None, with_months: bool = True) -> "ShardedBlockArena":
+        if mesh is None:
+            raise ValueError("ShardedBlockArena.pack needs a mesh")
+        arena = cls(mesh)
+        n_dev = arena.n_dev
+        sharding = wave_sharding(mesh)
+        buckets: Dict[Any, List] = {}
+        for task in tasks:
+            buckets.setdefault(shape_key(task), []).append(task)
+        for key, group in buckets.items():
+            b = len(group)
+            per_dev = -(-b // n_dev)
+            data = months = None
+            for i, task in enumerate(group):
+                block, mo = build(task)
+                if data is None:
+                    data = np.empty((n_dev * per_dev,) + block.shape,
+                                    block.dtype)
+                    if with_months:
+                        months = np.empty((n_dev * per_dev,) + mo.shape,
+                                          mo.dtype)
+                dev, local = shard_slot(i, n_dev)
+                data[dev * per_dev + local] = block
+                if with_months:
+                    months[dev * per_dev + local] = mo
+                arena._slot[task.task_id] = (key, dev * per_dev + local)
+                arena._dev_slot[task.task_id] = (key, dev, local)
+            # physical order: device-major over the interleaved placement;
+            # a tail row holds logical slot unshard_slot(dev, local) % b
+            for dev in range(n_dev):
+                for local in range(per_dev):
+                    i = unshard_slot(dev, local, n_dev)
+                    if i >= b:
+                        src, src_local = shard_slot(i % b, n_dev)
+                        data[dev * per_dev + local] = \
+                            data[src * per_dev + src_local]
+                        if with_months:
+                            months[dev * per_dev + local] = \
+                                months[src * per_dev + src_local]
+            arena._data[key] = sharding.place(data)
+            arena.nbytes += float(data.nbytes)
+            arena._months[key] = None
+            if with_months:
+                arena._months[key] = sharding.place(months)
+                arena.nbytes += float(months.nbytes)
+            arena._per_dev[key] = per_dev
+        return arena
+
+    def dev_slots(self, tasks: Sequence) -> Tuple[Any, np.ndarray, np.ndarray]:
+        """(key, devices, local rows) for a same-shape wave."""
+        keys = {self._dev_slot[t.task_id][0] for t in tasks}
+        if len(keys) != 1:
+            raise ValueError(f"wave spans shape buckets: {keys}")
+        key = keys.pop()
+        devs = np.asarray([self._dev_slot[t.task_id][1] for t in tasks],
+                          np.int32)
+        rows = np.asarray([self._dev_slot[t.task_id][2] for t in tasks],
+                          np.int32)
+        return key, devs, rows
+
+
+# ---------------------------------------------------------------------------
 # Engines
 # ---------------------------------------------------------------------------
 
@@ -302,17 +432,25 @@ def _split_moments(stats: np.ndarray, n_idx: int) -> List[Dict[str, np.ndarray]]
             for s in stats]
 
 
-def _moments_wave(arena_data: torch.Tensor, rows: np.ndarray,
-                  seeds: np.ndarray, *, n_idx: int) -> np.ndarray:
+def _moments_wave_device(arena_data: torch.Tensor, rows: np.ndarray,
+                         seeds: np.ndarray, *, n_idx: int) -> torch.Tensor:
     """The wave pipeline: the slot and seed vectors up → one
     ``subsample_stats_seeded`` launch, which reads the resident arena
     through the slots and draws each task's rows from its seed (jax's
-    exact threefry draws) → ``[B, 2, D]`` on the host."""
+    exact threefry draws) → ``[B, 2, D]`` on the device, on the current
+    stream."""
     device = arena_data.device
     rows_t = torch.from_numpy(np.asarray(rows, np.int32)).to(device)
     seeds_t = torch.from_numpy(np.asarray(seeds, np.int32)).to(device)
     return ops.subsample_stats_seeded(arena_data, rows_t, seeds_t,
-                                      n_idx=n_idx).cpu().numpy()
+                                      n_idx=n_idx)
+
+
+def _moments_wave(arena_data: torch.Tensor, rows: np.ndarray,
+                  seeds: np.ndarray, *, n_idx: int) -> np.ndarray:
+    """:func:`_moments_wave_device` → ``[B, 2, D]`` on the host."""
+    return _moments_wave_device(arena_data, rows, seeds,
+                                n_idx=n_idx).cpu().numpy()
 
 
 def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
@@ -323,9 +461,16 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
     Both engines launch over the wave's own tasks only: their kernels take
     the wave width at run time and read the resident arena through the
     wave's slots, so no lane is padded and no block is copied.
+
+    A :class:`ShardedBlockArena` routes to the multi-device dispatch —
+    same signature, bit-identical results — so the wave closures in the
+    driver, service pool and threaded backend need not know whether the
+    arena is sharded.
     """
     if engine not in ("kernel", "torch"):
         raise ValueError(f"engine {engine!r} does not support wave execution")
+    if isinstance(arena, ShardedBlockArena):
+        return run_map_wave_sharded(arena, tasks, seeds, workload, engine)
     key, rows = arena.slots(tasks)
     seeds = np.asarray(seeds, np.int32)
     data, months = arena.bucket(key)
@@ -340,6 +485,68 @@ def run_map_wave(arena: BlockArena, tasks: Sequence, seeds: np.ndarray,
     n_idx = workload.draws * workload.draw_size
     return _split_moments(_moments_wave(data, rows, seeds, n_idx=n_idx),
                           n_idx)
+
+
+def run_map_wave_sharded(arena: ShardedBlockArena, tasks: Sequence,
+                         seeds: np.ndarray, workload, engine: str,
+                         ) -> List[Dict[str, np.ndarray]]:
+    """Execute a wave across the arena's mesh and split the result back
+    into per-task reduce-tree partials.
+
+    The wave's members are routed to their owning entry's lanes, in wave
+    order.  Every entry with a lane runs the unsharded wave's body over
+    its own lanes only (one ``subsample_stats_seeded`` or
+    ``subsample_grid_seeded`` launch reading its block of the arena
+    through its local slots; no lane is padded, and an entry with no
+    lane launches nothing), each on its own stream, all launched before
+    any is read, so distinct cards overlap.  The partials are then
+    gathered on the host in mesh order
+    (:func:`~repro_torch.parallel.collectives.gather_shards`) and put
+    back in task order.  A task's partial depends only on its block and
+    seed, so the result is the unsharded wave's bit for bit.
+
+    The mesh's streams are shared by every thread that dispatches waves:
+    two workers' waves on one entry queue on its stream, one after the
+    other, as two unsharded waves queue on the card's default stream.
+    """
+    if engine not in ("kernel", "torch"):
+        raise ValueError(f"engine {engine!r} does not support wave execution")
+    key, devs, local_rows = arena.dev_slots(tasks)
+    seeds = np.asarray(seeds, np.int32)
+    data, months = arena.bucket(key)
+    if engine == "torch" and months is None:
+        raise ValueError("torch waves need pack(with_months=True)")
+    n_idx = workload.draws * workload.draw_size
+    mesh = arena.mesh
+    lanes, parts, streams = [], [], []
+    for d in range(arena.n_dev):
+        members = np.flatnonzero(devs == d)
+        if not len(members):
+            continue
+        stream = mesh.stream(d)
+        if stream is not None:
+            # the arena was uploaded on the caller's stream
+            stream.wait_stream(torch.cuda.current_stream(mesh.devices[d]))
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            # the slot and seed uploads, the launch and its output (with
+            # the kernel's scratch) all on the entry's stream
+            if engine == "torch":
+                out = ss.map_wave(data[d], months[d], local_rows[members],
+                                  seeds[members], workload)
+            else:
+                out = _moments_wave_device(data[d], local_rows[members],
+                                           seeds[members], n_idx=n_idx)
+        lanes.append(members)
+        parts.append(out)
+        streams.append(stream)
+    gathered = col.gather_shards(parts, streams)
+    stats = np.empty_like(gathered)
+    stats[np.concatenate(lanes)] = gathered
+    if engine == "torch":
+        return ss.split_partials(stats, workload, data[0].shape[1])
+    return _split_moments(stats, n_idx)
 
 
 def _map_task_numpy(block: np.ndarray, months: np.ndarray, seed: int,

@@ -34,9 +34,10 @@ vanilla Hadoop ≈ 4× BashReduce startup, ≈ 21% startup tax from monitoring,
 This is the PyTorch port of the reference driver.  Its map tasks run on
 ``PlatformSpec.device`` (the card unless the caller asks for the CPU).  It
 takes everything the reference's driver takes — the replicated datastore
-with balanced scheduling and prefetch, fault injection, checkpoint/resume
-and the virtual-time scale-out — except sharded waves, a later slice of
-the port: ``mesh_devices`` raises :class:`NotImplementedError`.
+with balanced scheduling and prefetch, fault injection, checkpoint/resume,
+the virtual-time scale-out and sharded waves over a wave mesh
+(``mesh_devices``: the first cards on ``cuda``, repeated entries of the
+CPU on ``cpu``; ``repro_torch.launch.mesh``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from repro_torch.core import scheduler as sch
 from repro_torch.core import slo as slo_mod
 from repro_torch.core.blockcache import BlockCache, CacheOptions
 from repro_torch.core.prefetch import TaskPrefetcher
+from repro_torch.launch.mesh import make_wave_mesh
 from repro_torch.platform import compute as pc
 from repro_torch.platform import telemetry as tel
 from repro_torch.platform.monitor import (
@@ -114,8 +116,8 @@ class WaveOptions:
 
     wave: str = "auto"                     # "auto" | "on" | "off"
     max_wave: int = 32                     # wave size cap (task count)
-    # sharded wave execution (DESIGN.md §11) over this many devices:
-    # not in the port yet, so anything but None raises
+    # sharded wave execution (DESIGN.md §11) over a wave mesh of this
+    # many devices; None keeps the plain single-device arena
     mesh_devices: Optional[int] = None
 
 
@@ -191,8 +193,14 @@ class PlatformSpec:
     #   same-shape ready tasks into one kernel launch (threaded backend,
     #   kernel or torch engine; per-task fallback for numpy & custom map_fn)
     max_wave: int = 32                     # wave size cap (task count)
-    # sharded wave execution (DESIGN.md §11): a later slice of the port;
-    # anything but None raises NotImplementedError
+    # sharded wave execution (DESIGN.md §11): partition the block arena
+    # and every wave over a wave mesh of this many devices
+    # (launch.mesh.make_wave_mesh: the first cards on "cuda", which must
+    # exist; repeated CPU entries on "cpu").  None keeps the plain
+    # single-device arena; mesh_devices=1 routes through the sharded
+    # path on a 1-device mesh.  Results are bit-identical at any mesh
+    # size, and the scheduler's claim cap stays mesh-invariant so the
+    # epsilon early-stop executes the same task set on every mesh.
     mesh_devices: Optional[int] = None
     # balanced dynamic scheduling (DESIGN.md §9): rank ready tasks by the
     # predicted fetch latency of their best available data-node replica
@@ -520,17 +528,31 @@ class WaveContext:
 
 def build_wave_context(plan: JobPlan, workload, *, n_exec: int,
                        max_wave: int, warm_seed: int = 0,
-                       device="cuda") -> WaveContext:
+                       device="cuda", mesh=None) -> WaveContext:
     """Pack the plan's blocks into the device arena, pin one wave width
     per shape bucket, and warm one full-size wave per bucket (the kernel's
     build and first launch are set-up, not a wave's time); buckets split
     across workers so one worker cannot swallow a bucket in a single wave
     while its peers idle.  The moments kernel
     never reads the months plane, so its arena leaves it out; the torch
-    engine's carries it."""
-    arena = pc.BlockArena.pack(plan.tasks, plan.task_shape, plan.build_block,
-                               with_months=(plan.engine == "torch"),
-                               device=device)
+    engine's carries it.
+
+    With ``mesh`` (a ``launch.mesh.make_wave_mesh`` wave mesh) the arena
+    is partitioned over its entries and waves dispatch sharded, the
+    warm-up's too.  The
+    ``wave_pad`` claim caps are computed identically either way — they
+    drive the *scheduler's* wave partition, which must stay
+    mesh-invariant for the epsilon early-stop path to settle at the
+    same task counts on every mesh size."""
+    with_months = plan.engine == "torch"
+    if mesh is not None:
+        arena: pc.BlockArena = pc.ShardedBlockArena.pack(
+            plan.tasks, plan.task_shape, plan.build_block, mesh,
+            with_months=with_months)
+    else:
+        arena = pc.BlockArena.pack(plan.tasks, plan.task_shape,
+                                   plan.build_block,
+                                   with_months=with_months, device=device)
     by_key: Dict[Any, List[sch.Task]] = {}
     for task in plan.tasks:
         by_key.setdefault(plan.task_shape(task), []).append(task)
@@ -586,6 +608,26 @@ def wave_enabled(spec: PlatformSpec, engine: str, workload,
     if spec.wave == "auto":
         return supported and pc.wave_profitable(workload)
     return supported
+
+
+def resolve_wave_mesh(spec: PlatformSpec, wave_on: bool):
+    """Build the wave mesh a spec asks for, or ``None``.
+
+    Like the other mode resolvers, an impossible request is an error,
+    never a silent fallback: ``mesh_devices`` without wave execution
+    would shard nothing, and asking for more cards than exist fails in
+    ``make_wave_mesh``."""
+    if spec.mesh_devices is None:
+        return None
+    if spec.mesh_devices < 1:
+        raise ValueError(
+            f"mesh_devices must be >= 1, got {spec.mesh_devices}")
+    if not wave_on:
+        raise ValueError(
+            "mesh_devices shards wave execution, which this spec "
+            "disables — it needs the threaded backend, a device engine "
+            "(kernel|torch) and wave != 'off'")
+    return make_wave_mesh(spec.mesh_devices, spec.device)
 
 
 def balanced_enabled(spec: PlatformSpec, has_datastore: bool) -> bool:
@@ -758,15 +800,6 @@ class JobCheckpointer:
         return partials, n_tasks
 
 
-def _not_in_port(requested: bool, what: str, slice_name: str) -> None:
-    """Options whose modules the port has not reached yet raise rather
-    than run without them."""
-    if requested:
-        raise NotImplementedError(
-            f"{what} is not in the PyTorch port yet: it arrives with "
-            f"{slice_name} in a later slice")
-
-
 class Platform:
     """The end-to-end driver.  ``datastore`` is an optional
     :class:`~repro_torch.core.datastore.ReplicatedDataStore`; ``map_fn``
@@ -775,14 +808,12 @@ class Platform:
     ``fault_injector`` is an optional
     :class:`~repro_torch.platform.faults.FaultInjector` driving a seeded
     :class:`~repro_torch.platform.faults.FaultPlan` through the run
-    (DESIGN.md §12).  Sharded waves (``mesh_devices``) are a later slice
-    of the port and raise :class:`NotImplementedError`."""
+    (DESIGN.md §12).  ``spec.mesh_devices`` shards every wave over a
+    wave mesh (DESIGN.md §11), bit-identical to the unsharded run."""
 
     def __init__(self, spec: PlatformSpec = PlatformSpec(), *,
                  datastore=None, map_fn: Optional[MapFn] = None,
                  fault_injector=None):
-        _not_in_port(spec.mesh_devices is not None, "mesh_devices",
-                     "sharded waves")
         self.device = pc.check_device(spec.device)
         self.spec = spec
         self.datastore = datastore
@@ -909,6 +940,7 @@ class Platform:
             else self._n_exec_workers()
 
         wave_on = self._wave_enabled(engine, workload)
+        mesh = resolve_wave_mesh(spec, wave_on)
         # all dispatch accounting flows through the bus's aggregation
         # path into this one sink (DESIGN.md §13)
         dispatch = pc.DispatchStats()
@@ -981,7 +1013,7 @@ class Platform:
                                      n_exec=n_eff,
                                      max_wave=spec.max_wave,
                                      warm_seed=spec.seed,
-                                     device=self.device)
+                                     device=self.device, mesh=mesh)
             bus.emit("arena_upload", nbytes=float(ctx.arena.nbytes))
 
             def compute_wave(batch: List[sch.Task]):

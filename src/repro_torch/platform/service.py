@@ -44,8 +44,10 @@ and a fused wave is one launch of ``subsample_stats_seeded`` (``kernel``
 engine) or ``subsample_grid_seeded`` (``torch`` engine) over tasks of
 several jobs, each drawing from its own job's seed.  The service raises
 without a card unless the spec says ``device="cpu"``, where the kernel
-wrappers run their plain versions.  Sharded waves (``mesh_devices``) are
-a later slice of the port and raise :class:`NotImplementedError`.
+wrappers run their plain versions.  With ``mesh_devices`` a query
+class's arena is partitioned over a wave mesh and its waves, fused ones
+too, dispatch sharded (``compute.run_map_wave_sharded``), bit-identical
+to the unsharded service.
 """
 
 from __future__ import annotations
@@ -74,7 +76,6 @@ from repro_torch.platform.driver import (
     Platform,
     PlatformSpec,
     WaveContext,
-    _not_in_port,
     balanced_enabled,
     build_prefetcher,
     build_wave_context,
@@ -83,6 +84,7 @@ from repro_torch.platform.driver import (
     prefetch_enabled,
     resolve_platform_config,
     resolve_speculation,
+    resolve_wave_mesh,
     slo_worker_decision,
     wave_enabled,
 )
@@ -209,9 +211,7 @@ class DatasetHandle:
         ``built_now`` marks the submit that paid the one-time cost."""
         # mesh_devices joins the key: a sharded and an unsharded arena
         # for the same workload are different device-resident state (and
-        # ServicePool claims must route to the arena their jobs warmed);
-        # the service refuses it for now, the key keeps the reference's
-        # shape
+        # ServicePool claims must route to the arena their jobs warmed)
         key = (workload_key(workload), engine, sizing, n_exec, wave_on,
                spec.max_wave, spec.mesh_devices)
         with self._lock:
@@ -236,7 +236,8 @@ class DatasetHandle:
             if wave_on:
                 qc.wave_ctx = build_wave_context(
                     plan, workload, n_exec=n_exec, max_wave=spec.max_wave,
-                    warm_seed=spec.seed, device=spec.device)
+                    warm_seed=spec.seed, device=spec.device,
+                    mesh=resolve_wave_mesh(spec, wave_on))
                 qc.arena_bytes = qc.wave_ctx.arena.nbytes
             elif engine in ("kernel", "torch"):
                 # per-task warmup: compile one kernel per distinct shape
@@ -423,8 +424,6 @@ class PlatformService:
                 f"got {spec.backend!r}")
         if admission.mode not in ("queue", "shed"):
             raise ValueError(f"unknown admission mode {admission.mode!r}")
-        _not_in_port(spec.mesh_devices is not None, "mesh_devices",
-                     "sharded waves")
         self.device = pc.check_device(spec.device)
         self.spec = spec
         self.admission = admission
@@ -628,6 +627,10 @@ class PlatformService:
                                           resume_from=resume_from)
 
         wave_on = wave_enabled(self.spec, engine, workload)
+        # validated on EVERY submit (not just the arena-building one):
+        # mesh_devices without wave execution must error, never silently
+        # run an unsharded per-task job
+        resolve_wave_mesh(self.spec, wave_on)
         qc, built_now = handle.query_class(
             workload, spec=self.spec, engine=engine,
             sizing=self.plat.task_sizing, n_exec=self.spec.n_workers,

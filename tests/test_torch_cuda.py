@@ -1259,3 +1259,111 @@ def test_service_fused_waves_equal_jobs_alone_on_the_card(cuda):
         for name in result:
             assert np.array_equal(np.asarray(alone[key][name]),
                                   np.asarray(result[name])), (key, name)
+
+
+# -- sharded waves on the card
+
+
+def _sharded_arenas(engine, n_entries=4):
+    """A job's plan packed twice on the card: plainly, and over a wave
+    mesh of ``n_entries`` streams on one card."""
+    from repro_torch.launch.mesh import WaveMesh
+    from repro_torch.platform import compute as pc
+    from repro_torch.platform.driver import plan_job
+
+    samples, months, wl, knee = _platform_job(engine)
+    plan = plan_job(samples, months, wl, sizing="kneepoint", engine=engine,
+                    n_exec=2, knee_bytes=knee, device="cuda")
+    with_months = engine == "torch"
+    plain = pc.BlockArena.pack(plan.tasks, plan.task_shape, plan.build_block,
+                               with_months=with_months, device="cuda")
+    mesh = WaveMesh((torch.device("cuda", 0),) * n_entries)
+    sharded = pc.ShardedBlockArena.pack(plan.tasks, plan.task_shape,
+                                        plan.build_block, mesh,
+                                        with_months=with_months)
+    by_key = {}
+    for task in plan.tasks:
+        by_key.setdefault(plan.task_shape(task), []).append(task)
+    waves = [group[i:i + 8] for group in by_key.values()
+             for i in range(0, len(group), 8)]
+    return plain, sharded, waves, wl
+
+
+def _assert_partials_equal(want, got):
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert w.keys() == g.keys()
+        for key in w:
+            assert np.array_equal(np.asarray(w[key]), np.asarray(g[key])), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["kernel", "torch"])
+def test_sharded_waves_on_four_streams_equal_unsharded(cuda, engine):
+    """Every wave of a job's plan over a mesh of four streams on one card
+    equals the unsharded wave bit for bit, launching once an occupied
+    entry."""
+    from repro_torch.platform import compute as pc
+
+    plain, sharded, waves, wl = _sharded_arenas(engine)
+    kernel = "subsample_stats" if engine == "kernel" else "subsample_grid"
+    for k, wave in enumerate(waves):
+        seeds = np.arange(len(wave), dtype=np.int32) + 7 * k
+        want = pc.run_map_wave(plain, wave, seeds, wl, engine)
+        before = ops.launch_count(kernel)
+        got = pc.run_map_wave(sharded, wave, seeds, wl, engine)
+        occupied = len(set(sharded.dev_slots(wave)[1].tolist()))
+        assert ops.launch_count(kernel) - before == occupied
+        _assert_partials_equal(want, got)
+
+
+@pytest.mark.cuda
+def test_sharded_waves_from_two_threads(cuda):
+    """Two threads dispatching sharded waves at once on one mesh (its
+    streams shared between them) each get their waves' results, bit for
+    bit those of the same waves dispatched alone."""
+    from repro_torch.platform import compute as pc
+
+    _, sharded, waves, wl = _sharded_arenas("kernel")
+    seeded = [(wave, np.arange(len(wave), dtype=np.int32) + 3 * k)
+              for k, wave in enumerate(waves)]
+    alone = [pc.run_map_wave(sharded, w, s, wl, "kernel") for w, s in seeded]
+
+    def dispatch(start):
+        return [pc.run_map_wave(sharded, w, s, wl, "kernel")
+                for w, s in seeded[start:] + seeded[:start]]
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(dispatch, start)
+                for start in (0, len(seeded) // 2)]
+        results = [run.result(timeout=300) for run in runs]
+    n = len(seeded)
+    for start, got in zip((0, n // 2), results):
+        for k, partials in enumerate(got):
+            _assert_partials_equal(alone[(start + k) % n], partials)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["kernel", "torch"])
+def test_platform_mesh_1_equals_unsharded_on_the_card(cuda, engine):
+    """``Platform.run`` with ``mesh_devices=1`` on the card: the unsharded
+    job's result bit for bit, with the same dispatches (one worker: two
+    may cut a job's tail into waves differently from run to run); a mesh
+    larger than the machine's cards raises."""
+    from repro_torch.platform import Platform, PlatformSpec, WaveOptions
+
+    samples, months, wl, knee = _platform_job(engine)
+
+    def run(mesh):
+        return Platform(PlatformSpec(
+            platform="BTS", n_workers=1, knee_bytes=knee,
+            waves=WaveOptions(wave="on", max_wave=4,
+                              mesh_devices=mesh))).run(samples, months, wl)
+
+    plain, sharded = run(None), run(1)
+    assert sharded.device_dispatches == plain.device_dispatches
+    for key in plain.result:
+        assert np.array_equal(np.asarray(plain.result[key]),
+                              np.asarray(sharded.result[key])), key
+    with pytest.raises(ValueError, match="device"):
+        run(torch.cuda.device_count() + 1)

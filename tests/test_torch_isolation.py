@@ -40,6 +40,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.core.datastore, repro_torch.core.tiny_task\n"
         "import repro_torch.platform.faults, repro_torch.checkpoint\n"
         "import repro_torch.platform.service\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.elastic\n"
+        "import repro_torch.parallel.collectives\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"

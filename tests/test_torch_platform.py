@@ -139,14 +139,26 @@ def test_invariant_to_wave_size():
 
 @pytest.mark.parametrize("option", ["mesh_devices"])
 def test_deferred_options_raise(option):
-    """Sharded waves are the one option of the reference's ``Platform``
-    the port has not reached; the datastore, fault injection,
-    checkpoint/resume and ``run_scaleout`` run (tests/test_torch_datastore.py,
-    tests/test_torch_faults.py and the tests below)."""
-    spec_kw = dict(device="cpu", knee_bytes=KNEE)
-    spec_kw["waves"] = port_driver.WaveOptions(mesh_devices=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_platform.Platform(port_platform.PlatformSpec(**spec_kw))
+    """``mesh_devices``, the last option the port deferred, now raises
+    only where the reference's does: without wave execution it shards
+    nothing (``ValueError`` naming it, on both packages); with waves a
+    1-device CPU mesh runs, bit for bit the unsharded run
+    (tests/test_torch_sharded.py holds every mesh size)."""
+    samples, months = _dataset(n=8)
+    for pkg, driver, wl, extra in (
+            (ref_platform, ref_driver, REF_WL, {}),
+            (port_platform, port_driver, PORT_WL, {"device": "cpu"})):
+        spec = pkg.PlatformSpec(
+            knee_bytes=KNEE, n_workers=1,
+            waves=driver.WaveOptions(wave="off", **{option: 1}), **extra)
+        with pytest.raises(ValueError, match=option):
+            pkg.Platform(spec).run(samples, months, wl)
+    runs = [port_platform.Platform(port_platform.PlatformSpec(
+        knee_bytes=KNEE, n_workers=1, device="cpu",
+        waves=port_driver.WaveOptions(wave="on", **kw))).run(
+            samples, months, PORT_WL) for kw in ({}, {option: 1})]
+    _assert_bitwise(runs[0].result, runs[1].result)
+    assert runs[0].device_dispatches == runs[1].device_dispatches
 
 
 def _scaleout_specs(pkg, driver, case):

@@ -327,9 +327,22 @@ def test_per_task_class_warms_up_and_counts_its_dispatches(
 
 
 def test_mesh_devices_raises():
-    spec = _spec(waves=WaveOptions(mesh_devices=1))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PlatformService(spec)
+    """The reference's contract: ``mesh_devices`` without wave execution
+    raises ``ValueError`` on submit; with waves, a 1-device CPU mesh
+    serves the unsharded service's result bit for bit."""
+    samples, months = _dataset(n=8)
+    with PlatformService(_spec(waves=WaveOptions(wave="off",
+                                                 mesh_devices=1))) as svc:
+        handle = svc.register_dataset(samples, months)
+        with pytest.raises(ValueError, match="mesh_devices"):
+            svc.submit(handle, WL)
+    results = []
+    for mesh in (None, 1):
+        with PlatformService(_spec(waves=WaveOptions(
+                wave="on", mesh_devices=mesh))) as svc:
+            handle = svc.register_dataset(samples, months)
+            results.append(svc.submit(handle, WL).result(timeout=120))
+    _assert_bitwise(results[0], results[1], "mesh 1")
 
 
 @pytest.mark.parametrize("bad", ["backend", "admission"])
