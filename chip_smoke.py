@@ -16,8 +16,12 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    branches, and times kernel, plain version, the bound and, where one
    PyTorch call computes the same function, that call (``index_select``
    beside ``subsample_gather`` is a floor for its gather alone);
-   ``flash_attention`` also gives its TFLOP/s and share of its bound, and
-   a second launch at the serving shape must equal the first; the same
+   ``flash_attention`` also gives its TFLOP/s and share of its bound at
+   two serving shapes (a ``recurrentgemma-2b`` local layer at HD 256 and
+   a ``deepseek-7b`` layer at HD 128, causal, window 0, where
+   ``scaled_dot_product_attention(is_causal=True)`` is the same function
+   in one call), is held at ``internlm2-20b``'s group of 6, and a second
+   launch at each serving shape must equal the first; the same
    for ``rwkv6_chunked``, which is also held at extreme decays (logw down
    to -40 a token) and timed pass by pass (its state pass and its output
    pass), with ptxas' lines for both.
@@ -103,6 +107,21 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 9. The decode ≡ prefill invariant for ``recurrentgemma-2b``: full width,
    depth cut to 8 layers, float32 weights, at P = 64 (shorter than the
    window) and P = 2,112 (longer).
+13. After phase 9: serves ``deepseek-7b`` at full width (30 layers of
+   full attention, d_model 4096, 32 heads of 128 on 32 KV heads, d_ff
+   11008, vocab 102,400, the reference's int8 KV cache, bf16 weights from a
+   seed) through ``ServingEngine.generate``: batch 4, a 4,064-token prompt,
+   32 new tokens, so the cache ends at the model's 4,096-token context;
+   prefill must launch ``flash_attention`` 30 times and nothing else of
+   ``ops``.  Prints the cache's bytes against a bf16 cache's and checks
+   every layer's int8 values and fp32 scales; one ``torch.profiler`` pass
+   over a prefill and one over a decode step.  Then, fast:
+   ``internlm2-20b`` at full width cut to 4 layers (a prefill of batch 4 at
+   4,096 tokens, 4 flash_attention launches with group 6, and 4 decode
+   steps); ``deepseek-7b``'s decode ≡ prefill at full width, 4 layers,
+   fp32, the cache unquantized (within 1e-3); and the reference's int8
+   bound at full width, 4 layers: the int8 cache's decode logits within a
+   relative max of 0.15 of a bf16 cache's.
 10. Between steps 4b/4c and the 512-movie jobs, on the same datasets: the
    platform's data plane and recovery, each job bit for bit against its
    run without them and its launches counted (waves plus warm-ups).  10a
@@ -923,19 +942,47 @@ def _sdpa_ms(q, k, v, causal, window, group):
     return _time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), reps=10)
 
 
+def _sdpa_causal_ms(q, k, v):
+    """The same function in one library call where there is no window and
+    no group: ``scaled_dot_product_attention(q, k, v, is_causal=True)``
+    with no mask tensor, so the library may take its flash backend."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t[None] for t in (q, k, v))
+    return _time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), reps=10)
+
+
+# the dense decoders' prefill attention (phase 13): deepseek-7b at batch 4
+# and a 4,064-token prompt (32 heads of 128 on 32), and internlm2-20b's
+# group of 6 at 4,096 tokens (48 query heads on 8, batch 4); bh, sq, skv,
+# hd, causal, window, group
+DENSE_FA = (4 * 32, 4064, 4064, 128, True, 0, 1)
+GQA6_FA = (4 * 48, 4096, 4096, 128, True, 0, 6)
+
+
 def check_flash_kernel(ops, ref):
     """Phase 3d: ``flash_attention`` against its plain version on the card:
-    at the serving shape (one local layer's prefill of batch 4 at 4,096
-    tokens: 40 query heads of 256 on 4 KV heads, window 2,048, bf16), at
-    window 0 and group 1 causal and not (the TPU kernel's function), at
-    HD 32 with a ragged Sq = Skv = 1,000, and in fp32 at HD 256; then bf16
-    (the tensor-core body) at HD 32 with Sq < Skv, at HD 64 with a window
-    below one tile and Sq > Skv, at Sq = 1 against 1,000 keys, and with q
-    and k scaled by 8 (large score gaps for the online rescale).  At the
-    serving shape a second launch must equal the first bit for bit."""
+    at the local serving shape (one local layer's prefill of batch 4 at
+    4,096 tokens: 40 query heads of 256 on 4 KV heads, window 2,048,
+    bf16), at the dense serving shape (a ``deepseek-7b`` layer's prefill
+    of batch 4 at 4,064 tokens: q, k, v ``[128, 4064, 128]``, causal,
+    window 0, group 1, the ragged last tile of 64 rows) and at
+    ``internlm2-20b``'s group of 6 (q ``[192, 4096, 128]``, k, v ``[32,
+    4096, 128]``), at window 0 and group 1 causal and not (the TPU
+    kernel's function), at HD 32 with a ragged Sq = Skv = 1,000, and in
+    fp32 at HD 256; then bf16 (the tensor-core body) at HD 32 with Sq <
+    Skv, at HD 64 with a window below one tile and Sq > Skv, at Sq = 1
+    against 1,000 keys, and with q and k scaled by 8 (large score gaps for
+    the online rescale).  At both serving shapes a second launch must
+    equal the first bit for bit, and each is timed beside its plain
+    version, its bound and ``scaled_dot_product_attention``: with a
+    boolean mask, and at the dense shape also with ``is_causal=True``,
+    the same function in one call."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    local = (40, 4096, 4096, 256, True, 2048, 10)
     cases = [  # bh, sq, skv, hd, causal, window, group, dtype, q and k scale
-        (40, 4096, 4096, 256, True, 2048, 10, torch.bfloat16, 1),
+        local + (torch.bfloat16, 1),
+        DENSE_FA + (torch.bfloat16, 1),
+        GQA6_FA + (torch.bfloat16, 1),
         (8, 2048, 2048, 128, True, 0, 1, torch.bfloat16, 1),
         (8, 2048, 2048, 128, False, 0, 1, torch.bfloat16, 1),
         (16, 1000, 1000, 32, True, 0, 1, torch.float32, 1),
@@ -947,6 +994,7 @@ def check_flash_kernel(ops, ref):
         (8, 1000, 1000, 256, True, 300, 2, torch.bfloat16, 8),
     ]
     worst = 0.0
+    kept = {}
     for bh, sq, skv, hd, causal, window, group, dtype, scale in cases:
         q = torch.randn((bh, sq, hd), generator=gen, device="cuda")
         k, v = (torch.randn((bh // group, skv, hd), generator=gen,
@@ -965,31 +1013,51 @@ def check_flash_kernel(ops, ref):
               f"causal={causal} window={window} group={group} "
               f"{str(dtype).split('.')[-1]} q, k x{scale}: max_abs_err "
               f"{err!r} (rtol {rtol}, atol {atol})")
-        if (bh, sq) == (40, 4096):
-            main = (q, k, v, causal, window, group, out)
-    q, k, v, causal, window, group, first = main
-    again = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                group=group)
-    if not torch.equal(first, again):
-        raise AssertionError("two flash_attention launches on the serving "
-                             "shape's inputs differ")
-    ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                              window=window, group=group),
-                  reps=10)
-    plain_ms = _time_ms(lambda: ref.flash_attention_ref(
-        q, k, v, causal=causal, window=window, group=group), reps=3)
-    (bound_ms, bound_by), pairs = _flash_bound(q, k, causal, window, group)
-    library_ms = _sdpa_ms(q, k, v, causal, window, group)
-    tflops = 4.0 * q.shape[2] * pairs / ms / 1e9
-    print(f"flash_attention at q [40, 4096, 256] bf16, k, v [4, 4096, 256], "
-          f"window 2048, group 10 ({pairs} query-key pairs): kernel {ms!r} "
-          f"ms ({tflops!r} TFLOP/s, {bound_ms / ms!r} of its bound; a "
-          f"second launch equal bit for bit), plain {plain_ms!r} ms, bound "
-          f"{bound_ms!r} ms ({bound_by}), scaled_dot_product_attention "
-          f"with a boolean mask {library_ms!r} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+        del want
+        shape = (bh, sq, skv, hd, causal, window, group)
+        if shape in (local, DENSE_FA):
+            kept[shape] = (q, k, v, out)
+    torch.cuda.empty_cache()
+    timings = {}
+    for shape, (q, k, v, first) in kept.items():
+        bh, sq, skv, hd, causal, window, group = shape
+        again = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    group=group)
+        if not torch.equal(first, again):
+            raise AssertionError(f"two flash_attention launches on the "
+                                 f"inputs of {shape} differ")
+        ms = _time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window, group=group), reps=10)
+        plain_ms = _time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, group=group), reps=3)
+        torch.cuda.empty_cache()
+        (bound_ms, bound_by), pairs = _flash_bound(q, k, causal, window,
+                                                   group)
+        mask_ms = _sdpa_ms(q, k, v, causal, window, group)
+        causal_ms = (_sdpa_causal_ms(q, k, v)
+                     if shape == DENSE_FA else None)
+        tflops = 4.0 * hd * pairs / ms / 1e9
+        print(f"flash_attention at q [{bh}, {sq}, {hd}] bf16, k, v "
+              f"[{bh // group}, {skv}, {hd}], window {window}, group "
+              f"{group} ({pairs} query-key pairs): kernel {ms!r} ms "
+              f"({tflops!r} TFLOP/s, {bound_ms / ms!r} of its bound; a "
+              f"second launch equal bit for bit), plain {plain_ms!r} ms, "
+              f"bound {bound_ms!r} ms ({bound_by}), "
+              f"scaled_dot_product_attention with a boolean mask "
+              f"{mask_ms!r} ms"
+              + ("" if causal_ms is None else
+                 f", with is_causal=True {causal_ms!r} ms (kernel / "
+                 f"library {ms / causal_ms!r})"))
+        timings[shape] = {"ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": (mask_ms if causal_ms is None
+                                         else causal_ms)}
+        if causal_ms is not None:
+            timings[shape]["library_mask_ms"] = mask_ms
+    del kept
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timings[DENSE_FA],
+            "local_hd256": timings[local]}
 
 
 def serve_recurrentgemma(ops):
@@ -1156,6 +1224,229 @@ def rg_decode_invariant():
         torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
                                    atol=INVARIANT_TOL)
     del params, caches
+    torch.cuda.empty_cache()
+
+
+# phase 13 — the dense decoders
+DENSE_PROMPT = 4064      # + 32 new tokens: deepseek-7b's 4,096 context
+# int8 cache against a bf16 cache, the reference's own bound
+# (tests/test_serving_consistency.py): relative max of the decode logits
+INT8_REL_BOUND = 0.15
+
+
+def _cache_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def serve_dense(ops):
+    """Phase 13: ``deepseek-7b`` at full width (30 layers of full
+    attention, d_model 4096, 32 heads of 128 on 32, d_ff 11008, vocab
+    102,400, int8 KV cache), bf16 weights from a seed, through
+    ``ServingEngine.generate`` at batch 4, a 4,064-token prompt and 32 new
+    tokens; returns the launch counts of the measured run."""
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine, grow_caches
+
+    cfg = get_config("deepseek-7b")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"deepseek-7b: {cfg.num_layers} layers of full attention, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim} on "
+          f"{cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, KV cache {cfg.kv_cache_dtype}: {n_params} bf16 "
+          f"parameters ({cfg.param_count()} by the config's count) drawn on "
+          f"the card in {time.perf_counter() - t0!r} s")
+    engine = ServingEngine(model, params, max_new_tokens=32)
+    batch = model.make_inputs(ShapeConfig("serve", "prefill", DENSE_PROMPT,
+                                          4), model.generator(1))
+    warm = engine.generate(batch, new_tokens=2)
+    print(f"warm-up generate (2 new tokens): prefill "
+          f"{warm.prefill_seconds!r} s, decode {warm.decode_seconds!r} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    out = engine.generate(batch, new_tokens=32)
+    launches = {name: ops.launch_count(name) for name in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving deepseek-7b, batch 4, prompt {DENSE_PROMPT}, 32 new "
+          f"tokens, int8 KV cache: prefill_seconds {out.prefill_seconds!r}, "
+          f"decode_seconds {out.decode_seconds!r}, tokens_per_second "
+          f"{out.tokens_per_second!r}, peak device memory {peak} bytes; "
+          f"launches {json.dumps(launches)}")
+    others = {n: c for n, c in launches.items()
+              if n != "flash_attention" and c}
+    if launches["flash_attention"] != cfg.num_layers or others:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.num_layers}, and {others}")
+    if out.tokens.shape != (4, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
+    with torch.inference_mode():
+        logits, caches = _profiled(
+            "deepseek-7b prefill", lambda: model.prefill(params, batch),
+            ("flash_attention",), ran=("flash_attention",))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        caches = model.prefill_to_decode(
+            grow_caches(caches, DENSE_PROMPT + 32))
+        _check_int8_caches(cfg, caches, DENSE_PROMPT + 32)
+        int8_bytes = _cache_bytes(caches)
+        values = sum(t.numel() for t in _leaves(caches)
+                     if t.dtype == torch.int8)
+        print(f"deepseek-7b decode caches at {DENSE_PROMPT + 32} positions: "
+              f"{int8_bytes} bytes (int8 values and fp32 scales) against "
+              f"{values * 2} bytes for a bf16 cache "
+              f"({int8_bytes / (values * 2)!r})")
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        logits, _ = _profiled(
+            "deepseek-7b decode step", lambda: model.decode_step(
+                params, tok, caches, DENSE_PROMPT), ("flash_attention",),
+            absent=("flash_attention",))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("decode logits are not finite")
+    del caches, engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _check_int8_caches(cfg, caches, seq):
+    """Every layer's decode cache: int8 ``k``, ``v`` ``[4, seq, KV, HD]``
+    and fp32 ``k_scale``, ``v_scale`` ``[4, seq, KV, 1]``."""
+    want = {"k": (torch.int8, (4, seq, cfg.num_kv_heads, cfg.head_dim)),
+            "v": (torch.int8, (4, seq, cfg.num_kv_heads, cfg.head_dim)),
+            "k_scale": (torch.float32, (4, seq, cfg.num_kv_heads, 1)),
+            "v_scale": (torch.float32, (4, seq, cfg.num_kv_heads, 1))}
+    layers = [layer for block in caches["blocks_flat"] for layer in block]
+    layers += caches["prefix"] + caches["tail"]
+    if len(layers) != cfg.num_layers:
+        raise AssertionError(f"{len(layers)} layer caches, not "
+                             f"{cfg.num_layers}")
+    for i, layer in enumerate(layers):
+        got = {n: (t.dtype, tuple(t.shape)) for n, t in layer.items()}
+        if got != want:
+            raise AssertionError(f"layer {i}'s cache is {got}, not {want}")
+
+
+def dense_fast_steps(ops):
+    """Phase 13's fast steps: (a) ``internlm2-20b`` at full width, depth
+    cut to 4 layers, bf16, a prefill of batch 4 at 4,096 tokens and 4
+    decode steps, each prefill layer one ``flash_attention`` launch with
+    group 6; (b) ``deepseek-7b``'s decode ≡ prefill invariant at full
+    width, depth 4, fp32 weights, the cache unquantized; (c) the
+    reference's int8 bound at full width, depth 4: the int8 cache's first
+    decode logits within a relative max of 0.15 of a bf16 cache's on the
+    same bf16 weights."""
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import grow_caches
+
+    # (a) internlm2-20b, group 6
+    cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=4)
+    model = Model(cfg, device="cuda")
+    params = model.init(model.generator(8))
+    gen = model.generator(9)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4100), generator=gen,
+                           device="cuda")
+    groups = []
+    launch = ops.flash_attention
+
+    def recorded(q, k, v, **kwargs):
+        groups.append((tuple(q.shape), tuple(k.shape), kwargs["group"]))
+        return launch(q, k, v, **kwargs)
+
+    ops.reset_launch_count()
+    ops.flash_attention = recorded
+    try:
+        with torch.inference_mode():
+            logits, caches = model.prefill(params,
+                                           {"tokens": tokens[:, :4096]})
+            torch.cuda.synchronize()
+            n_prefill = ops.launch_count("flash_attention")
+            caches = model.prefill_to_decode(grow_caches(caches, 4100))
+            steps = [logits]
+            for i in range(4):
+                logits, caches = model.decode_step(
+                    params, tokens[:, 4096 + i:4097 + i], caches, 4096 + i)
+                steps.append(logits)
+            torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = launch
+    finite = all(bool(torch.isfinite(lg).all()) for lg in steps)
+    print(f"internlm2-20b at full width, 4 layers, bf16: prefill of [4, "
+          f"4096] and 4 decode steps, logits finite {finite}, "
+          f"flash_attention launches {n_prefill} (q, k, group: "
+          f"{groups[0] if groups else None}), after decode "
+          f"{ops.launch_count('flash_attention')}")
+    if (not finite or n_prefill != 4 or len(groups) != 4
+            or ops.launch_count("flash_attention") != 4
+            or any(g != ((4 * 48, 4096, 128), (4 * 8, 4096, 128), 6)
+                   for g in groups)):
+        raise AssertionError(f"internlm2-20b: launches {n_prefill}, calls "
+                             f"{groups}, finite {finite}")
+    del params, caches, model, steps
+    torch.cuda.empty_cache()
+
+    # (b) deepseek-7b's decode ≡ prefill, fp32, the cache unquantized
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("deepseek-7b"), num_layers=4,
+                              dtype="float32", kv_cache_dtype="bfloat16")
+    model = Model(cfg, device="cuda")
+    gen = model.generator(10)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 301), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        _, caches = model.prefill(params, {"tokens": tokens[:, :300]})
+        caches = model.prefill_to_decode(grow_caches(caches, 301))
+        stepped, _ = model.decode_step(params, tokens[:, 300:], caches, 300)
+        whole, _ = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    err = float((stepped - whole).abs().max())
+    scale = float(whole.abs().max())
+    print(f"deepseek-7b decode after prefill(P) vs prefill(P ++ [x]) at "
+          f"full width, 4 layers, fp32, P=300: max_abs_err {err!r} on "
+          f"logits up to {scale!r} (tolerance {INVARIANT_TOL}, relative and "
+          f"absolute)")
+    if not bool(torch.isfinite(whole).all()):
+        raise AssertionError("invariant logits are not finite")
+    torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
+                               atol=INVARIANT_TOL)
+    del params, caches, model
+    torch.cuda.empty_cache()
+
+    # (c) int8 against bf16 caches on the same bf16 weights
+    base = dataclasses.replace(get_config("deepseek-7b"), num_layers=4,
+                               kv_cache_dtype="bfloat16")
+    params = Model(base, device="cuda").init(torch.Generator(
+        device="cuda").manual_seed(11))
+    tokens = torch.randint(0, base.vocab_size, (2, 513), generator=torch.
+                           Generator(device="cuda").manual_seed(12),
+                           device="cuda")
+    outs = {}
+    for cache in ("bfloat16", "int8"):
+        model = Model(dataclasses.replace(base, kv_cache_dtype=cache),
+                      device="cuda")
+        with torch.inference_mode():
+            _, caches = model.prefill(params, {"tokens": tokens[:, :512]})
+            caches = model.prefill_to_decode(grow_caches(caches, 513))
+            outs[cache], _ = model.decode_step(params, tokens[:, 512:],
+                                               caches, 512)
+        dtypes = sorted({str(t.dtype) for t in _leaves(caches)})
+        print(f"  {cache} cache: leaf types {dtypes}")
+        del caches
+    denom = max(float(outs["bfloat16"].abs().max()), 1e-3)
+    rel = float((outs["int8"] - outs["bfloat16"]).abs().max()) / denom
+    print(f"deepseek-7b int8 against bf16 KV cache at full width, 4 layers, "
+          f"P=512: relative max difference of the decode logits {rel!r} "
+          f"(bound {INT8_REL_BOUND})")
+    if not 0.0 < rel < INT8_REL_BOUND:
+        raise AssertionError(f"int8 cache: relative difference {rel!r}")
+    del params, outs
     torch.cuda.empty_cache()
 
 
@@ -3010,6 +3301,14 @@ def main() -> None:
     rg_launches = serve_recurrentgemma(ops)
     rg_decode_invariant()
 
+    # phase 13 — serving deepseek-7b at full width (full attention, int8
+    # KV cache), then internlm2-20b's group of 6, deepseek-7b's decode ≡
+    # prefill and the int8 bound at cut depth
+    t0 = time.perf_counter()
+    dense_launches = serve_dense(ops)
+    dense_fast_steps(ops)
+    print(f"phase 13: {time.perf_counter() - t0!r} s")
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
@@ -3029,7 +3328,10 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": rg_launches["flash_attention"], **fa_timing}, {
+        "launches": dense_launches["flash_attention"],
+        "main_path": "deepseek-7b prefill (phase 13), q [128, 4064, 128] "
+                     "bf16, causal, window 0, group 1",
+        "local_launches": rg_launches["flash_attention"], **fa_timing}, {
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:64",

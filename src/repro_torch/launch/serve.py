@@ -6,6 +6,17 @@ Examples:
       --reduced --device cpu --batch 2 --prompt-len 24 --new-tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --batch 4 --prompt-len 1000 --new-tokens 32      # full width, on an H100
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+      --reduced --device cpu --batch 2 --prompt-len 24 --new-tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+      --batch 4 --prompt-len 4064 --new-tokens 32      # int8 KV cache, H100
+
+Every config but the mixture-of-experts and patch-frontend ones serves:
+``rwkv6-7b``, ``recurrentgemma-2b`` and the dense decoders (full
+attention; ``deepseek-7b`` with the reference's int8 KV cache).  Weights
+are drawn at full width, so a model whose bf16 weights pass one card's
+memory (``qwen2-72b`` and ``deepseek-67b`` on an 80 GB card) needs
+``--reduced``.
 """
 
 from __future__ import annotations

@@ -12,13 +12,16 @@ layouts:
   k, v        [B, S, KV, HD]
   KV cache    [B, S_max, KV, HD]  (a rolling buffer of the window for LOCAL)
 
-Prefill attention runs through ``kernels.ops.flash_attention``: the
-hand-written CUDA kernel on the card, its plain version on the CPU.  The
-kernel keeps the softmax probabilities in fp32 where the reference's
-``_attend_block`` rounds them to v's type before the product with v.
-Decode attention is torch ops over the cache, as in the reference.  The
-int8 KV cache (``transformer.check_supported`` refuses it) and
-cross-entropy wait for later slices (ROADMAP Queue 1).
+Prefill attention, full (``ATTN``) or sliding-window (``LOCAL``), runs
+through ``kernels.ops.flash_attention``: the hand-written CUDA kernel on
+the card, its plain version on the CPU.  The kernel keeps the softmax
+probabilities in fp32 where the reference's ``_attend_block`` rounds them
+to v's type before the product with v.  Decode attention is torch ops
+over the cache, as in the reference.  With ``kv_cache_dtype="int8"`` the
+cache holds int8 values and one fp32 absmax scale per (batch, position,
+KV head), ``k_scale``, ``v_scale [B, S_max, KV, 1]``, quantized and
+dequantized with the reference's arithmetic.  Cross-entropy waits for a
+later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -145,7 +148,8 @@ def attention_decode(
     cfg: ModelConfig, params, x: torch.Tensor,
     cache: Dict[str, torch.Tensor], pos: int, *, window: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Single-token decode.  x [B,1,D]; cache k/v [B,S_max,KV,HD]; ``pos``
+    """Single-token decode.  x [B,1,D]; cache k/v [B,S_max,KV,HD] (int8
+    with ``k_scale``/``v_scale`` where the cache is quantized); ``pos``
     the current length.  For windowed layers the cache is a rolling buffer
     written at ``pos % window``; slots past the write are masked until the
     buffer has wrapped.  The cache is not written in place: the new one is
@@ -164,10 +168,22 @@ def attention_decode(
     if write_at >= s_max:
         raise ValueError(f"decode writes slot {write_at} of a {s_max}-slot "
                          "cache: grow it first (serving.grow_caches)")
-    ck = cache["k"].clone()
-    cv = cache["v"].clone()
-    ck[:, write_at] = k[:, 0].to(ck.dtype)
-    cv[:, write_at] = v[:, 0].to(cv.dtype)
+    if "k_scale" in cache:
+        # int8 cache: the new token quantized and written beside its
+        # scales, then the whole cache dequantized to k's type
+        new_cache = {n: t.clone() for n, t in cache.items()}
+        for n, t in (("k", k), ("v", v)):
+            vals, absmax = quantize_kv(t)
+            new_cache[n][:, write_at] = vals[:, 0]
+            new_cache[n + "_scale"][:, write_at] = absmax[:, 0]
+        ck = dequantize_kv(new_cache["k"], new_cache["k_scale"], k.dtype)
+        cv = dequantize_kv(new_cache["v"], new_cache["v_scale"], v.dtype)
+    else:
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[:, write_at] = k[:, 0].to(ck.dtype)
+        cv[:, write_at] = v[:, 0].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
 
     scores = torch.einsum("bikgd,bjkd->bkgj", q.float(), ck.float()) * scale
     slot = torch.arange(s_max, device=x.device)
@@ -180,15 +196,53 @@ def attention_decode(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgj,bjkd->bkgd", probs.to(cv.dtype), cv)
     out = out.reshape(b, 1, cfg.q_dim) @ params["wo"]
-    return out, {"k": ck, "v": cv}
+    return out, new_cache
 
 
 def attention_cache_defs(cfg: ModelConfig, batch: int, seq: int,
                          dtype=None) -> Dict[str, ParamDef]:
     shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
     logical = (BATCH, KV_SEQ, None, None)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = (batch, seq, cfg.num_kv_heads, 1)
+        return {
+            "k": ParamDef(shape, logical, dtype=torch.int8, init="zeros"),
+            "v": ParamDef(shape, logical, dtype=torch.int8, init="zeros"),
+            "k_scale": ParamDef(sshape, logical, dtype=torch.float32,
+                                init="zeros"),
+            "v_scale": ParamDef(sshape, logical, dtype=torch.float32,
+                                init="zeros"),
+        }
     return {"k": ParamDef(shape, logical, dtype=dtype, init="zeros"),
             "v": ParamDef(shape, logical, dtype=dtype, init="zeros")}
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B,S,KV,HD] → (int8 values, fp32 absmax scale [B,S,KV,1]): the
+    reference's arithmetic, rounding half to even."""
+    xf = x.float()
+    absmax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    # divided by a tensor on x's device: PyTorch's CUDA division by a
+    # Python number multiplies by its fp32 reciprocal, which can part from
+    # the reference's division by one ulp
+    scale = absmax / absmax.new_full((), 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def maybe_quantize_cache(cfg: ModelConfig, kv: Dict[str, torch.Tensor]):
+    """A prefill's k/v cache as the model keeps it: int8 values and scales
+    where ``kv_cache_dtype`` is ``"int8"``, else as given."""
+    if cfg.kv_cache_dtype != "int8":
+        return kv
+    k, ks = quantize_kv(kv["k"])
+    v, vs = quantize_kv(kv["v"])
+    return {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
 
 
 # ---------------------------------------------------------------------------

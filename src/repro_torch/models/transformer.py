@@ -1,6 +1,8 @@
 """Decoder assembly (the reference's ``repro.models.transformer``), for
-the layer kinds the port has: RWKV6, RG-LRU and local (sliding-window)
-attention, each RG-LRU and local layer with the dense gated MLP.
+the layer kinds the port has: RWKV6, RG-LRU, full (``ATTN``) and local
+(sliding-window) attention, each RG-LRU and attention layer with the dense
+gated MLP.  Attention caches are int8 with fp32 scales where the config's
+``kv_cache_dtype`` is ``"int8"``.
 
 Layer stacks keep the reference's organisation: ``prefix`` (unrolled
 leading layers) + ``blocks`` (homogeneous pattern units whose parameters
@@ -28,19 +30,9 @@ from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import LAYERS, ParamDef
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = {
-    ATTN: "full attention comes with the dense models (ROADMAP Queue 1, "
-          "next item 6)",
-}
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet,
     naming the ROADMAP item that ports what it lacks."""
-    kinds = set(cfg.layer_kinds())
-    for kind in sorted(kinds):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
     if cfg.family == "moe":
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers "
                                   "come with the LM substrate (ROADMAP "
@@ -49,10 +41,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the patch frontend comes "
                                   "with the LM substrate (ROADMAP Queue 1, "
                                   "item 11)")
-    if LOCAL in kinds and cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache comes "
-                                  "after full attention (ROADMAP Queue 1, "
-                                  "next item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -80,12 +68,16 @@ def layer_cache_defs(cfg: ModelConfig, layer_idx: int, batch: int,
                      seq: int, cache_dtype=None) -> Dict[str, Any]:
     check_supported(cfg)
     kind = cfg.layer_kind(layer_idx)
+    if kind == ATTN:
+        return L.attention_cache_defs(cfg, batch, seq, cache_dtype)
     if kind == LOCAL:
         w = min(cfg.local_window or seq, seq)
         return L.attention_cache_defs(cfg, batch, w, cache_dtype)
     if kind == RGLRU:
         return RG.rglru_state_defs(cfg, batch)
-    return RW.state_defs(cfg, batch)
+    if kind == RWKV:
+        return RW.state_defs(cfg, batch)
+    raise ValueError(kind)
 
 
 def _stack_defs(tree, n: int):
@@ -177,13 +169,11 @@ def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
                 pos: Optional[int]) -> Tuple[torch.Tensor, Any]:
     """Returns (x, new_cache).  The mixture-of-experts auxiliary loss of
     the reference comes with the MoE layers."""
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
     decode = mode == "decode"
 
-    if kind == LOCAL:
-        window = cfg.local_window
+    if kind in (ATTN, LOCAL):
+        window = cfg.local_window if kind == LOCAL else 0
         if decode:
             mix_out, new_cache = L.attention_decode(
                 cfg, params["mix"], h, cache, pos, window=window)
@@ -200,7 +190,8 @@ def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
                     buf[:, slots] = new_cache[n][:, -window:]
                     rolled[n] = buf
                 new_cache = rolled
-    else:
+            new_cache = L.maybe_quantize_cache(cfg, new_cache)
+    elif kind in (RGLRU, RWKV):
         state = cache if cache is not None else _zero_state(
             cfg, kind, x.shape[0], x.device)
         if kind == RGLRU:
@@ -208,6 +199,8 @@ def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
         else:
             fn = RW.time_mix_decode if decode else RW.time_mix_apply
         mix_out, new_cache = fn(cfg, params["mix"], h, state)
+    else:
+        raise ValueError(kind)
     x = x + mix_out.to(x.dtype)
 
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)

@@ -257,10 +257,3 @@ def test_mlp_matches_reference():
     _close(L.mlp_apply(tp, torch.from_numpy(x)),
            LJ.mlp_apply(jp, jnp.asarray(x)))
 
-
-def test_int8_kv_cache_is_not_ported_yet():
-    cfg = _cfg(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.layer_cache_defs(cfg, 2, 1, 8)

@@ -7,6 +7,7 @@ installed:
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import re
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -16,8 +17,12 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.config import get_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import subsample_grid as sgrid
+from repro_torch.models import Model
+from repro_torch.models import layers as L
 import _grid_order  # tests/_grid_order.py, beside this file
 
 # The kernel and its plain version add the same fp32 values in the same
@@ -586,6 +591,12 @@ def _attn_inputs(bh, sq, skv, hd, group, dtype, seed, device):
     (4, 1000, 577, 64, True, 300, 1, torch.bfloat16),    # rows that see no key
     (3, 1, 1, 256, True, 0, 1, torch.bfloat16),          # one token
     (3, 1, 1000, 128, False, 0, 1, torch.bfloat16),      # Sq = 1, many keys
+    # the dense decoders' form: HD 128, window 0, causal, ragged last tiles
+    (4, 4064, 4064, 128, True, 0, 1, torch.bfloat16),    # deepseek-7b's S
+    (6, 1000, 1000, 128, True, 0, 1, torch.bfloat16),    # ragged, MHA
+    (12, 700, 700, 128, True, 0, 6, torch.bfloat16),     # group 6 (internlm2)
+    (16, 577, 577, 128, True, 0, 8, torch.bfloat16),     # group 8 (qwen2)
+    (6, 1000, 1000, 64, True, 0, 1, torch.bfloat16),     # HD 64 (musicgen)
 ])
 def test_flash_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
                                             window, group, dtype):
@@ -664,6 +675,55 @@ def test_flash_kernel_rejects_cuda_inputs_it_cannot_take(cuda, bad):
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, **kwargs)
     assert ops.launch_count("flash_attention") == before
+
+
+@pytest.mark.cuda
+def test_dense_attention_prefill_hands_the_kernel_aligned_tensors(
+        cuda, monkeypatch):
+    """The dense prefill's q, k and v are permuted copies, contiguous and
+    on 16 bytes, so the wrapper's alignment copy does not run."""
+    cfg = dataclasses.replace(get_config("deepseek-7b"), num_layers=2,
+                              d_model=256, num_heads=2, num_kv_heads=2,
+                              d_ff=512, vocab_size=512)
+    model = Model(cfg, device=cuda)
+    params = model.init(model.generator(0))
+    seen = []
+    real = fa.aligned
+
+    def spy(t):
+        out = real(t)
+        seen.append(out is t)
+        return out
+
+    monkeypatch.setattr(fa, "aligned", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda)
+    before = ops.launch_count("flash_attention")
+    with torch.inference_mode():
+        logits, caches = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.launch_count("flash_attention") == before + 2
+    assert seen == [True] * 6
+    assert torch.isfinite(logits).all()
+    assert caches["blocks"][0]["k"].dtype == torch.int8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_on_the_card_equals_the_cpu(cuda, dtype):
+    """``quantize_kv`` and ``dequantize_kv`` are torch ops: on the card
+    they give the CPU's int8 values and scales bit for bit (an absmax, one
+    correctly rounded division, round half to even)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((4, 257, 8, 128))
+         * rng.choice([1e-3, 1.0, 30.0], (4, 257, 8, 1)))
+    x[..., 0], x[..., 1], x[0, 0, 0] = 127.0, 0.5, 0.0
+    host = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    want_q, want_s = L.quantize_kv(host)
+    got_q, got_s = L.quantize_kv(host.to(cuda))
+    assert torch.equal(got_q.cpu(), want_q)
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(L.dequantize_kv(got_q, got_s, dtype).cpu(),
+                       L.dequantize_kv(want_q, want_s, dtype))
 
 
 # -- subsample_gather --------------------------------------------------------
