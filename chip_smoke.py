@@ -6,11 +6,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the six CUDA kernels from ``src/repro_torch``
+2. Builds the seven CUDA kernel sources from ``src/repro_torch``
    (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
-   ``rglru_scan``, ``flash_attention`` and ``subsample_grid``), one nvcc
-   each, started together, and prints ptxas' registers, shared memory and
-   spills.
+   ``rglru_scan``, ``flash_attention``, ``subsample_grid`` and
+   ``flash_attention_bwd``), one nvcc each, started together, and prints
+   ptxas' registers, shared memory and spills.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
@@ -39,6 +39,16 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    block and on a view off 16-byte alignment; each is timed beside its
    bound, and the gated form beside the torch gates and read form it
    replaced.
+   Phase 3g holds ``flash_attention_bwd`` (the backward training takes
+   through ``flash_attention``) against its plain version, fed the
+   forward's own output and log-sum-exp (held first against the plain
+   log-sum-exp), at ``musicgen-medium``'s microbatch shape (q ``[48, 2048,
+   64]`` bf16, causal), at ``deepseek-7b``'s (q ``[128, 4064, 128]``, the
+   plain version on 16 heads), at group 6, ragged lengths, fp32 and HD 32
+   and 256; at both model shapes a second launch equals the first bit for
+   bit, and the kernel is timed beside its bound, its plain version and
+   the backward of ``scaled_dot_product_attention(is_causal=True)``, and
+   the forward with and without its log-sum-exp.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -169,6 +179,23 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    pool's simulated session (``launch.elastic.demo_elastic_run``), its
    reports printed.  The kernel table gives each platform kernel's
    ``sharded_launches`` over 12a–12d.
+14. After phase 13: training.  14a trains ``musicgen-medium`` whole (48
+   layers, d_model 1536, bf16 parameters from a seed, fp32 moments and
+   accumulation, remat full) through ``train()`` for 5 steps of batch 8 ×
+   2,048 tokens from the subsampling pipeline (4 microbatches), the
+   launch counts zeroed just before and read just after: 384
+   ``flash_attention`` (the forward twice under remat) and 192
+   ``flash_attention_bwd`` a step; prints step times, tokens/s, peak
+   memory, one step's device time by kind under ``torch.profiler``, and
+   checks that every parameter leaf has a finite non-zero gradient and
+   changes within two steps.  14b one ``make_train_step`` on the card and
+   on the CPU (plain versions) from the same fp32 state, full width at 2
+   layers: the loss within 1e-4, gradients and parameters within their
+   stated bounds.  14c ``deepseek-7b`` at full width cut to 4 layers, one
+   step at batch 1 × 4,064 (the HD-128 backward at its real shape), every
+   layer's wq, wk and wv with a gradient.  14d 4 steps straight against 2
+   + a checkpoint + a resumed ``train()`` + 2, the losses equal bit for
+   bit.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -600,6 +627,19 @@ def check_rwkv6_kernel(ops, ref, rw):
             "bound_ms": bound_ms, "bound_by": bound_by, **pass_ms}
 
 
+def _busy_us(dev):
+    """The union of the device operations' spans, ``dev`` sorted ``(start,
+    end, name)`` in µs: the time the device was busy."""
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, _ in dev:
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return busy + cur_end - cur_start
+
+
 def _profiled(label, fn, kernels=("rwkv6_chunked",), *, ran=(), absent=()):
     """``fn()`` once under ``torch.profiler``, closed by a synchronise:
     its host wall time, the device time and each of ``kernels``' share of
@@ -631,14 +671,7 @@ def _profiled(label, fn, kernels=("rwkv6_chunked",), *, ran=(), absent=()):
         seen = sorted({name for _, _, name in dev if k in name})
         if seen:
             raise AssertionError(f"{label}: ran {seen}, not expected")
-    busy, cur_start, cur_end = 0.0, None, None
-    for start, end, _ in dev:
-        if cur_end is None or start > cur_end:
-            busy += 0.0 if cur_end is None else cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
+    busy = _busy_us(dev)
     by_name = {}
     for start, end, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
@@ -1058,6 +1091,175 @@ def check_flash_kernel(ops, ref):
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, **timings[DENSE_FA],
             "local_hd256": timings[local]}
+
+
+# flash_attention_bwd vs its plain version: both take the same bf16 (or
+# fp32) inputs, the kernel's own out and lse, and sum in fp32; the sums run
+# in other orders (over 2,048-4,064 rows or keys), so the fp32 gradients
+# agree to ~1e-5 of their scale, and each bf16 gradient is one rounding of
+# them: the two may part by one bf16 step (2^-8 relative, under 1e-2) plus
+# the fp32 difference near zero
+FA_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+# the backward's main path: one musicgen-medium layer of a microbatch of 2
+# sequences of 2,048 tokens (24 heads of 64); and deepseek-7b's layer shape
+MUSICGEN_FA = (2 * 24, 2048, 2048, 64, True, 0, 1)
+# heads of the deepseek-7b shape the plain version is held on (all 128 would
+# take some 45 GB of fp32 score matrices)
+DENSE_BWD_PLAIN_HEADS = 16
+
+
+def _flash_bwd_bound(q, k, causal, group):
+    """Least time for one backward: q, k, v, out, dout and lse read once,
+    dq, dk and dv written once, over 3.35 TB/s, against five products of
+    2·HD operations for every (query, key) pair the mask leaves (S, dP,
+    dV, dK, dQ; the forward does two) over the tensor-core rate of the
+    inputs' type."""
+    from repro_torch.kernels import ref
+
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    esize = q.element_size()
+    nbytes = ((4 * bh * sq * hd + 4 * (bh // group) * skv * hd) * esize
+              + 4 * bh * sq)
+    pairs = int(ref.attention_mask(sq, skv, causal=causal, window=0,
+                                   device=q.device).sum()) * bh
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10.0 * hd * pairs / rate * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), pairs
+
+
+def _sdpa_bwd_ms(q, k, v, dout):
+    """The library yardstick: the backward alone of autograd through
+    ``scaled_dot_product_attention(is_causal=True)`` on the same tensors
+    (group 1)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t[None].detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qs, ks, vs, is_causal=True)
+    grad = dout[None]
+    return _time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), grad, retain_graph=True), reps=10)
+
+
+def check_flash_bwd_kernel(ops, ref):
+    """Phase 3g: ``flash_attention_bwd`` against its plain version
+    (``ref.flash_attention_bwd_ref``) on the card, fed the kernel's own
+    forward output and log-sum-exp, which are held first against the plain
+    forward and ``ref.flash_attention_lse_ref``: at ``musicgen-medium``'s
+    microbatch shape (q ``[48, 2048, 64]`` bf16, causal, the main path of
+    phase 14), at ``deepseek-7b``'s (q ``[128, 4064, 128]`` bf16, causal;
+    the plain version on 16 of its heads), at ``internlm2-20b``'s group of
+    6, at ragged Sq and Skv, non-causal, fp32, and at HD 32 and 256.  At
+    both main shapes a second launch must equal the first bit for bit, and
+    the kernel is timed beside its bound, its plain version and the
+    backward alone of autograd through
+    ``scaled_dot_product_attention(is_causal=True)``; the forward with and
+    without its log-sum-exp is timed beside them."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    dense = DENSE_FA
+    cases = [  # bh, sq, skv, hd, causal, window, group, dtype
+        MUSICGEN_FA + (torch.bfloat16,),
+        dense + (torch.bfloat16,),
+        (4 * 48, 1000, 1000, 128, True, 0, 6, torch.bfloat16),
+        (12, 577, 577, 128, True, 0, 6, torch.float32),
+        (8, 1000, 1000, 64, True, 0, 1, torch.float32),
+        (6, 300, 500, 32, False, 0, 2, torch.float32),
+        (8, 500, 300, 32, True, 0, 2, torch.bfloat16),
+        (4, 129, 129, 256, True, 0, 2, torch.bfloat16),
+        (4, 200, 77, 256, False, 0, 1, torch.float32),
+    ]
+    worst = {"lse": 0.0, "grad": 0.0}
+    timings = {}
+    for bh, sq, skv, hd, causal, window, group, dtype in cases:
+        shape = (bh, sq, skv, hd, causal, window, group)
+        q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((bh // group, skv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        dout = torch.randn((bh, sq, hd), generator=gen,
+                           device="cuda").to(dtype)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=0,
+                                      group=group, with_lse=True)
+        plain_heads = (DENSE_BWD_PLAIN_HEADS if shape == dense else bh)
+        hs, kvs = slice(0, plain_heads), slice(0, plain_heads // group)
+        lse_want = ref.flash_attention_lse_ref(q[hs], k[kvs], causal=causal,
+                                               group=group)
+        torch.testing.assert_close(lse[hs], lse_want, rtol=1e-5, atol=1e-5)
+        worst["lse"] = max(worst["lse"],
+                           float((lse[hs] - lse_want).abs().max()))
+        del lse_want
+        ops.reset_launch_count()
+        grads = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                        causal=causal, group=group)
+        torch.cuda.synchronize()
+        if ops.launch_count("flash_attention_bwd") != 1:
+            raise AssertionError("flash_attention_bwd did not count its "
+                                 "launch")
+        want = ref.flash_attention_bwd_ref(
+            q[hs], k[kvs], v[kvs], out[hs], lse[hs], dout[hs],
+            causal=causal, group=group)
+        rtol, atol = FA_BWD_TOL[dtype]
+        errs = []
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            got = got[hs] if name == "dq" else got[kvs]
+            torch.testing.assert_close(got, w, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{name} at {shape}: {m}")
+            errs.append(float((got.float() - w.float()).abs().max()))
+        worst["grad"] = max(worst["grad"], *errs)
+        del want
+        print(f"flash_attention_bwd check BH={bh} Sq={sq} Skv={skv} HD={hd} "
+              f"causal={causal} group={group} {str(dtype).split('.')[-1]}"
+              f"{'' if plain_heads == bh else f' (plain on {plain_heads} heads)'}"
+              f": max_abs_err dq {errs[0]!r}, dk {errs[1]!r}, dv {errs[2]!r} "
+              f"(rtol {rtol}, atol {atol}); lse against the plain lse "
+              f"within 1e-5")
+        if shape in (MUSICGEN_FA, dense):
+            again = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            causal=causal, group=group)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"two flash_attention_bwd launches on "
+                                     f"the inputs of {shape} differ")
+            del again
+            torch.cuda.empty_cache()
+            ms = _time_ms(lambda: ops.flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=causal, group=group),
+                reps=5)
+            plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(
+                q[hs], k[kvs], v[kvs], out[hs], lse[hs], dout[hs],
+                causal=causal, group=group), reps=2)
+            torch.cuda.empty_cache()
+            fwd_ms = _time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=0, group=group), reps=10)
+            fwd_lse_ms = _time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=0, group=group,
+                with_lse=True), reps=10)
+            library_ms = _sdpa_bwd_ms(q, k, v, dout)
+            torch.cuda.empty_cache()
+            (bound_ms, bound_by), pairs = _flash_bwd_bound(q, k, causal,
+                                                           group)
+            tflops = 10.0 * hd * pairs / ms / 1e9
+            print(f"flash_attention_bwd at q [{bh}, {sq}, {hd}] bf16, causal "
+                  f"({pairs} query-key pairs): kernel {ms!r} ms ({tflops!r} "
+                  f"TFLOP/s, {bound_ms / ms!r} of its bound; a second "
+                  f"launch equal bit for bit), plain {plain_ms!r} ms"
+                  f"{'' if plain_heads == bh else f' on {plain_heads} of {bh} heads'}"
+                  f", bound {bound_ms!r} ms ({bound_by}), the backward of "
+                  f"scaled_dot_product_attention(is_causal=True) "
+                  f"{library_ms!r} ms (kernel / library {ms / library_ms!r});"
+                  f" the forward {fwd_ms!r} ms, with its lse {fwd_lse_ms!r} "
+                  "ms")
+            timings[shape] = {"ms": ms, "plain_ms": plain_ms,
+                              "plain_heads": plain_heads,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": library_ms,
+                              "forward_ms": fwd_ms,
+                              "forward_lse_ms": fwd_lse_ms}
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst["grad"], "lse_max_abs_err": worst["lse"],
+            **timings[MUSICGEN_FA], "deepseek_7b": timings[dense]}
 
 
 def serve_recurrentgemma(ops):
@@ -2889,8 +3091,8 @@ def _profiled_waves(prof, kernel_names, occupied):
     kernels (summed) and whether two of its launches ran at once (two
     streams overlapping).  ``kernel_names[0]`` is the device function a
     launch runs once; the kernels from a wave's first such function to
-    the next wave's are the wave's.  The trace may start with a warm-up
-    wave (its kernels, before the waves', are left out): the profiler can
+    the next wave's are the wave's.  The trace starts with warm-up waves
+    (their kernels, before the waves', are left out): the profiler can
     miss the first kernels after it starts."""
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in prof.events()
@@ -2973,7 +3175,10 @@ def sharded_below_the_driver(ops, ss, samples, months, spec):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            pc.run_map_wave_sharded(sharded, *seeded[0], wl, engine)
+            # the profiler can miss the first kernels after it starts: every
+            # wave runs once before the timed ones
+            for wave, seeds in seeded:
+                pc.run_map_wave_sharded(sharded, wave, seeds, wl, engine)
             torch.cuda.synchronize()
             for wave, seeds in seeded:
                 t_wave = time.perf_counter()
@@ -3121,6 +3326,395 @@ def sharded_waves_on_the_card(ops, prng, ss, Platform, samples, months,
     return launches
 
 
+# phase 14 — training
+#
+# 14b: the card (kernels) against the CPU (plain versions), fp32, full
+# width at 2 layers: the loss within 1e-4 relative and each gradient leaf
+# within 1e-4 of the leaf's largest entry (fp32 sums in other orders
+# through two layers and a 2,048-way head).  The step is Adam's first
+# (moments 0): it moves each parameter by lr · g / (|g| + eps) beside the
+# weight decay, which is the same on both sides; so gradients that part by
+# dg move it apart by up to lr · eps · dg / (|g| + eps)^2, at most 2 lr
+# where |g| is near eps.  Each updated entry is held to that bound, with dg
+# the gradient tolerance, plus 1e-4 of its leaf's largest parameter
+TRAIN_TOL = 1e-4
+
+
+def _train_run(cfg, batch, seq, **train_kw):
+    from repro_torch.config import (MeshConfig, RunConfig, ShapeConfig,
+                                    TrainConfig)
+    return RunConfig(model=cfg, shape=ShapeConfig("train", "train", seq,
+                                                  batch),
+                     mesh=MeshConfig((1, 1), ("data", "model")),
+                     train=TrainConfig(**train_kw))
+
+
+def _train_batches(cfg, batch, seq, seed=0):
+    """The subsampling input pipeline over a Zipfian corpus, as
+    ``launch.train`` builds it."""
+    from repro_torch.data import (PipelineConfig, SubsamplingBatchPipeline,
+                                  lm_token_corpus)
+    corpus = lm_token_corpus(1 << 20, cfg.vocab_size, shard_tokens=1 << 16)
+    return SubsamplingBatchPipeline(
+        corpus, PipelineConfig(batch_size=batch, seq_len=seq,
+                               seed=seed)).batches(None)
+
+
+def _attention_launches(cfg, n_mb):
+    """``flash_attention`` and ``flash_attention_bwd`` launches a step:
+    one of each a layer and microbatch, and a second forward for every
+    layer under remat, which runs each block's forward again inside its
+    backward."""
+    from repro_torch.models import transformer as T
+    plan = T.stack_plan(cfg)
+    unrolled = len(plan.prefix) + len(plan.tail)
+    blocks = plan.n_blocks * len(plan.pattern)
+    again = 2 if cfg.remat != "none" else 1
+    return ({"flash_attention": n_mb * (unrolled + again * blocks),
+             "flash_attention_bwd": n_mb * (unrolled + blocks)})
+
+
+def _kind_of(name):
+    if "flash_attention" in name:
+        return "flash_attention forward"
+    if "flash_bwd" in name:
+        return "flash_attention_bwd"
+    if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "sm90_", "cublas")):
+        return "GEMM"
+    return "elementwise and reductions"
+
+
+def _profiled_step(step_fn, state, batch, label):
+    """One training step under ``torch.profiler``: the device time by kind
+    (GEMMs, the attention forward and backward, AdamW's update: the
+    kernels launched inside ``adamw.update``, the rest: elementwise work
+    and reductions) and the device's busy share of the step's wall
+    time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.optim import adamw
+
+    update = adamw.update
+
+    def annotated(*args, **kwargs):
+        with record_function("adamw.update"):
+            return update(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    adamw.update = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        adamw.update = update
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    annotations = [e for e in on_device if e.name == "adamw.update"]
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in on_device if e.name != "adamw.update")
+    if not dev:
+        raise AssertionError(f"the profiler saw no device time in {label}")
+    kinds = {}
+    for start, end, name in dev:
+        kinds[_kind_of(name)] = kinds.get(_kind_of(name), 0.0) + (
+            end - start) / 1e3
+    # AdamW's kernels are elementwise: move them to their own kind (the
+    # device time of the kernels its range launched; where the profiler
+    # attributes none, the span of its range on the device)
+    opt_ms = sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
+                 if e.name == "adamw.update"
+                 and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3
+    if opt_ms <= 0.0:
+        opt_ms = sum(e.time_range.end - e.time_range.start
+                     for e in annotations) / 1e3
+    if opt_ms > 0.0:
+        kinds["AdamW"] = opt_ms
+        kinds["elementwise and reductions"] -= opt_ms
+    busy = _busy_us(dev)
+    total = sum(kinds.values())
+    by_name = {}
+    for start, end, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"{label} under the profiler: wall {wall * 1e3!r} ms, device time "
+          f"{total!r} ms by kind [ms, share] "
+          + json.dumps({k: [v, v / total] for k, v in sorted(kinds.items())})
+          + f", device busy {busy / 1e3!r} ms (share of the wall "
+          f"{busy / 1e3 / (wall * 1e3)!r}); top device ms by name "
+          + json.dumps([[n[:70], round(t, 3)] for n, t in top]))
+    return out, kinds
+
+
+def train_musicgen_whole(ops):
+    """14a: ``musicgen-medium`` whole (48 layers, d_model 1536, 24 heads of
+    64, d_ff 6144, vocab 2048; bf16 parameters from a seed), the
+    reference's default ``TrainConfig`` precision (fp32 moments and
+    accumulation, remat full) with a learning rate of 3e-3 and one warm-up
+    step (the schedule's rate is 0 at step 0, and a bf16 norm scale of 1
+    moves only for steps over 2e-3): batch 8 × 2,048 tokens from the
+    subsampling pipeline, 4 microbatches by the config's 4,096-token
+    kneepoint, 5 steps through ``train()``."""
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path
+
+    card = _card_line()
+    cfg = get_config("musicgen-medium")
+    run = _train_run(cfg, 8, 2048, learning_rate=3e-3, warmup_steps=1,
+                     total_steps=5)
+    n_mb = run.microbatches()
+    if n_mb != 4:
+        raise AssertionError(f"14a: {n_mb} microbatches, not 4")
+    want = _attention_launches(cfg, n_mb)
+    model = Model(cfg)
+    stamps = []
+
+    def timed(batches):
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    report = loop.train(model, run, timed(_train_batches(cfg, 8, 2048)), 5,
+                        log_every=100)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = {k: ops.launch_count(k) for k in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:] + [end])]
+    tokens = 8 * 2048
+    print(f"14a: 5 steps through train() in {report.seconds!r} s: losses "
+          f"{report.losses}, step seconds {step_s}, tokens/s "
+          f"{[tokens / s for s in step_s]}, peak memory {peak} bytes; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f" in 5 steps, a step {json.dumps(want)} (4 microbatches x 48 "
+          f"layers, the forward twice under remat) ({card})")
+    if not all(np.isfinite(report.losses)):
+        raise AssertionError(f"14a: a loss is not finite: {report.losses}")
+    for k, n in want.items():
+        if launches[k] != 5 * n:
+            raise AssertionError(f"14a: {k} launched {launches[k]} times in "
+                                 f"5 steps, not 5 x {n}")
+    if any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"14a: other kernels launched: {launches}")
+
+    # every leaf's gradient is non-zero, and every leaf moves: from the
+    # same state again (init_state draws it from the run's seed)
+    state0 = loop.init_state(model, run)
+    batches = _train_batches(cfg, 8, 2048, seed=1)
+    b1 = loop.to_device(next(batches), "cuda")
+    _, _, grads = microbatch.accumulate_gradients(model.loss, state0.params,
+                                                  b1, n_mb)
+    norms = {"/".join(map(str, p)): float(torch.linalg.vector_norm(
+        g.float())) for p, g in tree_leaves_with_path(grads)}
+    bad = [k for k, v in norms.items() if not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"14a: zero or non-finite gradients: {bad}")
+    lr = adamw.lr_schedule(run.train, torch.ones((), dtype=torch.int32,
+                                                 device="cuda"))
+    opt_ms = _time_ms(lambda: adamw.update(grads, state0.opt, state0.params,
+                                           lr, run.train), reps=1)
+    del grads
+    torch.cuda.empty_cache()
+    step_fn = loop.make_train_step(model, run)
+    s1, m1 = step_fn(state0, b1)
+    (s2, m2), kinds = _profiled_step(step_fn, s1, loop.to_device(
+        next(batches), "cuda"), "14a: step 2")
+    moved = [k for (k, _), a, b in zip(
+        tree_leaves_with_path(state0.params),
+        (t for _, t in tree_leaves_with_path(state0.params)),
+        (t for _, t in tree_leaves_with_path(s2.params)))
+        if not torch.equal(a, b)]
+    still = len(norms) - len(moved)
+    print(f"14a: every one of {len(norms)} leaves has a finite non-zero "
+          f"gradient (smallest norm {min(norms.values())!r}, the wq/wk/wv "
+          f"norms {[norms[k] for k in sorted(norms) if k.endswith(('wq', 'wk', 'wv'))]}); "
+          f"{len(moved)} of {len(norms)} leaves changed over two steps "
+          f"(losses {float(m1['loss'])!r}, {float(m2['loss'])!r}); "
+          f"adamw.update alone {opt_ms!r} ms ({card})")
+    if still or not (np.isfinite(float(m1["loss"]))
+                     and np.isfinite(float(m2["loss"]))):
+        raise AssertionError(f"14a: {still} leaves did not change")
+    del state0, s1, s2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "want": want, "losses": report.losses,
+            "step_s": step_s, "peak_bytes": peak, "kinds_ms": kinds,
+            "adamw_ms": opt_ms}
+
+
+def train_card_against_cpu():
+    """14b: one ``make_train_step`` on the card (the kernels) and on the
+    CPU (their plain versions) from the same fp32 parameters and batch:
+    ``musicgen-medium`` at full width cut to 2 layers, batch 2 × 256, from
+    step 1 (a learning rate of 1e-2)."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dc.replace(get_config("musicgen-medium"), num_layers=2,
+                     dtype="float32")
+    run = _train_run(cfg, 2, 256, learning_rate=1e-2, warmup_steps=1,
+                     total_steps=5)
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg)
+    cpu_state = loop.init_state(cpu_model, run)
+    cpu_state = cpu_state._replace(step=torch.ones((), dtype=torch.int32))
+    card_state = tree_map(lambda t: t.to("cuda"), cpu_state)
+    host = next(_train_batches(cfg, 2, 256, seed=2))
+    results = {}
+    for where, model, state in (("cpu", cpu_model, cpu_state),
+                                ("cuda", card_model, card_state)):
+        batch = loop.to_device(host, where)
+        _, _, grads = microbatch.accumulate_gradients(
+            model.loss, state.params, batch, run.microbatches())
+        new, metrics = loop.make_train_step(model, run)(state, batch)
+        results[where] = (tree_map(lambda t: t.cpu(), grads),
+                          tree_map(lambda t: t.cpu(), new.params),
+                          float(metrics["loss"]))
+    (g_cpu, p_cpu, l_cpu), (g_card, p_card, l_card) = (results["cpu"],
+                                                       results["cuda"])
+    if abs(l_card - l_cpu) > TRAIN_TOL * abs(l_cpu):
+        raise AssertionError(f"14b: loss {l_card!r} on the card, {l_cpu!r} "
+                             "on the CPU")
+    worst_g = worst_p = 0.0
+    lr, eps = run.train.learning_rate, run.train.eps
+    # the update sees the gradients clipped to a global norm of grad_clip
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g))
+                                 for g in tree_leaves(g_cpu))))
+    clip = min(1.0, run.train.grad_clip / gnorm)
+    for gc, gk, pc_, pk in zip(tree_leaves(g_cpu), tree_leaves(g_card),
+                               tree_leaves(p_cpu), tree_leaves(p_card)):
+        scale = float(gc.abs().max())
+        worst_g = max(worst_g, float((gk - gc).abs().max()) / scale)
+        dg = clip * TRAIN_TOL * scale
+        reach = torch.clamp(
+            lr * eps * dg / torch.square(clip * gc.abs() + eps), max=2 * lr)
+        tol = reach + TRAIN_TOL * float(pc_.abs().max())
+        diff = (pk - pc_).abs()
+        if bool((diff > tol).any()):
+            raise AssertionError("14b: an updated parameter parts from the "
+                                 f"CPU's by {float(diff.max())!r}")
+        worst_p = max(worst_p, float(diff.max()))
+    if worst_g > TRAIN_TOL:
+        raise AssertionError(f"14b: gradients part by {worst_g!r} of their "
+                             "leaves' largest")
+    print(f"14b: musicgen-medium at full width, 2 layers, fp32, batch 2 x "
+          f"256: loss {l_card!r} on the card, {l_cpu!r} on the CPU "
+          f"(relative {abs(l_card - l_cpu) / abs(l_cpu)!r}, within "
+          f"{TRAIN_TOL}); gradients within {worst_g!r} of each leaf's "
+          f"largest; updated parameters within {worst_p!r} (each held to "
+          "the reach of its gradient's tolerance)")
+
+
+def train_deepseek_cut():
+    """14c: ``deepseek-7b`` at full width (d_model 4096, 32 heads of 128,
+    d_ff 11008, vocab 102,400) cut to 4 layers, bf16, one step at batch
+    1 × 4,064: the loss finite and every layer's wq, wk and wv with a
+    non-zero gradient."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+
+    cfg = dc.replace(get_config("deepseek-7b"), num_layers=4)
+    run = _train_run(cfg, 1, 4064, learning_rate=1e-2, warmup_steps=1,
+                     total_steps=5)
+    model = Model(cfg)
+    state = loop.init_state(model, run)
+    batch = loop.to_device(next(_train_batches(cfg, 1, 4064, seed=3)),
+                           "cuda")
+    ops.reset_launch_count()
+    loss, _, grads = microbatch.accumulate_gradients(
+        model.loss, state.params, batch, run.microbatches())
+    counted = {k: ops.launch_count(k) for k in ("flash_attention",
+                                                "flash_attention_bwd")}
+    want = _attention_launches(cfg, run.microbatches())
+    mix = grads["blocks"][0]["mix"]
+    norms = {n: torch.linalg.vector_norm(mix[n].float(), dim=(1, 2)).tolist()
+             for n in ("wq", "wk", "wv")}
+    if counted != want or not np.isfinite(float(loss)) or not all(
+            v > 0 and np.isfinite(v) for vs in norms.values() for v in vs):
+        raise AssertionError(f"14c: loss {float(loss)!r}, launches "
+                             f"{counted} (want {want}), norms {norms}")
+    del grads
+    t0 = time.perf_counter()
+    _, metrics = loop.make_train_step(model, run)(state, batch)
+    step_s = time.perf_counter() - t0
+    print(f"14c: deepseek-7b, 4 layers at full width, batch 1 x 4064: loss "
+          f"{float(loss)!r} (the step's {float(metrics['loss'])!r}, "
+          f"{step_s!r} s), launches {counted}, per-layer gradient norms "
+          f"{json.dumps(norms)}")
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("14c: the step's loss is not finite")
+
+
+def train_resume():
+    """14d: checkpoint and resume on the card: ``musicgen-medium`` at full
+    width cut to 2 layers, bf16, batch 2 × 512; 4 steps straight against
+    2 steps, a checkpoint, a fresh ``train()`` that restores it and 2
+    more steps on the pipeline's next batches: the losses equal bit for
+    bit."""
+    import dataclasses as dc
+    import itertools
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import loop
+
+    cfg = dc.replace(get_config("musicgen-medium"), num_layers=2)
+    run = _train_run(cfg, 2, 512, learning_rate=3e-3, warmup_steps=1,
+                     total_steps=4)
+    model = Model(cfg)
+    straight = loop.train(model, run, _train_batches(cfg, 2, 512), 4,
+                          log_every=100)
+    where = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(where, keep=2)
+        first = loop.train(model, run, _train_batches(cfg, 2, 512), 2,
+                           checkpoint_manager=mgr, checkpoint_every=2,
+                           log_every=100)
+        rest = itertools.islice(_train_batches(cfg, 2, 512), 2, None)
+        second = loop.train(model, run, rest, 4, checkpoint_manager=mgr,
+                            log_every=100)
+        saved = mgr.all_steps()
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    print(f"14d: 4 steps straight {straight.losses}; 2 steps "
+          f"{first.losses}, resumed from step {saved[0]}, 2 steps "
+          f"{second.losses}")
+    if first.losses + second.losses != straight.losses:
+        raise AssertionError("14d: the resumed run's losses differ from the "
+                             "straight run's")
+
+
+def train_on_the_card(ops):
+    """Phase 14: training, 14a–14d."""
+    t0 = time.perf_counter()
+    out = train_musicgen_whole(ops)
+    print(f"14a: {time.perf_counter() - t0!r} s")
+    for step in (train_card_against_cpu, train_deepseek_cut, train_resume):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.empty_cache()
+        print(f"{step.__name__}: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -3130,14 +3724,16 @@ def main() -> None:
     from repro_torch import prng
     from repro_torch.core import subsample as ss
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import (flash_attention, rglru_scan, rwkv6_scan,
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     rglru_scan, rwkv6_scan,
                                      subsample_gather, subsample_grid)
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
     libraries = (subsample_gather.LIBRARY, subsample_gather.GATHER_LIBRARY,
                  rwkv6_scan.LIBRARY, rglru_scan.LIBRARY,
-                 flash_attention.LIBRARY, subsample_grid.LIBRARY)
+                 flash_attention.LIBRARY, subsample_grid.LIBRARY,
+                 flash_attention_bwd.LIBRARY)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -3159,6 +3755,7 @@ def main() -> None:
     rw_timing = check_rwkv6_kernel(ops, ref, rwkv6_scan)
     rg_timing = check_rglru_kernel(ops, ref)
     fa_timing = check_flash_kernel(ops, ref)
+    fab_timing = check_flash_bwd_kernel(ops, ref)
     sg_timing = check_gather_kernel(ops, ref)
 
     # phase 4 — the main path at real size
@@ -3309,6 +3906,12 @@ def main() -> None:
     dense_fast_steps(ops)
     print(f"phase 13: {time.perf_counter() - t0!r} s")
 
+    # phase 14 — training: musicgen-medium whole, the card against the
+    # CPU, deepseek-7b cut in depth, checkpoint and resume
+    t0 = time.perf_counter()
+    trained = train_on_the_card(ops)
+    print(f"phase 14: {time.perf_counter() - t0!r} s")
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
@@ -3331,7 +3934,21 @@ def main() -> None:
         "launches": dense_launches["flash_attention"],
         "main_path": "deepseek-7b prefill (phase 13), q [128, 4064, 128] "
                      "bf16, causal, window 0, group 1",
-        "local_launches": rg_launches["flash_attention"], **fa_timing}, {
+        "local_launches": rg_launches["flash_attention"],
+        "train_launches": trained["launches"]["flash_attention"],
+        "forward_with_lse_ms": fab_timing["deepseek_7b"]["forward_lse_ms"],
+        **fa_timing}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:112",
+        "replaces_note": "no TPU kernel: the reference trains through "
+                         "XLA's gradient of the jnp _attend_block there; "
+                         "src/repro/kernels/flash_attention.py:77 has no "
+                         "backward",
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "main_path": "musicgen-medium training (phase 14a), q [48, 2048, "
+                     "64] bf16, causal, group 1, 5 steps",
+        **fab_timing}, {
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:64",

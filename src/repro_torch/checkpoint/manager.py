@@ -37,15 +37,16 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves_with_path, tree_map
+from repro_torch.tree import AttrKey, tree_leaves_with_path, tree_map
 
 BF16 = "bfloat16"
 
 
 def _keystr(path: Tuple) -> str:
     """JAX's ``keystr`` of a path: ``[repr(key)]`` a dict key, ``[i]`` a
-    list index."""
-    return "".join(f"[{k!r}]" for k in path)
+    list index, ``.name`` a named tuple's field."""
+    return "".join(f".{k.name}" if isinstance(k, AttrKey) else f"[{k!r}]"
+                   for k in path)
 
 
 def _treedef_str(tree: Any) -> str:

@@ -5,6 +5,7 @@
   generated "statistically similar" exactly as the thesis did.
 * Netflix (§4.1.1.2): per-movie rating tuples (month, rating), ≈118 KB per
   movie at full scale.
+* LM corpus: Zipfian token shards for the training pipeline.
 
 Sizes here default to container-friendly fractions of the originals; the
 generators take explicit scale parameters so benchmarks can sweep job size
@@ -74,3 +75,16 @@ def netflix_dataset(spec: NetflixSpec = NetflixSpec()
         months[mid] = mo
     return samples, months
 
+
+def lm_token_corpus(n_tokens: int, vocab_size: int, *, seed: int = 0,
+                    shard_tokens: int = 1 << 16) -> Dict[int, np.ndarray]:
+    """Zipfian token shards for the LM training pipeline."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    shards = {}
+    for i in range(max(1, n_tokens // shard_tokens)):
+        shards[i] = rng.choice(vocab_size, size=shard_tokens,
+                               p=probs).astype(np.int32)
+    return shards

@@ -23,6 +23,13 @@
 // asserts that its blocks divide the sequence.  The input type picks one
 // of two bodies.
 //
+// Training: where the caller passes `lse` (fp32 [BH, Sq]), both bodies also
+// write each row's log-sum-exp, m + log l in natural units of the scaled
+// scores (the bf16 body keeps m in log2 units and converts: (m + log2 l) *
+// ln 2), or -inf for a row that sees no key; flash_attention_bwd.cu
+// recomputes P = exp(scale * q.k - lse) from it.  Serving passes nullptr
+// and writes nothing more.
+//
 // Bound: operations.  At the serving shape (q [40, 4096, 256] bf16, k, v
 // [4, 4096, 256], window 2,048, group 10) the window leaves 251.7 M
 // (query, key) pairs, 4 * 256 operations each: 257.7 GFLOP, 0.261 ms at
@@ -126,8 +133,8 @@ template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int64_t sq, int64_t skv, int group, int causal,
-                       int64_t window, float scale) {
+                       float* __restrict__ lse, int64_t sq, int64_t skv,
+                       int group, int causal, int64_t window, float scale) {
   constexpr int LD = ld<HD>();
   // output columns of a thread: VEC adjacent ones in each of NV groups
   constexpr int VEC = HD / 16 < 4 ? HD / 16 : 4;
@@ -278,6 +285,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int64_t row = q0 + tr + 16 * i;
     if (row >= sq) continue;
+    if (lse != nullptr && tc == 0)
+      lse[bh * sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int c = 0; c < NV; ++c)
@@ -580,7 +589,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap to,
-                             int64_t sq, int64_t skv, int group, int causal,
+                             float* __restrict__ lse, int64_t sq,
+                             int64_t skv, int group, int causal,
                              int64_t window, float scale_log2) {
   using T = Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -762,6 +772,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      // log-sum-exp of the row, natural units: m is in log2 units
+      if (lse != nullptr && lane % 4 == 0 && row + 8 * r < sq)
+        lse[static_cast<int64_t>(bh) * sq + row + 8 * r] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.69314718055994531f
+                       : -INFINITY;
     }
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -792,8 +807,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int64_t bh, int64_t sq, int64_t skv, int group,
-                   int causal, int64_t window, cudaStream_t stream) {
+                   float* lse, int64_t bh, int64_t sq, int64_t skv,
+                   int group, int causal, int64_t window,
+                   cudaStream_t stream) {
   auto kern = flash_attention_kernel<HD, T>;
   constexpr size_t bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -804,8 +820,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>((sq + kBlockQ - 1) / kBlockQ));
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, group, causal,
-      window, 1.0f / sqrtf(static_cast<float>(HD)));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, group,
+      causal, window, 1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
@@ -852,10 +868,11 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int64_t bh, int64_t sq, int64_t skv,
-                         int group, int causal, int64_t window,
+                         void* out, float* lse, int64_t bh, int64_t sq,
+                         int64_t skv, int group, int causal, int64_t window,
                          cudaStream_t stream) {
-  if (skv == 0)  // no key at all: every row gives zeros
+  if (skv == 0)  // no key at all: every row gives zeros (the wrapper
+                 // fills lse with -inf)
     return cudaMemsetAsync(out, 0, static_cast<size_t>(bh * sq * HD) * 2,
                            stream);
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
@@ -878,39 +895,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(static_cast<unsigned>(bh),
                   static_cast<unsigned>((sq + kTcBlockQ - 1) / kTcBlockQ));
   kern<<<grid, kTcThreads, bytes, stream>>>(
-      tq, tk, tv, to, sq, skv, group, causal, window,
+      tq, tk, tv, to, lse, sq, skv, group, causal, window,
       1.4426950408889634f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
-                      void* out, int64_t bh, int64_t sq, int64_t skv,
-                      int group, int causal, int64_t window,
+                      void* out, float* lse, int64_t bh, int64_t sq,
+                      int64_t skv, int group, int causal, int64_t window,
                       cudaStream_t s) {
-  return bf16 ? launch_wgmma<HD>(q, k, v, out, bh, sq, skv, group, causal,
-                                 window, s)
-              : launch<HD, float>(q, k, v, out, bh, sq, skv, group, causal,
-                                  window, s);
+  return bf16 ? launch_wgmma<HD>(q, k, v, out, lse, bh, sq, skv, group,
+                                 causal, window, s)
+              : launch<HD, float>(q, k, v, out, lse, bh, sq, skv, group,
+                                  causal, window, s);
 }
 
 cudaError_t dispatch_hd(int64_t hd, bool bf16, const void* q, const void* k,
-                        const void* v, void* out, int64_t bh, int64_t sq,
-                        int64_t skv, int group, int causal, int64_t window,
-                        cudaStream_t s) {
+                        const void* v, void* out, float* lse, int64_t bh,
+                        int64_t sq, int64_t skv, int group, int causal,
+                        int64_t window, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch_hd<32>(bf16, q, k, v, out, bh, sq, skv, group, causal,
-                           window, s);
+      return launch_hd<32>(bf16, q, k, v, out, lse, bh, sq, skv,
+                            group, causal, window, s);
     case 64:
-      return launch_hd<64>(bf16, q, k, v, out, bh, sq, skv, group, causal,
-                           window, s);
+      return launch_hd<64>(bf16, q, k, v, out, lse, bh, sq, skv,
+                            group, causal, window, s);
     case 128:
-      return launch_hd<128>(bf16, q, k, v, out, bh, sq, skv, group, causal,
-                            window, s);
+      return launch_hd<128>(bf16, q, k, v, out, lse, bh, sq, skv,
+                            group, causal, window, s);
     case 256:
-      return launch_hd<256>(bf16, q, k, v, out, bh, sq, skv, group, causal,
-                            window, s);
+      return launch_hd<256>(bf16, q, k, v, out, lse, bh, sq, skv,
+                            group, causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -920,13 +937,14 @@ cudaError_t dispatch_hd(int64_t hd, bool bf16, const void* q, const void* k,
 
 // Launch on `stream` (PyTorch's current stream).  Pointers are device
 // pointers to contiguous q and out [bh, sq, hd] and k, v [bh / group, skv,
-// hd], all of one type (bf16 when `bf16`, else fp32); the caller has
-// checked shapes, types and contiguity.  Returns cudaGetLastError() after
+// hd], all of one type (bf16 when `bf16`, else fp32), and `lse` fp32 [bh,
+// sq] or null; the caller has checked shapes, types and contiguity.  Returns cudaGetLastError() after
 // the launch, cudaErrorInvalidValue for a shape the kernel does not take,
 // or cudaErrorMisalignedAddress for a bf16 pointer off 16 bytes (TMA).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int64_t bh,
-                                      int64_t sq, int64_t skv, int64_t hd,
+                                      const void* v, void* out, void* lse,
+                                      int64_t bh, int64_t sq, int64_t skv,
+                                      int64_t hd,
                                       int64_t group, int causal,
                                       int64_t window, int bf16,
                                       void* stream) {
@@ -938,8 +956,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(group);
-  return static_cast<int>(dispatch_hd(hd, bf16 != 0, q, k, v, out, bh, sq,
-                                      skv, g, causal, window, s));
+  return static_cast<int>(dispatch_hd(hd, bf16 != 0, q, k, v, out,
+                                      static_cast<float*>(lse), bh, sq, skv,
+                                      g, causal, window, s));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,0 +1,72 @@
+"""The ``flash_attention`` backward Hopper kernels: build, load and launch.
+
+The kernels are CUDA C++ in ``csrc/flash_attention_bwd.cu`` (its header
+says what they compute, what bounds them and how they are laid out): the
+FlashAttention-2 backward on the CUDA cores, three launches a call (the
+row dot products ``D``, then dK and dV, then dQ), no atomics.
+``kernels._build`` compiles it with ``nvcc`` at first use; this module
+declares its C interface and launches it on PyTorch's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._tensors import aligned
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
+HEAD_DIMS = (32, 64, 128, 256)   # the head sizes the kernels are built for
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = KernelLibrary(SOURCE, _declare)
+library = LIBRARY.load
+build_info = LIBRARY.info
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool, group: int):
+    """Launch the kernels on CUDA tensors already checked by
+    ``ops.flash_attention_bwd``: ``q, out, dout [BH, Sq, HD]``, ``k, v
+    [BH / group, Skv, HD]`` of one type (fp32 or bf16), ``lse [BH, Sq]``
+    fp32.  Returns ``(dq, dk, dv)`` in the inputs' type, allocated here
+    (with the fp32 scratch ``D [BH, Sq]``), on PyTorch's current stream,
+    without synchronising."""
+    lib = library()
+    q, k, v, out, dout = (aligned(t) for t in (q, k, v, out, dout))
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, sq, skv, hd, group,
+            int(causal), int(q.dtype == torch.bfloat16), stream)
+    if code != 0:
+        raise RuntimeError(
+            "flash_attention_bwd launch failed: "
+            f"{lib.flash_attention_bwd_error_string(code).decode()} "
+            f"(BH={bh}, Sq={sq}, Skv={skv}, HD={hd}, group={group}, "
+            f"causal={causal})")
+    if sq == 0:         # no query: the kernels leave dk and dv unwritten
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv

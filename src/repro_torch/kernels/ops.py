@@ -6,6 +6,15 @@ they lie on the CPU.  It never falls back from one to the other: a CUDA
 tensor that the kernel cannot take, or a build or launch that fails,
 raises.  Each wrapper counts its kernel launches, so a run can show that
 its main path went through the kernel.
+
+``flash_attention`` is differentiable: with grad on and an input that
+requires it, it runs as a ``torch.autograd.Function`` whose forward also
+writes each row's log-sum-exp and whose backward is
+:func:`flash_attention_bwd` (the hand-written backward on the card, the
+plain one on the CPU).  The recurrences have no backward kernel yet
+(ROADMAP Queue 1, item 13): ``rwkv6_chunked``, ``rglru_scan`` and
+``rglru_gated_scan`` raise when asked for a gradient, on the CPU as on the
+card, rather than cut the graph there.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rwkv6_scan as _rw
@@ -26,7 +36,7 @@ from repro_torch.kernels import subsample_grid as _sgrid
 
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
            "flash_attention", "subsample_gather", "subsample_grid",
-           "threefry_randint")
+           "threefry_randint", "flash_attention_bwd")
 
 _COUNTERS = 2 ** 32                      # flat positions a threefry key draws
 _count_lock = threading.Lock()
@@ -50,6 +60,16 @@ def reset_launch_count() -> None:
 def _counted(name: str) -> None:
     with _count_lock:
         _launches[name] += 1
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a gradient is asked of a kernel with no backward: its
+    output would otherwise end the graph on the card, silently, while the
+    plain version on the CPU differentiates."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (ROADMAP Queue 1, item 13): "
+            "models with RWKV or RG-LRU layers do not train")
 
 
 def _check_subsample_stats(data: torch.Tensor, indices: torch.Tensor,
@@ -396,6 +416,7 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
                             device=r.device)
     _check_rwkv6(r, k, v, logw, u, state, chunk)
+    _refuse_grad("rwkv6_chunked", r, k, v, logw, u, state)
     if not r.is_cuda:
         return ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk)
     out = _rw.rwkv6_chunked(r, k, v, logw, u, state, chunk)
@@ -428,6 +449,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     ``[B, S, W]`` fp32.  Any ``S >= 1`` and any ``W``: the reference's
     tiling arguments (``chunk``, ``width_block``) have no counterpart."""
     _check_rglru(a, b, h0)
+    _refuse_grad("rglru_scan", a, b, h0)
     if not a.is_cuda:
         return ref.linear_scan_ref(a, b, h0)
     out = _rg.rglru_scan(a, b, h0)
@@ -479,6 +501,7 @@ def rglru_gated_scan(u: torch.Tensor, gate_a_w: torch.Tensor,
     launch."""
     gates = (gate_a_w, gate_a_b, gate_x_w, gate_x_b)
     _check_rglru_gated(u, gates, softplus_lam, h0)
+    _refuse_grad("rglru_gated_scan", u, *gates, softplus_lam, h0)
     if not u.is_cuda:
         return ref.rglru_gated_scan_ref(u, *gates, softplus_lam, h0)
     out = _rg.rglru_gated_scan(u, *gates, softplus_lam, h0)
@@ -521,8 +544,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head ``bh`` reads key/value head ``bh // group``; key ``j`` is seen by
     query ``i`` when ``j <= i`` (if ``causal``) and ``i − j < window`` (if
     ``window`` > 0).  Any ``Sq`` and ``Skv``: the reference's tiling
-    arguments (``block_q``, ``block_k``) have no counterpart."""
+    arguments (``block_q``, ``block_k``) have no counterpart.
+
+    With grad on and an input that requires it, the call is differentiable
+    (:class:`_FlashAttention`; ``window`` > 0 raises there for now); else
+    it launches the forward alone, with no log-sum-exp."""
     _check_flash(q, k, v, causal, window, group)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if window:
+            raise NotImplementedError(
+                "flash_attention's backward takes window 0 only (window > 0 "
+                "comes with ROADMAP Queue 1, item 13)")
+        return _FlashAttention.apply(q, k, v, causal, group)
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        group=group)
@@ -530,3 +563,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               group=group)
     _counted("flash_attention")
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` (window 0) with its gradient.  The forward
+    writes the output and each row's log-sum-exp and saves ``q, k, v, out,
+    lse``; the backward is :func:`flash_attention_bwd`.  Under remat the
+    forward runs again inside the backward and saves its own ``lse``: the
+    kernel is deterministic, so the recomputed output equals the first."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, group: int):
+        if q.is_cuda:
+            out, lse = _fa.flash_attention(q, k, v, causal=causal, window=0,
+                                           group=group, with_lse=True)
+            _counted("flash_attention")
+        else:
+            out = ref.flash_attention_ref(q, k, v, causal=causal, group=group)
+            lse = ref.flash_attention_lse_ref(q, k, causal=causal,
+                                              group=group)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.group = causal, group
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal, group=ctx.group)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        group: int = 1):
+    """The gradient of :func:`flash_attention` from its inputs, its output
+    ``out`` and log-sum-exp ``lse [BH, Sq]`` fp32, and the output's
+    gradient ``dout`` (``out``'s shape and type) → ``(dq, dk, dv)`` in the
+    inputs' type, window 0.  On the card one call launches the three
+    kernels of ``csrc/flash_attention_bwd.cu`` and counts once as
+    ``flash_attention_bwd``; on the CPU it runs
+    :func:`kernels.ref.flash_attention_bwd_ref`."""
+    _check_flash(q, k, v, causal, 0, group)
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(
+            q.shape):
+        raise ValueError(f"out and dout must be q's shape {tuple(q.shape)}; "
+                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:2]) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 {tuple(q.shape[:2])}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if any(t.dtype != q.dtype for t in (out, dout)):
+        raise TypeError("out and dout take q's type; got "
+                        f"{[t.dtype for t in (out, dout)]}")
+    if any(t.device != q.device for t in (out, lse, dout)):
+        raise ValueError("q, k, v, out, lse and dout must lie on one device")
+    if not all(t.is_contiguous() for t in (out, lse, dout)):
+        raise ValueError("flash_attention_bwd takes contiguous tensors")
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, group=group)
+    grads = _fab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                     group=group)
+    _counted("flash_attention_bwd")
+    return grads

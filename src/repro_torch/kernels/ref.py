@@ -377,3 +377,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1) * mask.any(dim=1)[None, :, None]
     return torch.einsum("bij,bjd->bid", p, vf).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            group: int = 1) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked scores in fp32:
+    ``[BH, Sq]``, −inf for a row that sees no key (what the
+    ``flash_attention`` kernel writes beside its output for training)."""
+    _, sq, hd = q.shape
+    skv = k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=0)
+    s = torch.einsum("bid,bjd->bij", q.float(), kf) * (1.0 / math.sqrt(hd))
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device)
+    s = torch.where(mask[None], s, torch.full_like(s, float("-inf")))
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            group: int = 1):
+    """The attention backward from the forward's output and log-sum-exp,
+    the explicit formulas in fp32 (FlashAttention-2's):
+
+        D_i = Σ_d dout_id out_id,   P_ij = exp(scale · q_i·k_j − lse_i),
+        dS_ij = P_ij (dout_i·v_j − D_i),
+        dq = scale · dS k,  dk = scale · dSᵀ q,  dv = Pᵀ dout,
+
+    ``P`` zero where :func:`attention_mask` hides a key or the row sees
+    none (``lse`` = −inf); a key/value head's ``dk`` and ``dv`` sum its
+    group of query heads in fp32.  Returns ``(dq, dk, dv)`` in the inputs'
+    types."""
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = q.float(), out.float(), dout.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device)
+    lsef = lse.float()
+    seen = mask[None] & torch.isfinite(lsef)[:, :, None]
+    s = torch.einsum("bid,bjd->bij", qf, kf) * scale
+    p = torch.where(seen, torch.exp(s - torch.where(
+        torch.isfinite(lsef), lsef, torch.zeros_like(lsef))[:, :, None]),
+        torch.zeros_like(s))
+    delta = (dof * of).sum(dim=-1)
+    dp = torch.einsum("bid,bjd->bij", dof, vf)
+    ds = p * (dp - delta[:, :, None])
+    dq = torch.einsum("bij,bjd->bid", ds, kf) * scale
+    dk = torch.einsum("bij,bid->bjd", ds, qf) * scale
+    dv = torch.einsum("bij,bid->bjd", p, dof)
+    dk = dk.view(bh // group, group, skv, hd).sum(dim=1)
+    dv = dv.view(bh // group, group, skv, hd).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -20,14 +20,14 @@ to v's type before the product with v.  Decode attention is torch ops
 over the cache, as in the reference.  With ``kv_cache_dtype="int8"`` the
 cache holds int8 values and one fp32 absmax scale per (batch, position,
 KV head), ``k_scale``, ``v_scale [B, S_max, KV, 1]``, quantized and
-dequantized with the reference's arithmetic.  Cross-entropy waits for a
-later slice (ROADMAP Queue 1).
+dequantized with the reference's arithmetic.  :func:`cross_entropy` is
+training's mean next-token loss.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,10 +133,12 @@ def attention_apply(
     q, k, v = _qkv(cfg, params, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    # heads first: q [B·KV·G, S, HD] reads k, v [B·KV, S, HD] in groups of G
-    qh = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, hd)
-    kh = k.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
-    vh = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    # heads first: q [B·KV·G, S, HD] reads k, v [B·KV, S, HD] in groups of
+    # G (at B = 1 the reshapes can be strided views: the kernel takes
+    # contiguous tensors)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, hd).contiguous()
+    kh = k.permute(0, 2, 1, 3).reshape(b * kv, s, hd).contiguous()
+    vh = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd).contiguous()
     out = ops.flash_attention(qh, kh, vh, causal=True, window=window,
                               group=g)
     out = out.reshape(b, kv, g, s, hd).permute(0, 3, 1, 2, 4)
@@ -286,7 +288,10 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 def embed_apply(cfg: ModelConfig, params, tokens: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    return params["embedding"][tokens].to(dtype)
+    # F.embedding, not indexing: its backward sums each row's gradient in a
+    # fixed order on the card, where indexing's (index_put_ with
+    # accumulate) may not
+    return F.embedding(tokens, params["embedding"]).to(dtype)
 
 
 def head_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -301,3 +306,26 @@ def head_apply(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_soft_cap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  onehot: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy: ``logits [B, S, V]`` fp32, ``labels
+    [B, S]`` int, ``mask [B, S]`` fp32 weights (the mean runs over
+    ``max(Σ mask, 1)``).  ``onehot=True`` takes the gold logit by a masked
+    reduction over the vocabulary, as the reference does for its sharded
+    vocabulary; else by a gather (``take_along_axis``)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    if onehot:
+        hit = (torch.arange(logits.shape[-1], device=logits.device)
+               == labels[..., None])
+        gold = torch.sum(torch.where(hit, logits, torch.zeros_like(logits)),
+                         dim=-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

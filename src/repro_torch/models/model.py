@@ -1,6 +1,6 @@
 """Public model bundle (the reference's ``repro.models.model``): one object
-per architecture exposing what the serving engine calls.  Parameters and
-caches are explicit trees of tensors.
+per architecture exposing what the training loop and the serving engine
+call.  Parameters and caches are explicit trees of tensors.
 
 The model runs on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``, where the kernel wrappers run their plain versions;
@@ -63,6 +63,24 @@ class Model:
 
     def prefill_to_decode(self, caches):
         return T.prefill_to_decode_caches(self.cfg, caches)
+
+    # -- training ------------------------------------------------------------
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """``tokens, labels [B, S]`` → (loss, ``{"ce", "aux"}``): the mean
+        next-token cross-entropy over the labels ``>= 0`` plus
+        ``router_aux_weight`` × the mean auxiliary loss."""
+        cfg = self.cfg
+        h = T.embed_inputs(cfg, params, batch, self.dtype)
+        positions = torch.arange(h.shape[1], device=h.device)
+        x, _, aux = T.forward(cfg, params, h, caches=None, mode="train",
+                              positions=positions)
+        logits = L.head_apply(cfg, params["embed"], x)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        ce = L.cross_entropy(logits, torch.clamp(labels, min=0), mask,
+                             onehot=cfg.opt_onehot_ce)
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
     # -- serving -------------------------------------------------------------
     def prefill(self, params, batch: Dict[str, torch.Tensor]):

@@ -12,23 +12,36 @@ are stacked ``[n_blocks, ...]``, so that weights carry across one to one)
 the port loops over the block index in Python.
 
 Modes:
+  train    — full sequence, no caches, remat per block, returns hidden and
+             the mean auxiliary loss
   prefill  — full sequence, returns per-layer caches (KV / recurrent state)
   decode   — one token against caches (``pos`` = current length)
+
+Training takes full-attention (``ATTN``) layers only: the recurrences and
+windowed attention have no backward kernel yet (ROADMAP Queue 1, item 13).
+Remat follows ``cfg.remat`` per block, as the reference's
+``jax.checkpoint(block_body)``: ``"full"`` keeps a block's input alone,
+``"dots"`` also the outputs of its plain matrix products, ``"none"``
+everything.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import LAYERS, ParamDef
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot run yet,
@@ -164,11 +177,23 @@ def prefill_to_decode_caches(cfg: ModelConfig, caches):
 # ---------------------------------------------------------------------------
 
 
+def check_trainable(cfg: ModelConfig, kind: str) -> None:
+    """Raise ``NotImplementedError`` for a layer kind that cannot train
+    yet: its kernel has no backward, and a gradient through it would be
+    silently zero on the card."""
+    if kind in (RWKV, RGLRU, LOCAL):
+        raise NotImplementedError(
+            f"{cfg.name}: training a {kind} layer needs the backward kernels "
+            "of rwkv6_chunked, rglru_scan and windowed flash_attention "
+            "(ROADMAP Queue 1, item 13)")
+
+
 def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
                 positions: Optional[torch.Tensor], cache, mode: str,
                 pos: Optional[int]) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache).  The mixture-of-experts auxiliary loss of
-    the reference comes with the MoE layers."""
+    """Returns (x, new_cache); ``new_cache`` is None in ``train`` mode.  The
+    mixture-of-experts auxiliary loss of the reference comes with the MoE
+    layers."""
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
     decode = mode == "decode"
 
@@ -181,16 +206,20 @@ def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
             mix_out, new_cache = L.attention_apply(
                 cfg, params["mix"], h, positions, window=window)
             s = h.shape[1]
-            if window and window < s:
-                # roll the tail of the sequence into the circular buffer
-                slots = torch.arange(s - window, s, device=x.device) % window
-                rolled = {}
-                for n in ("k", "v"):
-                    buf = torch.zeros_like(new_cache[n][:, :window])
-                    buf[:, slots] = new_cache[n][:, -window:]
-                    rolled[n] = buf
-                new_cache = rolled
-            new_cache = L.maybe_quantize_cache(cfg, new_cache)
+            if mode == "train":
+                new_cache = None
+            else:
+                if window and window < s:
+                    # roll the tail of the sequence into the circular buffer
+                    slots = (torch.arange(s - window, s, device=x.device)
+                             % window)
+                    rolled = {}
+                    for n in ("k", "v"):
+                        buf = torch.zeros_like(new_cache[n][:, :window])
+                        buf[:, slots] = new_cache[n][:, -window:]
+                        rolled[n] = buf
+                    new_cache = rolled
+                new_cache = L.maybe_quantize_cache(cfg, new_cache)
     elif kind in (RGLRU, RWKV):
         state = cache if cache is not None else _zero_state(
             cfg, kind, x.shape[0], x.device)
@@ -225,18 +254,44 @@ def _zero_state(cfg: ModelConfig, kind: str, batch: int,
 # ---------------------------------------------------------------------------
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep the outputs of the plain
+    matrix products, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body(x)`` checkpointed as ``cfg.remat`` asks."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return lambda x: checkpoint(body, x, use_reentrant=False, **kw)
+
+
 def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
             mode: str, positions: Optional[torch.Tensor] = None,
-            pos: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
-    """hidden [B,S,D] → (hidden after the final norm, new caches).
-    ``positions [S]`` are the prefill's token positions, ``pos`` the
-    decode step's (the current length); attention layers read them."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: the training forward "
-                                  "comes with the LM substrate (ROADMAP "
-                                  "Queue 1, item 11)")
+            pos: Optional[int] = None):
+    """hidden [B,S,D] → (hidden after the final norm, new caches), or in
+    ``train`` mode (hidden, None, mean auxiliary loss: 0 until the MoE
+    layers come).  ``positions [S]`` are the full sequence's token
+    positions, ``pos`` the decode step's (the current length); attention
+    layers read them."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: train, prefill or decode")
     plan = stack_plan(cfg)
     x = hidden
+    if mode == "train":
+        for i in range(cfg.num_layers):
+            check_trainable(cfg, cfg.layer_kind(i))
+        return _train_forward(cfg, params, plan, x, positions)
 
     new_prefix = []
     for j, i in enumerate(plan.prefix):
@@ -278,6 +333,46 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
                        *[per_block[bi][p] for bi in range(plan.n_blocks)])
               for p in range(len(plan.pattern))]
     return x, {"prefix": new_prefix, "blocks": blocks, "tail": new_tail}
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree of stacked ``[n, ...]`` tensors as ``n`` trees of their
+    blocks, each leaf split with one ``unbind``."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    out = []
+    for bi in range(n):
+        it = iter([u[bi] for u in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
+def _train_forward(cfg: ModelConfig, params, plan: StackPlan,
+                   x: torch.Tensor, positions: torch.Tensor):
+    def apply(kind, p, x):
+        return layer_apply(cfg, kind, p, x, positions=positions, cache=None,
+                           mode="train", pos=None)[0]
+
+    for j, i in enumerate(plan.prefix):
+        x = apply(cfg.layer_kind(i), params["prefix"][j], x)
+    # the stacked block parameters split once: the backward of unbind
+    # stacks the blocks' gradients in one copy, where indexing a block
+    # (t[bi]) would add a zero-filled gradient of the whole stack a block
+    blocks = [_unstack(params["blocks"][p], plan.n_blocks)
+              for p in range(len(plan.pattern))]
+    for bi in range(plan.n_blocks):
+        def block_body(x, bi=bi):
+            for p, kind in enumerate(plan.pattern):
+                x = apply(kind, blocks[p][bi], x)
+            return x
+
+        x = _remat(cfg, block_body)(x)
+    for j, i in enumerate(plan.tail):
+        x = apply(cfg.layer_kind(i), params["tail"][j], x)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    # the reference sums each layer's auxiliary loss (MoE routing) and
+    # divides by the depth; dense layers add zero
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, None, aux
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],

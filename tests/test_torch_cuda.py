@@ -1427,3 +1427,125 @@ def test_platform_mesh_1_equals_unsharded_on_the_card(cuda, engine):
                               np.asarray(sharded.result[key])), key
     with pytest.raises(ValueError, match="device"):
         run(torch.cuda.device_count() + 1)
+
+
+# -- flash_attention's backward and training ---------------------------------
+
+# flash_attention_bwd against its plain version, both fed the kernel's own
+# output and log-sum-exp: fp32 sums in other orders (~1e-5 of the
+# gradients' scale); bf16 gradients are one rounding of those, so they may
+# part by one bf16 step (2^-8 relative) plus the fp32 difference near zero
+FA_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,hd,causal,group,dtype", [
+    (6, 300, 300, 64, True, 1, torch.bfloat16),       # musicgen's HD, ragged
+    (12, 200, 257, 128, False, 6, torch.float32),     # group 6, Sq < Skv
+])
+def test_flash_bwd_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
+                                                group, dtype):
+    q, k, v = _attn_inputs(bh, sq, skv, hd, group, dtype, bh + sq, cuda)
+    dout = torch.randn_like(q.float()).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=0,
+                                  group=group, with_lse=True)
+    before = ops.launch_count("flash_attention_bwd")
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                  group=group)
+    torch.cuda.synchronize()
+    assert ops.launch_count("flash_attention_bwd") == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, group=group)
+    rtol, atol = FA_BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                    group=group)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_lse_matches_plain_lse(cuda, dtype):
+    q, k, v = _attn_inputs(8, 333, 333, 64, 2, dtype, 5, cuda)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=0, group=2,
+                                  with_lse=True)
+    plain = fa.flash_attention(q, k, v, causal=True, window=0, group=2)
+    assert torch.equal(out, plain)              # the lse changes no output
+    want = ref.flash_attention_lse_ref(q, k, causal=True, group=2)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_launches_no_lse_when_grad_is_off(cuda, monkeypatch):
+    q, k, v = _attn_inputs(4, 128, 128, 64, 1, torch.bfloat16, 6, cuda)
+    asked = []
+    launch = fa.flash_attention
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs.get("with_lse", False))
+        return launch(*args, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        ops.flash_attention(*leaves)
+    ops.flash_attention(q, k, v)
+    assert asked == [False, False]
+    ops.reset_launch_count()
+    out = ops.flash_attention(*leaves)
+    out.float().square().sum().backward()
+    assert asked == [False, False, True]
+    assert ops.launch_count("flash_attention_bwd") == 1
+    assert all(float(t.grad.float().abs().sum()) > 0 for t in leaves)
+
+
+@pytest.mark.cuda
+def test_quantize_int8_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((33, 257)) * 1e-3).astype(np.float32)
+    q_cpu, s_cpu = compression.quantize_int8(torch.from_numpy(x))
+    q_gpu, s_gpu = compression.quantize_int8(torch.from_numpy(x).to(cuda))
+    assert torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    for log_space in (False, True):
+        m_cpu = adamw._quantize(torch.from_numpy(np.abs(x)), log_space)
+        m_gpu = adamw._quantize(torch.from_numpy(np.abs(x)).to(cuda),
+                                log_space)
+        assert torch.equal(m_gpu.q.cpu(), m_cpu.q)
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One step of a 2-layer ``musicgen-medium`` (width cut to 256) in fp32
+    on the card and on the CPU from the same state: the losses agree to
+    1e-4, each on its own path (kernels, plain versions)."""
+    from repro_torch.config import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("musicgen-medium"), num_layers=2,
+                              d_model=256, d_ff=512, num_heads=4,
+                              num_kv_heads=4, dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 128, 2),
+                    mesh=MeshConfig((1, 1), ("data", "model")),
+                    train=TrainConfig(learning_rate=1e-2, warmup_steps=1))
+    rng = np.random.default_rng(9)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 128)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 128))}
+    cpu_model = Model(cfg, device="cpu")
+    state = loop.init_state(cpu_model, run)._replace(
+        step=torch.ones((), dtype=torch.int32))
+    losses = []
+    for model, st in ((cpu_model, state),
+                      (Model(cfg), tree_map(lambda t: t.to(cuda), state))):
+        ops.reset_launch_count()
+        _, metrics = loop.make_train_step(model, run)(
+            st, loop.to_device(batch, model.device))
+        losses.append(float(metrics["loss"]))
+    assert ops.launch_count("flash_attention") == 4     # 2 layers, remat
+    assert ops.launch_count("flash_attention_bwd") == 2
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

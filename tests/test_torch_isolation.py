@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.config import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import Model
 from repro_torch.platform import Platform, PlatformService, PlatformSpec
 from repro_torch.platform import compute as pc
@@ -42,6 +42,12 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.platform.service\n"
         "import repro_torch.launch.mesh, repro_torch.launch.elastic\n"
         "import repro_torch.parallel.collectives\n"
+        "import repro_torch.kernels.flash_attention_bwd\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.parallel.compression\n"
+        "import repro_torch.train, repro_torch.train.loop\n"
+        "import repro_torch.train.microbatch, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.train\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
@@ -78,3 +84,5 @@ def test_default_device_without_a_card_raises():
                       params=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "rwkv6-7b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "musicgen-medium", "--reduced"])
