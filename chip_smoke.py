@@ -10,7 +10,8 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
    ``rglru_scan``, ``flash_attention``, ``subsample_grid`` and
    ``flash_attention_bwd``), one nvcc each, started together, and prints
-   ptxas' registers, shared memory and spills.
+   ptxas' registers, shared memory and spills; any spill in
+   ``flash_attention_bwd``'s tensor-core kernels fails.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
@@ -45,10 +46,14 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    log-sum-exp), at ``musicgen-medium``'s microbatch shape (q ``[48, 2048,
    64]`` bf16, causal), at ``deepseek-7b``'s (q ``[128, 4064, 128]``, the
    plain version on 16 heads), at group 6, ragged lengths, fp32 and HD 32
-   and 256; at both model shapes a second launch equals the first bit for
-   bit, and the kernel is timed beside its bound, its plain version and
-   the backward of ``scaled_dot_product_attention(is_causal=True)``, and
-   the forward with and without its log-sum-exp.
+   and 256, then at the tensor-core body's edges (group 8, Sq < Skv, Sq =
+   1, Skv < 64, views off 16 bytes), each case naming the body its type
+   and HD take (``flash_attention_bwd.BODY``); at both model shapes a
+   second launch equals the first bit for bit, and the kernel is timed
+   beside its bound, its plain version and the backward of
+   ``scaled_dot_product_attention(is_causal=True)``, split by kernel (D,
+   dK/dV, dQ) under the profiler, and the forward with and without its
+   log-sum-exp.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -195,7 +200,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    step at batch 1 × 4,064 (the HD-128 backward at its real shape), every
    layer's wq, wk and wv with a gradient.  14d 4 steps straight against 2
    + a checkpoint + a resumed ``train()`` + 2, the losses equal bit for
-   bit.
+   bit.  14e (run after 14a) one bf16 microbatch of ``musicgen-medium`` at
+   full width cut to 2 layers, 2 × 2,048 tokens: its gradients with the
+   backward kernel against those with attention's backward computed by
+   ``ref.flash_attention_bwd_ref`` on the card, each leaf within 1e-2 of
+   its largest entry, the losses equal.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -1142,6 +1151,76 @@ def _sdpa_bwd_ms(q, k, v, dout):
         out, (qs, ks, vs), grad, retain_graph=True), reps=10)
 
 
+def _off_16_bytes(t):
+    """A contiguous copy of ``t`` that starts one element past 16 bytes,
+    a view into a larger buffer."""
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+    shifted.copy_(t)
+    return shifted
+
+
+def _flash_bwd_split(fn, reps: int = 3):
+    """Device ms a call of ``fn`` by the backward's three kernels (D,
+    dK/dV, dQ), summed by ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"D": 0.0, "dK/dV": 0.0, "dQ": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = ("dK/dV" if "flash_bwd_dkdv" in e.name else
+                "dQ" if "flash_bwd_dq" in e.name else
+                "D" if ("flash_bwd_rows" in e.name
+                        or "flash_bwd_delta" in e.name) else None)
+        if part is not None:
+            split[part] += (e.time_range.end - e.time_range.start) / 1e3
+    if not all(split.values()):
+        raise AssertionError(f"the profiler missed a backward kernel: {split}")
+    return {k: v / reps for k, v in split.items()}
+
+
+def check_tensor_core_bwd_spills(log: str) -> None:
+    """Phase 2: the registers and spills ptxas reports for each of
+    ``flash_attention_bwd.cu``'s tensor-core kernels (``flash_bwd_*`` with
+    ``wgmma`` or ``rows`` in its name); any spill fails."""
+    import re
+
+    entry, seen = None, {}
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or not ("wgmma" in entry or "rows" in entry):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            seen.setdefault(entry, {})["spill"] = (int(m.group(1)),
+                                                   int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            seen.setdefault(entry, {})["registers"] = int(m.group(1))
+    if len(seen) != 9:  # three kernels at HD 32, 64 and 128
+        raise AssertionError(f"ptxas reported {len(seen)} tensor-core "
+                             "backward kernels, not 9")
+    for name, got in sorted(seen.items()):
+        short = re.sub(r"^.*?(flash_bwd_\w+?_kernel)ILi(\d+)E.*$",
+                       r"\1<\2>", name)
+        print(f"  flash_attention_bwd tensor-core kernel {short}: "
+              f"{got['registers']} registers at launch, spill stores and "
+              f"loads {got['spill']} bytes")
+        if got["spill"] != (0, 0):
+            raise AssertionError(f"{short} spills {got['spill']} bytes")
+
+
 def check_flash_bwd_kernel(ops, ref):
     """Phase 3g: ``flash_attention_bwd`` against its plain version
     (``ref.flash_attention_bwd_ref``) on the card, fed the kernel's own
@@ -1150,36 +1229,52 @@ def check_flash_bwd_kernel(ops, ref):
     microbatch shape (q ``[48, 2048, 64]`` bf16, causal, the main path of
     phase 14), at ``deepseek-7b``'s (q ``[128, 4064, 128]`` bf16, causal;
     the plain version on 16 of its heads), at ``internlm2-20b``'s group of
-    6, at ragged Sq and Skv, non-causal, fp32, and at HD 32 and 256.  At
-    both main shapes a second launch must equal the first bit for bit, and
-    the kernel is timed beside its bound, its plain version and the
-    backward alone of autograd through
-    ``scaled_dot_product_attention(is_causal=True)``; the forward with and
-    without its log-sum-exp is timed beside them."""
+    6, at ragged Sq and Skv, non-causal, fp32, and at HD 32 and 256; then
+    the tensor-core body's edges (bf16 at HD 64 and 128): group 8, Sq <
+    Skv not causal, Sq and Skv off 64 and 128, Sq = 1, Skv < 64, and q and
+    dout views off 16 bytes.  Each line names the body its (type, HD)
+    takes.  At both main shapes a second launch must equal the first bit
+    for bit, and the kernel is timed beside its bound, its plain version
+    and the backward alone of autograd through
+    ``scaled_dot_product_attention(is_causal=True)``, split by kernel (D,
+    dK/dV, dQ) under the profiler; the forward with and without its
+    log-sum-exp is timed beside them."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
 
     gen = torch.Generator(device="cuda").manual_seed(27)
     dense = DENSE_FA
-    cases = [  # bh, sq, skv, hd, causal, window, group, dtype
-        MUSICGEN_FA + (torch.bfloat16,),
-        dense + (torch.bfloat16,),
-        (4 * 48, 1000, 1000, 128, True, 0, 6, torch.bfloat16),
-        (12, 577, 577, 128, True, 0, 6, torch.float32),
-        (8, 1000, 1000, 64, True, 0, 1, torch.float32),
-        (6, 300, 500, 32, False, 0, 2, torch.float32),
-        (8, 500, 300, 32, True, 0, 2, torch.bfloat16),
-        (4, 129, 129, 256, True, 0, 2, torch.bfloat16),
-        (4, 200, 77, 256, False, 0, 1, torch.float32),
+    cases = [  # bh, sq, skv, hd, causal, window, group, dtype, views off 16
+        MUSICGEN_FA + (torch.bfloat16, False),
+        dense + (torch.bfloat16, False),
+        (4 * 48, 1000, 1000, 128, True, 0, 6, torch.bfloat16, False),
+        (12, 577, 577, 128, True, 0, 6, torch.float32, False),
+        (8, 1000, 1000, 64, True, 0, 1, torch.float32, False),
+        (6, 300, 500, 32, False, 0, 2, torch.float32, False),
+        (8, 500, 300, 32, True, 0, 2, torch.bfloat16, False),
+        (4, 129, 129, 256, True, 0, 2, torch.bfloat16, False),
+        (4, 200, 77, 256, False, 0, 1, torch.float32, False),
+        # the tensor-core body's edges
+        (16, 577, 577, 128, True, 0, 8, torch.bfloat16, False),
+        (12, 200, 257, 128, False, 0, 6, torch.bfloat16, False),
+        (8, 333, 333, 64, True, 0, 2, torch.bfloat16, False),
+        (6, 1, 1000, 64, False, 0, 1, torch.bfloat16, False),
+        (4, 300, 40, 128, False, 0, 2, torch.bfloat16, False),
+        (4, 100, 40, 64, True, 0, 1, torch.bfloat16, False),
+        (6, 700, 700, 64, True, 0, 3, torch.bfloat16, True),
     ]
     worst = {"lse": 0.0, "grad": 0.0}
     timings = {}
-    for bh, sq, skv, hd, causal, window, group, dtype in cases:
+    for bh, sq, skv, hd, causal, window, group, dtype, off in cases:
         shape = (bh, sq, skv, hd, causal, window, group)
+        body = fab.BODY[(dtype, hd)]
         q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((bh // group, skv, hd), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
         dout = torch.randn((bh, sq, hd), generator=gen,
                            device="cuda").to(dtype)
+        if off:
+            q, dout = _off_16_bytes(q), _off_16_bytes(dout)
         out, lse = fa.flash_attention(q, k, v, causal=causal, window=0,
                                       group=group, with_lse=True)
         plain_heads = (DENSE_BWD_PLAIN_HEADS if shape == dense else bh)
@@ -1211,6 +1306,7 @@ def check_flash_bwd_kernel(ops, ref):
         del want
         print(f"flash_attention_bwd check BH={bh} Sq={sq} Skv={skv} HD={hd} "
               f"causal={causal} group={group} {str(dtype).split('.')[-1]}"
+              f"{' (q and dout off 16 bytes)' if off else ''}, body {body}"
               f"{'' if plain_heads == bh else f' (plain on {plain_heads} heads)'}"
               f": max_abs_err dq {errs[0]!r}, dk {errs[1]!r}, dv {errs[2]!r} "
               f"(rtol {rtol}, atol {atol}); lse against the plain lse "
@@ -1226,6 +1322,8 @@ def check_flash_bwd_kernel(ops, ref):
             ms = _time_ms(lambda: ops.flash_attention_bwd(
                 q, k, v, out, lse, dout, causal=causal, group=group),
                 reps=5)
+            split = _flash_bwd_split(lambda: ops.flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=causal, group=group))
             plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(
                 q[hs], k[kvs], v[kvs], out[hs], lse[hs], dout[hs],
                 causal=causal, group=group), reps=2)
@@ -1241,9 +1339,10 @@ def check_flash_bwd_kernel(ops, ref):
                                                            group)
             tflops = 10.0 * hd * pairs / ms / 1e9
             print(f"flash_attention_bwd at q [{bh}, {sq}, {hd}] bf16, causal "
-                  f"({pairs} query-key pairs): kernel {ms!r} ms ({tflops!r} "
-                  f"TFLOP/s, {bound_ms / ms!r} of its bound; a second "
-                  f"launch equal bit for bit), plain {plain_ms!r} ms"
+                  f"({pairs} query-key pairs), body {body}: kernel {ms!r} ms "
+                  f"({tflops!r} TFLOP/s, {bound_ms / ms!r} of its bound; a "
+                  f"second launch equal bit for bit; by kernel under the "
+                  f"profiler {json.dumps(split)} ms), plain {plain_ms!r} ms"
                   f"{'' if plain_heads == bh else f' on {plain_heads} of {bh} heads'}"
                   f", bound {bound_ms!r} ms ({bound_by}), the backward of "
                   f"scaled_dot_product_attention(is_causal=True) "
@@ -1251,7 +1350,8 @@ def check_flash_bwd_kernel(ops, ref):
                   f" the forward {fwd_ms!r} ms, with its lse {fwd_lse_ms!r} "
                   "ms")
             timings[shape] = {"ms": ms, "plain_ms": plain_ms,
-                              "plain_heads": plain_heads,
+                              "plain_heads": plain_heads, "body": body,
+                              "split_ms": split,
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms,
                               "forward_ms": fwd_ms,
@@ -1731,6 +1831,7 @@ def traced_wave_run(Platform, spec, samples, months, workload):
     plat = Platform(dataclasses.replace(spec, telemetry=True))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _prime_profiler()
         rep = plat.run(samples, months, workload)
     wave_s = sorted(e.fields["seconds"]
                     for e in plat.telemetry.events("wave_dispatched"))
@@ -1746,6 +1847,19 @@ def traced_wave_run(Platform, spec, samples, months, workload):
     if gathers:
         raise AssertionError(f"the moments job ran {gathers} index_select "
                              "kernels")
+
+
+def _prime_profiler():
+    """Device work at the start of a profiler session, before the job it
+    measures: the profiler has been seen on the card to lose a session's
+    first device events (12c's first kernel; a paper-workload job's first
+    device-to-host copy, which opens ``_execute_window``'s window).  These
+    kernels copy nothing back, so the window still opens at the job's own
+    first copy."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(8):
+        x.add_(1)
+    torch.cuda.synchronize()
 
 
 def _execute_window(prof, kernel, names=None):
@@ -1885,7 +1999,10 @@ def _numpy_reference(samples, knee_count, n_cols, seed, prng):
 # cells, so the counts are equal; the sums are fp32 sums of the same terms
 # (for alod, scores from a mean and a std also summed) in another order:
 # relative 2e-5, with an absolute floor of 1e-5 of the largest sum for bins
-# that nearly cancel.  The float64 host check holds the kernel to the same.
+# that nearly cancel.  The plain version runs on the data widened to
+# float64: in fp32 it adds with atomics in no fixed order, and its own
+# rounding then comes near this tolerance at long rows and now and then
+# past it.  The float64 host check holds the kernel to the same.
 GRID_RTOL, GRID_ATOL_SCALE = 2e-5, 1e-5
 
 
@@ -2015,7 +2132,7 @@ def check_grid_kernel(ops, ref, prng, ss, sg, eaglet_block, netflix_blocks):
     ``torch.equal`` to the read form on those indices, each body forced on
     the same input ``torch.equal`` to the other where the row fits the
     staged one, counts equal and sums within tolerance of the plain
-    version, two launches equal bit for bit, the first 3 tasks as a wave
+    version on the data widened to float64, two launches equal bit for bit, the first 3 tasks as a wave
     of 3 and each task as a wave of one equal to the wave of 16.  Then one
     task's partial against a float64 numpy recomputation from the same
     indices, and the times: the draw form at waves of 16 and 3
@@ -2088,7 +2205,8 @@ def check_grid_kernel(ops, ref, prng, ss, sg, eaglet_block, netflix_blocks):
                            w.statistic)
         got = ops.subsample_grid_seeded(data, months, rows, seeds, **skw)
         read = ops.subsample_grid(data, months, rows, idx, **kw)
-        want = ref.subsample_grid_seeded_ref(data, months, rows, seeds, **skw)
+        want = ref.subsample_grid_seeded_ref(data.double(), months, rows,
+                                             seeds, **skw)
         torch.cuda.synchronize()
         if not torch.equal(got, read):
             raise AssertionError(f"{label}: the draw form != the read form "
@@ -2100,7 +2218,8 @@ def check_grid_kernel(ops, ref, prng, ss, sg, eaglet_block, netflix_blocks):
                     data, months, rows, seeds, body=body, **skw)):
                 raise AssertionError(f"{label}: the {body} body forced != "
                                      f"the {plan.body} body")
-        err = _grid_close(got, want, label)
+        err = _grid_close(got.double(), want, label)
+        del want
         if not torch.equal(got, ops.subsample_grid_seeded(
                 data, months, rows, seeds, **skw)):
             raise AssertionError(f"{label}: two launches differ")
@@ -2341,6 +2460,7 @@ def grid_job(ops, Platform, label, samples, months, workload, *, wave,
     torch.cuda.synchronize()
     ops.reset_launch_count()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _prime_profiler()
         rep = Platform(spec, **(platform_kw or {})).run(samples, months,
                                                        workload)
         torch.cuda.synchronize()
@@ -2951,6 +3071,7 @@ def _service_steps(ops, prng, ss, svc, samples, months, eaglet, step4,
     before = svc.stats()
     with _ServiceStep(ops, prng, "11c") as step:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _prime_profiler()
             t0 = time.perf_counter()
             tickets = [(label, seed, svc.submit(handle, wl, seed=seed))
                        for label, handle, wl, seed in jobs]
@@ -3616,6 +3737,81 @@ def train_card_against_cpu():
           "the reach of its gradient's tolerance)")
 
 
+# 14e: a bf16 microbatch's gradients with flash_attention_bwd's kernel
+# against the same microbatch with attention's backward computed by its
+# plain version on the card.  The forward and the loss are the same
+# kernels; each attention gradient of the kernel is within one bf16
+# rounding of the plain version's (FA_BWD_TOL), and the layers below
+# propagate those differences through bf16 products: each leaf's gradient
+# is held to 1e-2 of its largest entry (2.5 bf16 steps)
+TRAIN_BF16_BWD_TOL = 1e-2
+
+
+def train_bf16_against_plain_bwd(ops, ref):
+    """14e: ``musicgen-medium`` at full width cut to 2 layers, bf16
+    parameters from a seed, one microbatch of 2 × 2,048 (q ``[48, 2048,
+    64]``, the tensor-core body): ``accumulate_gradients`` with the kernel,
+    then with ``ops.flash_attention_bwd`` swapped for
+    ``ref.flash_attention_bwd_ref``; the losses equal bit for bit, each
+    gradient leaf within ``TRAIN_BF16_BWD_TOL`` of its largest entry."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = dc.replace(get_config("musicgen-medium"), num_layers=2)
+    run = _train_run(cfg, 2, 2048, learning_rate=3e-3, warmup_steps=1,
+                     total_steps=5)
+    model = Model(cfg)
+    state = loop.init_state(model, run)
+    batch = loop.to_device(next(_train_batches(cfg, 2, 2048, seed=4)),
+                           "cuda")
+    kernel_bwd = ops.flash_attention_bwd
+
+    def plain_bwd(q, k, v, out, lse, dout, *, causal=True, group=1):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, group=group)
+
+    ops.reset_launch_count()
+    loss_k, _, grads_k = microbatch.accumulate_gradients(
+        model.loss, state.params, batch, 1)
+    launched = ops.launch_count("flash_attention_bwd")
+    ops.flash_attention_bwd = plain_bwd
+    try:
+        loss_p, _, grads_p = microbatch.accumulate_gradients(
+            model.loss, state.params, batch, 1)
+    finally:
+        ops.flash_attention_bwd = kernel_bwd
+    want = _attention_launches(cfg, 1)["flash_attention_bwd"]
+    if launched != want or ops.launch_count(
+            "flash_attention_bwd") != launched:
+        raise AssertionError(f"14e: {launched} kernel backward launches, "
+                             f"not {want}, or the plain pass "
+                             "launched the kernel")
+    worst, where = 0.0, None
+    for (path, gk), (_, gp) in zip(tree_leaves_with_path(grads_k),
+                                   tree_leaves_with_path(grads_p)):
+        gk, gp = gk.float(), gp.float()
+        scale = float(gp.abs().max())
+        rel = float((gk - gp).abs().max()) / scale if scale else float(
+            gk.abs().max())
+        if not (np.isfinite(rel) and scale > 0):
+            raise AssertionError(f"14e: leaf {path} has a zero or "
+                                 "non-finite gradient")
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    print(f"14e: musicgen-medium at full width, 2 layers, bf16, one "
+          f"microbatch of 2 x 2048: loss {float(loss_k)!r} with the kernel, "
+          f"{float(loss_p)!r} with the plain backward; gradients within "
+          f"{worst!r} of each leaf's largest (worst {where}; bound "
+          f"{TRAIN_BF16_BWD_TOL})")
+    if not torch.equal(loss_k, loss_p) or worst > TRAIN_BF16_BWD_TOL:
+        raise AssertionError("14e: the kernel's gradients part from the "
+                             "plain backward's")
+
+
 def train_deepseek_cut():
     """14c: ``deepseek-7b`` at full width (d_model 4096, 32 heads of 128,
     d_ff 11008, vocab 102,400) cut to 4 layers, bf16, one step at batch
@@ -3702,11 +3898,15 @@ def train_resume():
                              "straight run's")
 
 
-def train_on_the_card(ops):
-    """Phase 14: training, 14a–14d."""
+def train_on_the_card(ops, ref):
+    """Phase 14: training, 14a–14e."""
     t0 = time.perf_counter()
     out = train_musicgen_whole(ops)
     print(f"14a: {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    train_bf16_against_plain_bwd(ops, ref)
+    torch.cuda.empty_cache()
+    print(f"train_bf16_against_plain_bwd: {time.perf_counter() - t0!r} s")
     for step in (train_card_against_cpu, train_deepseek_cut, train_resume):
         t0 = time.perf_counter()
         step()
@@ -3743,12 +3943,14 @@ def main() -> None:
     print(f"kernel libraries ready in {time.perf_counter() - t0!r} s")
     for lib in libraries:
         info = lib.info
-        print(f"  {lib.source.name}: nvcc {info['seconds']!r} s, "
-              f"{info['path']}")
+        built = ("built before, its log read back" if info["seconds"] is None
+                 else f"nvcc {info['seconds']!r} s")
+        print(f"  {lib.source.name}: {built}, {info['path']}")
         for line in info["log"].splitlines():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print("    ptxas:", line.strip())
+    check_tensor_core_bwd_spills(flash_attention_bwd.LIBRARY.info["log"])
 
     # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng, subsample_gather)
@@ -3909,7 +4111,7 @@ def main() -> None:
     # phase 14 — training: musicgen-medium whole, the card against the
     # CPU, deepseek-7b cut in depth, checkpoint and resume
     t0 = time.perf_counter()
-    trained = train_on_the_card(ops)
+    trained = train_on_the_card(ops, ref)
     print(f"phase 14: {time.perf_counter() - t0!r} s")
 
     print(json.dumps({"kernels": [{

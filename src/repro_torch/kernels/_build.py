@@ -4,7 +4,9 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library in ``build/kernels/`` at the root of the checkout, keyed
 by a hash of the source, the local headers it includes and the flags, and
-loaded with ``ctypes``.
+loaded with ``ctypes``.  The compiler's log (ptxas' registers and spills)
+is kept beside the library and read back when a later process loads it; a
+library without its log is built again.
 
 Nothing here runs at import: the CPU tests import the kernel modules on
 machines with no ``nvcc`` and no card.
@@ -65,8 +67,10 @@ def _nvcc(source: Path) -> str:
 class KernelLibrary:
     """One kernel source, built once per source hash and loaded once per
     process.  ``declare`` sets ``argtypes`` / ``restype`` on the loaded
-    library.  ``info`` holds the build's seconds, the compiler's log (with
-    ptxas' registers, shared memory and spills) and the library's path."""
+    library.  ``info`` holds the build's seconds (None when the library was
+    already built), the compiler's log (with ptxas' registers, shared memory
+    and spills; read back from beside the library when it was already
+    built) and the library's path."""
 
     def __init__(self, source: Path, declare: Callable[[ctypes.CDLL], None]):
         self.source = source
@@ -81,7 +85,10 @@ class KernelLibrary:
                 return self._lib
             path = (BUILD_DIR
                     / f"{self.source.stem}_{build_key(self.source)[:16]}.so")
-            if not path.exists():
+            log = path.with_suffix(".log")
+            if path.exists() and log.exists():
+                self.info["log"] = log.read_text()
+            else:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
                 t0 = time.perf_counter()
@@ -94,6 +101,9 @@ class KernelLibrary:
                     raise RuntimeError(
                         f"nvcc failed on {self.source} (exit "
                         f"{proc.returncode}):\n{self.info['log']}")
+                tmp_log = tmp.with_suffix(".log")
+                tmp_log.write_text(self.info["log"])
+                os.replace(tmp_log, log)
                 os.replace(tmp, path)
             lib = ctypes.CDLL(str(path))
             self._declare(lib)

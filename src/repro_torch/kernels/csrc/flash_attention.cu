@@ -82,14 +82,16 @@
 // the row max and sum of the online softmax are shuffles.  Both products
 // run on the CUDA cores in fp32, probabilities unrounded.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
@@ -305,283 +307,20 @@ constexpr int kTcBlockK = 64;    // keys a tile
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// Shared-memory geometry of one head size.  Every TMA box is 64 rows by C
-// columns; its rows are SW bytes, swizzled in 16-byte chunks as wgmma's
-// SW-byte layout expects.
+// Shared-memory geometry of one head size: hopper.cuh's boxes (64 rows by
+// C columns, SW-byte rows swizzled as wgmma reads them), the ring's depth
+// and the bytes of each tile.
 template <int HD>
-struct Tile {
-  static constexpr int C = HD < 64 ? HD : 64;
-  static constexpr int SW = 2 * C;                  // 64 or 128 bytes
-  static constexpr int NCB = HD / C;                // boxes across HD
-  static constexpr uint32_t BOX = 64 * SW;          // bytes of one box
+struct Tile : Box<HD> {
+  using B = Box<HD>;
   static constexpr int STAGES = HD == 256 ? 2 : 3;
-  static constexpr uint32_t Q_BYTES = 2 * NCB * BOX;   // 128 x HD
-  static constexpr uint32_t KV_BYTES = NCB * BOX;      // 64 x HD, k or v
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // descriptor swizzle
+  static constexpr uint32_t Q_BYTES = 2 * B::NCB * B::BYTES;   // 128 x HD
+  static constexpr uint32_t KV_BYTES = B::NCB * B::BYTES;      // 64 x HD, k or v
   // 1024 bytes of slack to align the tiles, then q, k, v and 1 + 2 STAGES
   // mbarriers
   static constexpr size_t SMEM =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(c2), "r"(src)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from touching registers that an asynchronous wgmma
-// still reads or writes: every use after the wait depends on these.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 256] += A[64 x 16] B[16 x 256], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -632,7 +371,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(bar_q, T::Q_BYTES);
       for (int h = 0; h < 2; ++h)
         for (int cb = 0; cb < T::NCB; ++cb)
-          tma_load(s_q + (h * T::NCB + cb) * T::BOX, &tq, cb * T::C,
+          tma_load(s_q + (h * T::NCB + cb) * T::BYTES, &tq, cb * T::C,
                    static_cast<int>(q0 + 64 * h), bh, bar_q);
       for (int t = 0; t < tiles; ++t) {
         const int st = t % T::STAGES;
@@ -644,7 +383,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int k0 = static_cast<int>(lo + static_cast<int64_t>(t) *
                                                  kTcBlockK);
         for (int cb = 0; cb < T::NCB; ++cb) {
-          const uint32_t off = (st * T::NCB + cb) * T::BOX;
+          const uint32_t off = (st * T::NCB + cb) * T::BYTES;
           tma_load(s_k + off, &tk, cb * T::C, k0, g, full);
           tma_load(s_v + off, &tv, cb * T::C, k0, g, full);
         }
@@ -659,7 +398,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int64_t rows = q0 + 64 * h;                 // the half's first row
     const int64_t row = rows + 16 * warp + lane / 4;  // and row + 8
     const int col = 2 * (lane % 4);                   // and col + 1, + 8 j
-    const uint32_t qh = s_q + h * T::NCB * T::BOX;
+    const uint32_t qh = s_q + h * T::NCB * T::BYTES;
 
     float o[HD / 2];  // O [64 x HD]: o[4 j + e] at row + 8 (e / 2),
                       // column 8 j + col + e % 2
@@ -683,8 +422,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < T::C / 16; ++kk)
           wgmma_ss(s,
-                   desc(qh + cb * T::BOX + 32 * kk, 16, 8 * T::SW, T::LAYOUT),
-                   desc(s_k + (st * T::NCB + cb) * T::BOX + 32 * kk, 16,
+                   desc(qh + cb * T::BYTES + 32 * kk, 16, 8 * T::SW, T::LAYOUT),
+                   desc(s_k + (st * T::NCB + cb) * T::BYTES + 32 * kk, 16,
                         8 * T::SW, T::LAYOUT),
                    cb + kk > 0);
       wgmma_commit();
@@ -737,22 +476,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // P as wgmma's A fragments, keys 16 kt ... + 15: the accumulator
       // layout of S is the register layout of A
       uint32_t p_hi[4][4], p_lo[4][4];
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = s[8 * kt + 2 * i], b = s[8 * kt + 2 * i + 1];
-          const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, b);
-          p_hi[kt][i] = *reinterpret_cast<const uint32_t*>(&hi2);
-          p_lo[kt][i] = pack_bf16(a - __low2float(hi2), b - __high2float(hi2));
-        }
+      split_bf16(s, p_hi, p_lo);
 
       // O += P V: v's rows are keys, HD contiguous, so B is MN-major
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         const uint64_t dv = desc(s_v + st * T::KV_BYTES + kt * 16 * T::SW,
-                                 T::BOX, 8 * T::SW, T::LAYOUT);
+                                 T::BYTES, 8 * T::SW, T::LAYOUT);
         wgmma_rs(o, p_hi[kt], dv);
         wgmma_rs(o, p_lo[kt], dv);
       }
@@ -789,7 +520,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t v = pack_bf16(o[4 * j + 2 * r] * inv[r],
                                      o[4 * j + 2 * r + 1] * inv[r]);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                         qh + (c / T::C) * T::BOX + swz),
+                         qh + (c / T::C) * T::BYTES + swz),
                      "r"(v)
                      : "memory");
       }
@@ -797,7 +528,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
     if (threadIdx.x % 128 == 0) {
       for (int cb = 0; cb < T::NCB; ++cb)
-        tma_store(&to, qh + cb * T::BOX, cb * T::C, static_cast<int>(rows),
+        tma_store(&to, qh + cb * T::BYTES, cb * T::C, static_cast<int>(rows),
                   bh);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -823,47 +554,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, group,
       causal, window, 1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process has loaded, so that
-// the library links against nothing but the CUDA runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* driver = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return driver ? reinterpret_cast<EncodeTiled>(
-                        dlsym(driver, "cuTensorMapEncodeTiled"))
-                  : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 [heads, rows, HD] tensor as a 3-D map, 64-row by C-column boxes,
-// swizzled; reads past `rows` give zeros and writes past it are dropped
-template <int HD>
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                int64_t heads, int64_t rows) {
-  using T = Tile<HD>;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
-                                 static_cast<cuuint64_t>(rows) * HD * 2};
-  const cuuint32_t box[3] = {T::C, 64, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

@@ -1,11 +1,12 @@
 // flash_attention_bwd.cu: the gradient of flash_attention.cu's attention,
 // for Hopper (sm_90a).
 //
-// The TPU kernel it pairs with, src/repro/kernels/flash_attention.py:77
-// flash_attention, has no backward (the reference trains through XLA's
-// gradient of the jnp attention, src/repro/models/layers.py:112
-// _attend_block); this kernel is the port's own, so that a loss taken
-// through the hand-written forward gets its gradient from the card.
+// Replaces no TPU kernel.  The TPU kernel it pairs with,
+// src/repro/kernels/flash_attention.py:77 flash_attention, has no backward
+// (the reference trains through XLA's gradient of the jnp attention,
+// src/repro/models/layers.py:112 _attend_block); this kernel is the port's
+// own, so that a loss taken through the hand-written forward gets its
+// gradient from the card.
 //
 // For q [BH, Sq, HD], k, v [BH / group, Skv, HD], the forward's output
 // out [BH, Sq, HD] and its log-sum-exp lse [BH, Sq] (fp32, natural log of
@@ -20,16 +21,72 @@
 // with scale = 1 / sqrt(HD) and key j seen by query i when j <= i (if
 // causal): the FlashAttention-2 backward.  window > 0 is refused by the
 // wrapper for now.  Types: fp32 or bf16 (one type); dq, dk and dv come out
-// in it, every sum in fp32, rounded once.
+// in it, every sum in fp32, rounded once.  No atomics anywhere: one CTA owns
+// each output tile and sums in a fixed order, so a second launch equals the
+// first bit for bit.
 //
 // Bound: operations.  Five products of 2 * HD operations for every (query,
 // key) pair the mask leaves (S, dP = do v^T, dV, dK, dQ) against the
 // forward's two: at deepseek-7b's shape (q [128, 4064, 128] bf16, causal)
-// 1.057 G pairs, 1.353 TFLOP, 1.368 ms at the bf16 tensor-core rate.
+// 1.057 G pairs, 1.353 TFLOP, 1.368 ms at the bf16 tensor-core rate; at a
+// musicgen-medium microbatch layer (q [48, 2048, 64]) 100.7 M pairs, 64.4
+// GFLOP, 0.065 ms.
 //
-// Design: simple and right first, on the CUDA cores, fp32 in shared memory
-// whatever the input type (a wgmma/TMA redesign is later work).  Three
-// kernels, no atomics, so a second launch equals the first bit for bit:
+// Two bodies, chosen by type and HD in the wrapper (its BODY table), which
+// passes the choice to flash_attention_bwd_launch:
+//
+// bf16 at HD 32, 64 and 128: the tensor cores.  Three launches:
+//  1. flash_bwd_rows_kernel: D and lse2 = lse * log2(e) (+inf where lse is
+//     -inf, so P = 0), one warp a row, into fp32 [BH, sq_pad] with Sq padded
+//     to 128 rows (padding: lse2 = +inf, D = 0), so that the kernels below
+//     read whole 64-row runs by bulk copy and never mask a ragged Sq.
+//  2. flash_bwd_dkdv_wgmma_kernel: one CTA of three warpgroups a (KV head,
+//     block of 128 keys); key block 0 sees the most rows under a causal
+//     mask, so the blocks start in their own order, heaviest first.
+//     Warpgroup 0 is the producer: one thread loads the block's k and v
+//     once by TMA, then for each query head of the group in head order and
+//     each 64-row query tile that sees the block (from tile k0 / 64 on when
+//     causal) the q and do tiles (TMA) and their lse2 and D rows (a bulk
+//     copy each) into a ring of 3 stages, each guarded by a "full" and an
+//     "empty" mbarrier.  Warpgroups 1 and 2 each own 64 of the keys and run
+//     every product on wgmma with fp32 accumulators in registers:
+//       S^T  = K Q^T, dP^T = V dO^T   m64n64k16, A and B K-major (smem);
+//       P^T  = exp2(S^T * scale * log2(e) - lse2), dS^T = P^T (dP^T - D),
+//              in registers, lse2 and D per column from the stage's rows;
+//       dV  += P^T dO, dK += dS^T Q   m64nHDk16, A in registers, B (do, q)
+//              MN-major in shared memory.
+//     A KV head's dK and dV sum its group in the same accumulators, in
+//     head order.  A consumer skips a tile whose rows all lie before its
+//     first key; only tiles on the causal diagonal apply the element mask
+//     (rows past Sq have P = 0 from their lse2, keys past Skv read as
+//     zeros and their rows are dropped at the store).
+//  3. flash_bwd_dq_wgmma_kernel: one CTA a (query head, block of 128 rows),
+//     the heaviest (last) blocks first; the producer loads q and do once and
+//     streams 64-key k and v tiles from key 0 to the last key the block's
+//     last row sees; each consumer owns 64 rows:
+//       S = Q K^T, dP = dO V^T (SS), P and dS in registers, dQ += dS K (RS,
+//       k MN-major).
+//     It recomputes S and dP (7 products in all against the function's 5)
+//     and so needs no atomics; the mask runs on the causal diagonal and the
+//     last tile, where keys past Skv read as zeros.
+//   Tiles are bf16, 64 (HD 32: 32) columns a box, 128-byte (64-byte) rows
+//   swizzled by TMA as wgmma reads them.  Shared memory a CTA (dK/dV, dQ):
+//   166,456 and 164,920 bytes at HD 128; 84,536 and 83,000 at HD 64;
+//   43,576 and 42,040 at HD 32; one CTA an SM.  setmaxnreg moves registers
+//   from the producer (24) to the consumers (240): at HD 128 a dK/dV
+//   consumer holds dK and dV (64 + 64 fp32), S^T and dP^T (32 + 32) and the
+//   A fragments.  Rounding: products of bf16 values are exact in fp32 and
+//   every sum is fp32; P and dS enter their products as two bf16 terms,
+//   hi = bf16(x) and lo = bf16(x - hi) (about 2^-17 of x; one bf16 term
+//   alone errs by up to 2^-9 of each weight, which parts from the fp32 plain
+//   version by more than its bf16 tolerance at the main shapes), so the
+//   RS products run twice: 10 products a pair are issued against the bound's
+//   5.  dK * scale, dV and dQ * scale are rounded once to bf16 in the
+//   epilogue and leave by TMA store.
+//
+// fp32 at every HD, and bf16 at HD 256: the CUDA cores, fp32 in shared
+// memory whatever the input type (HD 256's dK and dV would not fit a
+// consumer's registers).  Three kernels, no atomics:
 //  1. flash_bwd_delta_kernel: D, one warp a row.
 //  2. flash_bwd_dkdv_kernel: one CTA of 256 threads a (KV head, block of 64
 //     keys).  k and v stay in shared memory; the CTA loops over the group's
@@ -52,7 +109,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kBlockK = 64;
@@ -454,61 +515,674 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ---- bf16 at HD 32, 64 and 128: the tensor cores ---------------------------
+
+constexpr int kTcThreads = 384;  // a producer and two consumer warpgroups
+constexpr int kTcBlock = 128;    // keys of a dK/dV CTA, rows of a dQ CTA
+constexpr int kTcTile = 64;      // rows (dK/dV) or keys (dQ) a stage
+constexpr int kTcStages = 3;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry of one head size: a block is 128 rows by HD (two
+// 64-row tiles), a tile NCB boxes of 64 rows.
 template <int HD>
-cudaError_t launch_hd(bool bf16, const void* q, const void* k, const void* v,
-                      const void* out, const float* lse, const void* dout,
-                      float* delta, void* dq, void* dk, void* dv, int64_t bh,
-                      int64_t sq, int64_t skv, int group, int causal,
-                      cudaStream_t s) {
-  return bf16 ? launch<HD, __nv_bfloat16>(q, k, v, out, lse, dout, delta, dq,
-                                          dk, dv, bh, sq, skv, group, causal,
-                                          s)
-              : launch<HD, float>(q, k, v, out, lse, dout, delta, dq, dk, dv,
-                                  bh, sq, skv, group, causal, s);
+struct Tc {
+  using B = Box<HD>;
+  static constexpr uint32_t TILE = B::NCB * B::BYTES;   // 64 x HD
+  static constexpr uint32_t BLOCK = 2 * TILE;            // 128 x HD
+  static constexpr uint32_t ROWS = 2 * kTcTile * 4;      // lse2 and D, 64 rows
+  static constexpr uint32_t BARS = 8 * (1 + 2 * kTcStages);
+  // 1024 bytes of slack to align the tiles; dK/dV: the k and v blocks, the
+  // ring's q and do tiles, its lse2 and D rows, the mbarriers
+  static constexpr size_t DKDV_SMEM =
+      1024 + 2 * BLOCK + 2 * kTcStages * TILE + kTcStages * ROWS + BARS;
+  // dQ: the q and do blocks, the ring's k and v tiles, the mbarriers
+  static constexpr size_t DQ_SMEM =
+      1024 + 2 * BLOCK + 2 * kTcStages * TILE + BARS;
+};
+
+// Thread t of a warpgroup holds element e of a wgmma accumulator's 8-column
+// group j at row 16 (t / 32 % 4) + t % 32 / 4 + 8 (e / 2) and column
+// 8 j + 2 (t % 4) + e % 2.  Write a 64 x HD accumulator, times `scale` and
+// rounded once to bf16, into the swizzled boxes at `dst` as a TMA store
+// reads them.
+template <int HD>
+__device__ __forceinline__ void stage_out(uint32_t dst,
+                                          const float (&acc)[HD / 2],
+                                          float scale, int warp, int lane) {
+  using B = Box<HD>;
+  const int col = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = 8 * j + col;
+      const uint32_t off =
+          (16 * warp + lane / 4 + 8 * r) * B::SW + (c % B::C) * 2;
+      const uint32_t swz = off ^ (((off >> 7) & (B::SW / 16 - 1)) << 4);
+      const uint32_t v = pack_bf16(acc[4 * j + 2 * r] * scale,
+                                   acc[4 * j + 2 * r + 1] * scale);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       dst + (c / B::C) * B::BYTES + swz),
+                   "r"(v)
+                   : "memory");
+    }
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Each row's D and its log-sum-exp in log2 units (lse2 = lse log2(e), +inf
+// where lse = -inf, so that exp2(s scale log2(e) - lse2) is 0 there), in
+// [BH, sq_pad] with rows past Sq padded as lse2 = +inf (P = 0) and D = 0:
+// one warp a row.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ delta, int64_t rows, int64_t sq,
+                      int64_t sq_pad) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (idx >= rows) return;
+  const int64_t b = idx / sq_pad;
+  const int64_t r = idx % sq_pad;
+  const int lane = threadIdx.x % 32;
+  float acc = 0.f;
+  if (r < sq) {
+    const int64_t row = b * sq + r;
+    for (int d = lane; d < HD; d += 32)
+      acc = fmaf(__bfloat162float(out[row * HD + d]),
+                 __bfloat162float(dout[row * HD + d]), acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const float l = r < sq ? lse[b * sq + r] : -INFINITY;
+    delta[idx] = acc;
+    lse2[idx] = l == -INFINITY ? INFINITY : l * kLog2e;
+  }
+}
+
+// dK and dV of one KV head's block of 128 keys.  Warpgroup 0 produces: one
+// thread loads the k and v blocks once, then, for each query head of the
+// group in order and each 64-row query tile that sees the block, the q and
+// do tiles and their lse2 and D rows into a ring of kTcStages.  Warpgroup
+// 1 + h owns keys k0 + 64 h ... + 63; per tile it computes
+//   S^T  = K Q^T, dP^T = V dO^T   (SS: A and B K-major),
+//   P^T  = exp2(S^T scale log2 e - lse2), dS^T = P^T (dP^T - D)
+//          (lse2 and D per column; the causal mask on edge tiles only),
+//   dV  += P^T dO, dK += dS^T Q  (RS: A = P^T, dS^T as bf16 hi + lo in
+//          registers, B = do, q MN-major),
+// with fp32 accumulators in registers, and skips the tiles whose rows all
+// lie before its first key.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tdk,
+                            const __grid_constant__ CUtensorMap tdv,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ delta, int64_t sq,
+                            int64_t sq_pad, int group, int causal,
+                            float scale_log2, float scale) {
+  using B = Box<HD>;
+  using G = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u;            // [2 halves] tiles
+  const uint32_t s_v = s_k + G::BLOCK;                   // [2 halves] tiles
+  const uint32_t s_q = s_v + G::BLOCK;                   // [kTcStages] tiles
+  const uint32_t s_do = s_q + kTcStages * G::TILE;       // [kTcStages] tiles
+  const uint32_t s_rows = s_do + kTcStages * G::TILE;    // [kTcStages] rows
+  const uint32_t bar_kv = s_rows + kTcStages * G::ROWS;
+  const uint32_t bar_full = bar_kv + 8;                  // [kTcStages]
+  const uint32_t bar_empty = bar_full + 8 * kTcStages;   // [kTcStages]
+
+  const int g = blockIdx.x;
+  // under a causal mask the first key blocks see the most rows: they start
+  // first as they are
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kTcBlock;
+  const int64_t nqt = (sq + kTcTile - 1) / kTcTile;
+  // the first query tile with a row that sees a key of the block
+  const int64_t qt0 = causal ? k0 / kTcTile : 0;
+  const int tiles = nqt > qt0 ? group * static_cast<int>(nqt - qt0) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && tiles > 0) {
+      mbar_expect_tx(bar_kv, 2 * G::BLOCK);
+      for (int h = 0; h < 2; ++h)
+        for (int cb = 0; cb < B::NCB; ++cb) {
+          const uint32_t off = h * G::TILE + cb * B::BYTES;
+          const int key = static_cast<int>(k0 + kTcTile * h);
+          tma_load(s_k + off, &tk, cb * B::C, key, g, bar_kv);
+          tma_load(s_v + off, &tv, cb * B::C, key, g, bar_kv);
+        }
+      int t = 0;
+      for (int hh = 0; hh < group; ++hh) {
+        const int64_t bh = static_cast<int64_t>(g) * group + hh;
+        for (int64_t qt = qt0; qt < nqt; ++qt, ++t) {
+          const int st = t % kTcStages;
+          const int round = t / kTcStages;
+          // the consumers have released this stage's previous tile
+          if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+          const uint32_t full = bar_full + 8 * st;
+          mbar_expect_tx(full, 2 * G::TILE + G::ROWS);
+          const int row = static_cast<int>(qt * kTcTile);
+          for (int cb = 0; cb < B::NCB; ++cb) {
+            const uint32_t off = st * G::TILE + cb * B::BYTES;
+            tma_load(s_q + off, &tq, cb * B::C, row, static_cast<int>(bh),
+                     full);
+            tma_load(s_do + off, &tdo, cb * B::C, row, static_cast<int>(bh),
+                     full);
+          }
+          const int64_t at = bh * sq_pad + qt * kTcTile;
+          bulk_load(s_rows + st * G::ROWS, lse2 + at, G::ROWS / 2, full);
+          bulk_load(s_rows + st * G::ROWS + G::ROWS / 2, delta + at,
+                    G::ROWS / 2, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 + h owns keys k0 + 64 h ... + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int h = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int64_t keys = k0 + kTcTile * h;              // the half's first key
+    // a thread's keys lie 16 warp + lane / 4 (and + 8) past `keys`, its
+    // query columns col (and col + 1, + 8 j) past a tile's first row
+    const int col = 2 * (lane % 4);
+    const int diag = 16 * warp + lane / 4 - col;
+    const uint32_t kh = s_k + h * G::TILE;
+    const uint32_t vh = s_v + h * G::TILE;
+
+    float dk[HD / 2], dv[HD / 2];  // [64 keys x HD], the accumulator layout
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+
+    if (tiles > 0) mbar_wait(bar_kv, 0);
+    int t = 0;
+    for (int hh = 0; hh < group; ++hh) {
+      for (int64_t qt = qt0; qt < nqt; ++qt, ++t) {
+        const int st = t % kTcStages;
+        // the tile's first row less the half's first key
+        const int lag = static_cast<int>(qt * kTcTile - keys);
+        mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
+        if (causal && lag + kTcTile - 1 < 0) {  // no row sees these keys
+          mbar_arrive(bar_empty + 8 * st);
+          continue;
+        }
+        const uint32_t qs = s_q + st * G::TILE;
+        const uint32_t dos = s_do + st * G::TILE;
+
+        // S^T = K Q^T and dP^T = V dO^T over HD in steps of 16: s[4 j + e]
+        // at key keys + 16 warp + lane / 4 + 8 (e / 2), query row
+        // qt * 64 + 8 j + col + e % 2
+        float s[32], dp[32];
+        wgmma_fence();
+  #pragma unroll
+        for (int cb = 0; cb < B::NCB; ++cb)
+  #pragma unroll
+          for (int kk = 0; kk < B::C / 16; ++kk)
+            wgmma_ss(s,
+                     desc(kh + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                     desc(qs + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                     cb + kk > 0);
+        wgmma_commit();
+  #pragma unroll
+        for (int cb = 0; cb < B::NCB; ++cb)
+  #pragma unroll
+          for (int kk = 0; kk < B::C / 16; ++kk)
+            wgmma_ss(dp,
+                     desc(vh + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                     desc(dos + cb * B::BYTES + 32 * kk, 16, 8 * B::SW,
+                          B::LAYOUT),
+                     cb + kk > 0);
+        wgmma_commit();
+
+        // P^T while dP^T runs; the mask on the causal edge only (rows past Sq
+        // have lse2 = +inf and keys past Skv are dropped at the store)
+        wgmma_wait<1>();
+        fence_regs(s);
+        const uint32_t l2 = s_rows + st * G::ROWS + 4 * col;
+        const uint32_t dd = l2 + G::ROWS / 2;
+        const bool edge = causal && lag < kTcTile - 1;
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = lds_f2(l2 + 32 * j);
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l.y : l.x)));
+            // key > row: masked
+            if (edge && diag + 8 * (e / 2) - e % 2 - 8 * j > lag) p = 0.f;
+            s[4 * j + e] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d = lds_f2(dd + 32 * j);
+  #pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? d.y : d.x));
+        }
+
+        // dV += P^T dO, then dK += dS^T Q, each operand as bf16 hi + lo: the
+        // rows of do and q are the reduction, HD contiguous, so B is MN-major
+        uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+        split_bf16(s, p_hi, p_lo);
+        wgmma_fence();
+  #pragma unroll
+        for (int kt = 0; kt < 4; ++kt) {
+          const uint64_t b = desc(dos + kt * 16 * B::SW, B::BYTES, 8 * B::SW,
+                                  B::LAYOUT);
+          wgmma_rs(dv, p_hi[kt], b);
+          wgmma_rs(dv, p_lo[kt], b);
+        }
+        wgmma_commit();
+        split_bf16(dp, ds_hi, ds_lo);
+        wgmma_fence();
+  #pragma unroll
+        for (int kt = 0; kt < 4; ++kt) {
+          const uint64_t b = desc(qs + kt * 16 * B::SW, B::BYTES, 8 * B::SW,
+                                  B::LAYOUT);
+          wgmma_rs(dk, ds_hi[kt], b);
+          wgmma_rs(dk, ds_lo[kt], b);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(p_hi);
+        fence_regs(p_lo);
+        fence_regs(ds_hi);
+        fence_regs(ds_lo);
+        mbar_arrive(bar_empty + 8 * st);
+      }
+    }
+
+    // dK scale and dV as bf16 over this half's (spent) k and v tiles, then
+    // one TMA store a box, which drops keys past Skv
+    stage_out<HD>(kh, dk, scale, warp, lane);
+    stage_out<HD>(vh, dv, 1.f, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int cb = 0; cb < B::NCB; ++cb) {
+        tma_store(&tdk, kh + cb * B::BYTES, cb * B::C, static_cast<int>(keys),
+                  g);
+        tma_store(&tdv, vh + cb * B::BYTES, cb * B::C, static_cast<int>(keys),
+                  g);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+// dQ of one query head's block of 128 rows.  Warpgroup 0 produces: one
+// thread loads the q and do blocks once, then the 64-key k and v tiles from
+// key 0 to the last key the block's last row sees, into a ring of
+// kTcStages.  Warpgroup 1 + h owns rows q0 + 64 h ... + 63; per tile it
+// computes
+//   S  = Q K^T, dP = dO V^T   (SS),
+//   P  = exp2(S scale log2 e - lse2), dS = P (dP - D)  (in registers; the
+//        mask on the causal edge and the ragged last tile only),
+//   dQ += dS K                (RS: dS as bf16 hi + lo, k MN-major),
+// and skips the tiles past its last row.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tdq,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta, int64_t sq,
+                          int64_t sq_pad, int64_t skv, int group, int causal,
+                          float scale_log2, float scale) {
+  using B = Box<HD>;
+  using G = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;            // [2 halves] tiles
+  const uint32_t s_do = s_q + G::BLOCK;                  // [2 halves] tiles
+  const uint32_t s_k = s_do + G::BLOCK;                  // [kTcStages] tiles
+  const uint32_t s_v = s_k + kTcStages * G::TILE;        // [kTcStages] tiles
+  const uint32_t bar_q = s_v + kTcStages * G::TILE;
+  const uint32_t bar_full = bar_q + 8;                   // [kTcStages]
+  const uint32_t bar_empty = bar_full + 8 * kTcStages;   // [kTcStages]
+
+  const int bh = blockIdx.x;
+  // the heaviest query blocks (last, under a causal mask) start first
+  const int64_t q0 =
+      static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kTcBlock;
+  const int g = bh / group;
+  const int64_t q_last = min64(q0 + kTcBlock, sq) - 1;
+  const int64_t hi = causal ? min64(skv, q_last + 1) : skv;
+  const int tiles = static_cast<int>((hi + kTcTile - 1) / kTcTile);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && tiles > 0) {
+      mbar_expect_tx(bar_q, 2 * G::BLOCK);
+      for (int h = 0; h < 2; ++h)
+        for (int cb = 0; cb < B::NCB; ++cb) {
+          const uint32_t off = h * G::TILE + cb * B::BYTES;
+          const int row = static_cast<int>(q0 + kTcTile * h);
+          tma_load(s_q + off, &tq, cb * B::C, row, bh, bar_q);
+          tma_load(s_do + off, &tdo, cb * B::C, row, bh, bar_q);
+        }
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % kTcStages;
+        const int round = t / kTcStages;
+        if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * G::TILE);
+        for (int cb = 0; cb < B::NCB; ++cb) {
+          const uint32_t off = st * G::TILE + cb * B::BYTES;
+          tma_load(s_k + off, &tk, cb * B::C, kTcTile * t, g, full);
+          tma_load(s_v + off, &tv, cb * B::C, kTcTile * t, g, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 + h owns rows q0 + 64 h ... + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int h = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int64_t rows = q0 + kTcTile * h;              // the half's first row
+    const int64_t row = rows + 16 * warp + lane / 4;    // and row + 8
+    const int col = 2 * (lane % 4);                     // and col + 1, + 8 j
+    const uint32_t qh = s_q + h * G::TILE;
+    const uint32_t doh = s_do + h * G::TILE;
+    // the rows' lse2 and D (padded to sq_pad, so every row reads)
+    const int64_t at = static_cast<int64_t>(bh) * sq_pad + row;
+    const float l2[2] = {lse2[at], lse2[at + 8]};
+    const float dd[2] = {delta[at], delta[at + 8]};
+
+    float dq[HD / 2];  // [64 rows x HD], the accumulator layout
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    if (tiles > 0) mbar_wait(bar_q, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % kTcStages;
+      const int64_t k0 = static_cast<int64_t>(t) * kTcTile;
+      mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
+      if (causal && k0 > rows + kTcTile - 1) {  // no row here sees these keys
+        mbar_arrive(bar_empty + 8 * st);
+        continue;
+      }
+      const uint32_t ks = s_k + st * G::TILE;
+      const uint32_t vs = s_v + st * G::TILE;
+
+      // S = Q K^T and dP = dO V^T: s[4 j + e] at row + 8 (e / 2), key
+      // k0 + 8 j + col + e % 2
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < B::NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < B::C / 16; ++kk)
+          wgmma_ss(s,
+                   desc(qh + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                   desc(ks + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                   cb + kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int cb = 0; cb < B::NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < B::C / 16; ++kk)
+          wgmma_ss(dp,
+                   desc(doh + cb * B::BYTES + 32 * kk, 16, 8 * B::SW,
+                        B::LAYOUT),
+                   desc(vs + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
+                   cb + kk > 0);
+      wgmma_commit();
+
+      // P while dP runs; keys past Skv read as zeros and are masked too, so
+      // that no exp2 of a large -lse2 reaches dQ
+      wgmma_wait<1>();
+      fence_regs(s);
+      const bool edge =
+          (causal && k0 + kTcTile - 1 > rows) || k0 + kTcTile > skv;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        float p = exp2f(fmaf(s[i], scale_log2, -l2[r]));
+        if (edge) {
+          const int64_t kx = k0 + 8 * (i / 4) + col + i % 2;
+          if (kx >= skv || (causal && kx > row + 8 * r)) p = 0.f;
+        }
+        s[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dd[(i / 2) % 2]);
+
+      // dQ += dS K: k's rows are the reduction, HD contiguous (MN-major)
+      uint32_t ds_hi[4][4], ds_lo[4][4];
+      split_bf16(dp, ds_hi, ds_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        const uint64_t b = desc(ks + kt * 16 * B::SW, B::BYTES, 8 * B::SW,
+                                B::LAYOUT);
+        wgmma_rs(dq, ds_hi[kt], b);
+        wgmma_rs(dq, ds_lo[kt], b);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(ds_hi);
+      fence_regs(ds_lo);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // dQ scale as bf16 over this half's (spent) q tile, then one TMA store
+    // a box, which drops rows past Sq
+    stage_out<HD>(qh, dq, scale, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int cb = 0; cb < B::NCB; ++cb)
+        tma_store(&tdq, qh + cb * B::BYTES, cb * B::C, static_cast<int>(rows),
+                  bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* out, const float* lse, const void* dout,
+                         float* scratch, void* dq, void* dk, void* dv,
+                         int64_t bh, int64_t sq, int64_t skv, int group,
+                         int causal, cudaStream_t stream) {
+  using G = Tc<HD>;
+  if (skv == 0)  // no key: dq is 0, and dk and dv are empty
+    return cudaMemsetAsync(dq, 0, static_cast<size_t>(bh * sq * HD) * 2,
+                           stream);
+  for (const void* p : {q, k, v, dout, static_cast<const void*>(dq),
+                        static_cast<const void*>(dk),
+                        static_cast<const void*>(dv)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;  // TMA needs 16-byte alignment
+  const int64_t sq_pad = (sq + kTcBlock - 1) / kTcBlock * kTcBlock;
+  float* lse2 = scratch;
+  float* delta = scratch + bh * sq_pad;
+  const int64_t rows = bh * sq_pad;
+  flash_bwd_rows_kernel<HD>
+      <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
+         kThreads, 0, stream>>>(static_cast<const __nv_bfloat16*>(out),
+                                static_cast<const __nv_bfloat16*>(dout), lse,
+                                lse2, delta, rows, sq, sq_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv;
+  const int64_t kvh = bh / group;
+  if (!tensor_map<HD>(encode, &tq, q, bh, sq) ||
+      !tensor_map<HD>(encode, &tdo, dout, bh, sq) ||
+      !tensor_map<HD>(encode, &tdq, dq, bh, sq) ||
+      !tensor_map<HD>(encode, &tk, k, kvh, skv) ||
+      !tensor_map<HD>(encode, &tv, v, kvh, skv) ||
+      !tensor_map<HD>(encode, &tdk, dk, kvh, skv) ||
+      !tensor_map<HD>(encode, &tdv, dv, kvh, skv))
+    return cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = scale * kLog2e;
+
+  auto kdkdv = flash_bwd_dkdv_wgmma_kernel<HD>;
+  err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(G::DKDV_SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(static_cast<unsigned>(kvh),
+                     static_cast<unsigned>((skv + kTcBlock - 1) / kTcBlock));
+  kdkdv<<<grid_kv, kTcThreads, G::DKDV_SMEM, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, lse2, delta, sq, sq_pad, group, causal,
+      scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kdq = flash_bwd_dq_wgmma_kernel<HD>;
+  err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(G::DQ_SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(static_cast<unsigned>(bh),
+                    static_cast<unsigned>((sq + kTcBlock - 1) / kTcBlock));
+  kdq<<<grid_q, kTcThreads, G::DQ_SMEM, stream>>>(
+      tq, tk, tv, tdo, tdq, lse2, delta, sq, sq_pad, skv, group, causal,
+      scale_log2, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_hd(bool bf16, bool tensor_cores, const void* q,
+                      const void* k, const void* v, const void* out,
+                      const float* lse, const void* dout,
+                      float* scratch, void* dq, void* dk, void* dv,
+                      int64_t bh, int64_t sq, int64_t skv, int group,
+                      int causal, cudaStream_t s) {
+  if constexpr (HD != 256) {
+    if (tensor_cores)
+      return launch_wgmma<HD>(q, k, v, out, lse, dout, scratch, dq, dk, dv,
+                              bh, sq, skv, group, causal, s);
+  }
+  return bf16 ? launch<HD, __nv_bfloat16>(q, k, v, out, lse, dout, scratch,
+                                          dq, dk, dv, bh, sq, skv, group,
+                                          causal, s)
+              : launch<HD, float>(q, k, v, out, lse, dout, scratch, dq, dk,
+                                  dv, bh, sq, skv, group, causal, s);
 }
 
 }  // namespace
 
+// fp32 scratch a launch needs: the tensor-core body's lse2 and D, each
+// [bh, sq] with sq padded to a dQ block (the CUDA-core body's D takes the
+// first bh * sq floats)
+extern "C" int64_t flash_attention_bwd_scratch_floats(int64_t bh,
+                                                      int64_t sq) {
+  return 2 * bh * ((sq + kTcBlock - 1) / kTcBlock * kTcBlock);
+}
+
 // Launch on `stream` (PyTorch's current stream).  Pointers are device
 // pointers to contiguous q, out, dout, dq [bh, sq, hd], k, v, dk, dv
-// [bh / group, skv, hd], all of one type (bf16 when `bf16`, else fp32), and
-// fp32 lse and delta [bh, sq] (delta is scratch the kernel writes); the
-// caller has checked shapes, types and contiguity.  Returns
-// cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
-// shape the kernels do not take.
+// [bh / group, skv, hd], all of one type (bf16 when `bf16`, else fp32),
+// fp32 lse [bh, sq], and fp32 scratch the kernels write, of
+// flash_attention_bwd_scratch_floats(bh, sq) floats; the caller has
+// checked shapes, types and contiguity.  `tensor_cores` picks the body: the
+// tensor cores (bf16 at HD 32, 64 and 128 only) or the CUDA cores.  Returns
+// cudaGetLastError() after the last launch, cudaErrorInvalidValue for a
+// shape the kernels do not take or the tensor cores asked for another type
+// or HD, or cudaErrorMisalignedAddress for a pointer of the tensor-core
+// body off 16 bytes (TMA).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* lse, const void* dout, void* delta, void* dq, void* dk,
+    const void* lse, const void* dout, void* scratch, void* dq, void* dk,
     void* dv, int64_t bh, int64_t sq, int64_t skv, int64_t hd, int64_t group,
-    int causal, int bf16, void* stream) {
-  if (bh < 0 || sq < 0 || skv < 0 || group < 1 || group > 0x7fffffff ||
-      bh % group != 0 || bh > 0x7fffffff || (sq + 31) / 32 > 65535 ||
+    int causal, int bf16, int tensor_cores, void* stream) {
+  const int64_t sq_pad = (sq + kTcBlock - 1) / kTcBlock * kTcBlock;
+  if ((tensor_cores && !(bf16 && (hd == 32 || hd == 64 || hd == 128))) ||
+      bh < 0 || sq < 0 || skv < 0 || group < 1 || group > 0x7fffffff ||
+      bh % group != 0 || bh > 0x7fffffff || skv > 0x7fffffff ||
+      sq > 0x7fffffff || (sq + 31) / 32 > 65535 ||
       (skv + kBlockK - 1) / kBlockK > 65535 ||
-      (bh * sq + kThreads / 32 - 1) / (kThreads / 32) > 0x7fffffff) {
+      (bh * sq_pad + kThreads / 32 - 1) / (kThreads / 32) > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(group);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
+  float* w = static_cast<float*>(scratch);
+  const bool b = bf16 != 0, tc = tensor_cores != 0;
   switch (hd) {
     case 32:
-      return static_cast<int>(launch_hd<32>(bf16 != 0, q, k, v, out, l, dout,
-                                            d, dq, dk, dv, bh, sq, skv, g,
+      return static_cast<int>(launch_hd<32>(b, tc, q, k, v, out, l, dout, w,
+                                            dq, dk, dv, bh, sq, skv, g,
                                             causal, s));
     case 64:
-      return static_cast<int>(launch_hd<64>(bf16 != 0, q, k, v, out, l, dout,
-                                            d, dq, dk, dv, bh, sq, skv, g,
+      return static_cast<int>(launch_hd<64>(b, tc, q, k, v, out, l, dout, w,
+                                            dq, dk, dv, bh, sq, skv, g,
                                             causal, s));
     case 128:
-      return static_cast<int>(launch_hd<128>(bf16 != 0, q, k, v, out, l,
-                                             dout, d, dq, dk, dv, bh, sq, skv,
-                                             g, causal, s));
+      return static_cast<int>(launch_hd<128>(b, tc, q, k, v, out, l, dout,
+                                             w, dq, dk, dv, bh, sq, skv, g,
+                                             causal, s));
     case 256:
-      return static_cast<int>(launch_hd<256>(bf16 != 0, q, k, v, out, l,
-                                             dout, d, dq, dk, dv, bh, sq, skv,
-                                             g, causal, s));
+      return static_cast<int>(launch_hd<256>(b, tc, q, k, v, out, l, dout,
+                                             w, dq, dk, dv, bh, sq, skv, g,
+                                             causal, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

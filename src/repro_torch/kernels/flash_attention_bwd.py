@@ -2,10 +2,15 @@
 
 The kernels are CUDA C++ in ``csrc/flash_attention_bwd.cu`` (its header
 says what they compute, what bounds them and how they are laid out): the
-FlashAttention-2 backward on the CUDA cores, three launches a call (the
-row dot products ``D``, then dK and dV, then dQ), no atomics.
-``kernels._build`` compiles it with ``nvcc`` at first use; this module
-declares its C interface and launches it on PyTorch's current stream.
+FlashAttention-2 backward, three launches a call (the row dot products
+``D``, then dK and dV, then dQ), no atomics.  The type and head size pick
+one of two bodies (``BODY``): bf16 at HD 32, 64 and 128 on the tensor
+cores (``wgmma``, tiles copied by TMA, a producer warpgroup and two
+consumer warpgroups), fp32 and bf16 at HD 256 on the CUDA cores.  This is a
+choice by shape: a failure of either body raises.
+``kernels._build`` compiles the source with ``nvcc`` at first use; this
+module declares its C interface and launches it on PyTorch's current
+stream.
 """
 
 from __future__ import annotations
@@ -20,13 +25,21 @@ from repro_torch.kernels._tensors import aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 HEAD_DIMS = (32, 64, 128, 256)   # the head sizes the kernels are built for
+# the body each (type, HD) takes, passed to the launch: "wgmma" (the tensor
+# cores) or "cuda_cores"; HD 256's dK and dV would not fit a consumer's
+# registers
+BODY = {(dtype, hd): ("wgmma" if dtype == torch.bfloat16 and hd != 256
+                      else "cuda_cores")
+        for dtype in (torch.float32, torch.bfloat16) for hd in HEAD_DIMS}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int64] * 2
+    lib.flash_attention_bwd_scratch_floats.restype = ctypes.c_int64
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
 
@@ -42,9 +55,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernels on CUDA tensors already checked by
     ``ops.flash_attention_bwd``: ``q, out, dout [BH, Sq, HD]``, ``k, v
     [BH / group, Skv, HD]`` of one type (fp32 or bf16), ``lse [BH, Sq]``
-    fp32.  Returns ``(dq, dk, dv)`` in the inputs' type, allocated here
-    (with the fp32 scratch ``D [BH, Sq]``), on PyTorch's current stream,
-    without synchronising."""
+    fp32.  TMA reads bf16 tiles from addresses on 16 bytes, so a tensor
+    that does not start on 16 bytes is copied first.  Returns ``(dq, dk,
+    dv)`` in the inputs' type, allocated here (with the fp32 scratch the
+    library asks for: the tensor-core body's ``lse · log2 e`` and ``D``,
+    Sq padded to 128 rows), on PyTorch's current stream, without
+    synchronising."""
     lib = library()
     q, k, v, out, dout = (aligned(t) for t in (q, k, v, out, dout))
     bh, sq, hd = q.shape
@@ -52,20 +68,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(bh, sq),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, sq, skv, hd, group,
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, skv, hd,
+            group, int(causal), int(q.dtype == torch.bfloat16),
+            int(BODY[(q.dtype, hd)] == "wgmma"), stream)
     if code != 0:
         raise RuntimeError(
             "flash_attention_bwd launch failed: "
             f"{lib.flash_attention_bwd_error_string(code).decode()} "
             f"(BH={bh}, Sq={sq}, Skv={skv}, HD={hd}, group={group}, "
-            f"causal={causal})")
+            f"causal={causal}, body {BODY[(q.dtype, hd)]})")
     if sq == 0:         # no query: the kernels leave dk and dv unwritten
         dk.zero_()
         dv.zero_()

@@ -92,7 +92,9 @@ def grid_partial(data: torch.Tensor, months: torch.Tensor,
     ``core/subsample.py::map_task`` given its indices: ``data [ns, sl]``
     fp32, ``months [ns, sl]`` int32 (``monthly_mean`` only; else unread)
     and ``idx [draws, ns, draw_size]`` int in ``[0, sl)`` → ``[2, grid]``
-    fp32.  Row 0 is the binned sum (``sum_curve`` / ``sum``), row 1 the
+    in ``data``'s type (fp32; float64 data gives the same cells with the
+    scores and sums in float64, an oracle that the fp32 sums' order does
+    not move).  Row 0 is the binned sum (``sum_curve`` / ``sum``), row 1 the
     bin counts (``hits`` / ``count``).
 
     ``alod`` bins position ``idx / sl`` at cell ``trunc(pos · grid)``, each
@@ -122,9 +124,9 @@ def grid_partial(data: torch.Tensor, months: torch.Tensor,
         cell = mo.transpose(0, 1).clamp(0, grid - 1)
         value = gathered
     cell = cell.reshape(-1).to(torch.int64)
-    sums = torch.zeros(grid, dtype=torch.float32, device=data.device)
+    sums = torch.zeros(grid, dtype=data.dtype, device=data.device)
     sums.index_add_(0, cell, value.reshape(-1))
-    counts = torch.bincount(cell, minlength=grid).to(torch.float32)
+    counts = torch.bincount(cell, minlength=grid).to(data.dtype)
     return torch.stack([sums, counts])
 
 

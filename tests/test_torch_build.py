@@ -1,9 +1,12 @@
 """The port's kernel build key (``repro_torch.kernels._build.build_key``):
 a change to a kernel source, or to a local header it includes, must give a
-new key, so that a library built from other bytes is never loaded.  Pure
-Python: runs without nvcc or a card."""
+new key, so that a library built from other bytes is never loaded; a
+library built before gives back its compiler's log.  Pure Python: runs
+without nvcc or a card."""
 
+import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -51,3 +54,97 @@ def test_every_kernel_source_has_its_own_key():
     sources = sorted(CSRC.glob("*.cu"))
     assert len(sources) >= 5
     assert len({_build.build_key(s) for s in sources}) == len(sources)
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu",
+                                    "flash_attention_bwd.cu"])
+def test_attention_sources_follow_their_shared_header(tmp_path, source):
+    """Both attention kernels include ``hopper.cuh``: an edit there must
+    rebuild each."""
+    for path in CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    before = _build.build_key(tmp_path / source)
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.build_key(tmp_path / source) != before
+
+
+# -- the compiler's log of a library built before -----------------------------
+
+
+def _ptxas_log(spill: int = 0, drop: int = 0) -> str:
+    """ptxas' lines for the backward's nine tensor-core kernels: ``spill``
+    bytes of spill stores for the first, the last ``drop`` left out."""
+    lines, n = [], 0
+    for hd in (128, 64, 32):
+        for kernel in ("flash_bwd_dq_wgmma_kernel",
+                       "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_rows_kernel"):
+            lines += [
+                "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+                f"{len(kernel)}{kernel}ILi{hd}EEEv' for 'sm_90a'",
+                f"    0 bytes stack frame, {spill if n == 0 else 0} bytes "
+                "spill stores, 0 bytes spill loads",
+                "ptxas info    : Used 168 registers, used 16 barriers"]
+            n += 1
+    return "\n".join(lines[:3 * (9 - drop)]) + "\n"
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """``_build`` with an ``nvcc`` that writes a stand-in library and
+    prints ``_ptxas_log()``, and a loader that opens nothing; returns the
+    list of compiler calls."""
+    calls = []
+
+    def run(cmd, capture_output, text):
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"library")
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=_ptxas_log(),
+                                           stderr="")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda source: "nvcc")
+    monkeypatch.setattr(_build, "subprocess", SimpleNamespace(run=run))
+    monkeypatch.setattr(_build, "ctypes",
+                        SimpleNamespace(CDLL=lambda path: SimpleNamespace()))
+    return calls
+
+
+def test_library_built_before_reports_its_compiler_log(tree, fake_nvcc):
+    """A second process finds the library built and reads back the log
+    that ptxas wrote when it was built, so ``chip_smoke.py``'s phase 2
+    checks the same spills as on a first build."""
+    import chip_smoke
+
+    first = _build.KernelLibrary(tree / "kernel.cu", lambda lib: None)
+    first.load()
+    again = _build.KernelLibrary(tree / "kernel.cu", lambda lib: None)
+    again.load()
+    assert len(fake_nvcc) == 1
+    assert first.info["seconds"] is not None and again.info["seconds"] is None
+    assert again.info["log"] == first.info["log"] == _ptxas_log()
+    assert again.info["path"] == first.info["path"]
+    chip_smoke.check_tensor_core_bwd_spills(again.info["log"])
+
+
+def test_library_without_its_log_is_built_again(tree, fake_nvcc):
+    _build.KernelLibrary(tree / "kernel.cu", lambda lib: None).load()
+    for log in (_build.BUILD_DIR).glob("*.log"):
+        log.unlink()
+    again = _build.KernelLibrary(tree / "kernel.cu", lambda lib: None)
+    again.load()
+    assert len(fake_nvcc) == 2
+    assert again.info["log"] == _ptxas_log()
+    assert len(list(_build.BUILD_DIR.glob("*.log"))) == 1
+
+
+@pytest.mark.parametrize("log,error", [
+    (_ptxas_log(spill=4), "spills"),
+    (_ptxas_log(drop=1), "not 9"),
+    ("", "reported 0"),
+])
+def test_tensor_core_bwd_spill_check_fails(log, error):
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match=error):
+        chip_smoke.check_tensor_core_bwd_spills(log)

@@ -19,6 +19,7 @@ import torch
 from repro_torch import prng
 from repro_torch.config import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import subsample_grid as sgrid
 from repro_torch.models import Model
@@ -1442,6 +1443,18 @@ FA_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
 @pytest.mark.parametrize("bh,sq,skv,hd,causal,group,dtype", [
     (6, 300, 300, 64, True, 1, torch.bfloat16),       # musicgen's HD, ragged
     (12, 200, 257, 128, False, 6, torch.float32),     # group 6, Sq < Skv
+    # bf16 at HD 64 and 128: the tensor-core body
+    (4, 2048, 2048, 64, True, 1, torch.bfloat16),     # musicgen's lengths
+    (2, 4064, 4064, 128, True, 1, torch.bfloat16),    # deepseek-7b's
+    (12, 577, 577, 128, True, 6, torch.bfloat16),     # group 6, off 64
+    (16, 300, 300, 128, True, 8, torch.bfloat16),     # group 8
+    (12, 200, 257, 64, False, 6, torch.bfloat16),     # Sq < Skv, not causal
+    (6, 1, 1000, 128, False, 1, torch.bfloat16),      # Sq = 1
+    (6, 1, 1, 64, True, 1, torch.bfloat16),           # one token
+    (4, 300, 40, 128, False, 2, torch.bfloat16),      # Skv < 64
+    (4, 100, 40, 64, True, 1, torch.bfloat16),        # Skv < 64, causal
+    (4, 130, 130, 64, True, 2, torch.bfloat16),       # a row past 128
+    (6, 500, 300, 32, True, 2, torch.bfloat16),       # HD 32 on that body
 ])
 def test_flash_bwd_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
                                                 group, dtype):
@@ -1463,6 +1476,65 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
     again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                     group=group)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_body_sends_bf16_to_the_tensor_cores(cuda):
+    """``BODY`` sends bf16 at HD 32, 64 and 128 to ``wgmma``, fp32 and HD
+    256 to the CUDA cores, and a launch runs the kernels of the body it
+    names (by the names the profiler records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert fab.BODY[(torch.bfloat16, 64)] == "wgmma"
+    assert fab.BODY[(torch.bfloat16, 128)] == "wgmma"
+    assert fab.BODY[(torch.bfloat16, 256)] == "cuda_cores"
+    assert fab.BODY[(torch.float32, 128)] == "cuda_cores"
+    kernels = {"wgmma": {"flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                         "flash_bwd_dq_wgmma_kernel"},
+               "cuda_cores": {"flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                              "flash_bwd_dq_kernel"}}
+    for (dtype, hd), body in sorted(fab.BODY.items(), key=str):
+        q, k, v = _attn_inputs(2, 100, 100, hd, 1, dtype, hd, cuda)
+        dout = torch.randn_like(q.float()).to(dtype)
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=0,
+                                      group=1, with_lse=True)
+        ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        ran = {kernel for kernel in set().union(*kernels.values())
+               if any(kernel in name for name in names)}
+        assert ran == kernels[body], (dtype, hd, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "dout"])
+def test_flash_bwd_kernel_takes_bf16_views_that_are_not_16_byte_aligned(
+        cuda, which):
+    """A contiguous bf16 view one element into its storage: the wrapper
+    hands the tensor-core body's TMA an aligned copy."""
+    q, k, v = _attn_inputs(12, 333, 333, 128, 6, torch.bfloat16, 11, cuda)
+    dout = torch.randn_like(q.float()).to(torch.bfloat16)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=0, group=6,
+                                  with_lse=True)
+    x = {"q": q, "k": k, "dout": dout}[which]
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    args = {"q": q, "k": k, "v": v, "out": out, "lse": lse, "dout": dout}
+    args[which] = shifted
+    got = ops.flash_attention_bwd(*(args[n] for n in (
+        "q", "k", "v", "out", "lse", "dout")), causal=True, group=6)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True,
+                                       group=6)
+    rtol, atol = FA_BWD_TOL[torch.bfloat16]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda

@@ -163,6 +163,32 @@ def test_plain_version_is_map_task_per_slot():
         assert float(out[:, 1].sum()) == 4 * 5 * 2 * 40
 
 
+@pytest.mark.parametrize("statistic", ["alod", "monthly_mean"])
+def test_plain_version_in_float64_is_an_exact_oracle(statistic):
+    """Float64 data gives the fp32 version's cells and counts, with the
+    scores and sums in float64: ``chip_smoke.py`` holds the kernel to it,
+    since the fp32 version adds with atomics on the card, in no fixed
+    order.  The same partial as numpy float64 from the same indices."""
+    import chip_smoke
+
+    rng = np.random.default_rng(7)
+    data = torch.from_numpy(rng.standard_normal((3, 500)).astype(
+        np.float32))
+    months = torch.from_numpy(rng.integers(-3, 40, (3, 500)).astype(
+        np.int32))
+    idx = torch.from_numpy(rng.integers(0, 500, (6, 3, 77)).astype(
+        np.int32))
+    single = ref.grid_partial(data, months, idx, grid=30,
+                              statistic=statistic)
+    double = ref.grid_partial(data.double(), months, idx, grid=30,
+                              statistic=statistic)
+    assert single.dtype == torch.float32 and double.dtype == torch.float64
+    assert torch.equal(double[1], single[1].double())
+    host = chip_smoke._grid_f64(data.numpy(), months.numpy(), idx.numpy(),
+                                30, statistic)[0]
+    np.testing.assert_allclose(double.numpy(), host, rtol=1e-12, atol=1e-12)
+
+
 def test_cpu_tensors_do_not_count_as_launches():
     data, months = _block(2, 64, 16, 0)
     before = ops.launch_count("subsample_grid")
