@@ -205,6 +205,31 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    backward kernel against those with attention's backward computed by
    ``ref.flash_attention_bwd_ref`` on the card, each leaf within 1e-2 of
    its largest entry, the losses equal.
+15. After phase 14: the mixture-of-experts models and the patch
+   frontend.  15a serves ``deepseek-moe-16b`` whole (28 layers, bf16
+   weights from a seed, einsum dispatch) through ``ServingEngine.generate``
+   at batch 4, a 3,072-token prompt (three segments of 1,024 positions, T
+   = 4,096, capacity 480) and 32 new tokens: 28 ``flash_attention``
+   launches and nothing else of ``ops``, prefill s, decode ms a step,
+   peak memory, the share of (token, choice) pairs dropped, and one
+   profiled prefill's device ms by kind (expert products, dispatch and
+   combine, routing, attention, the rest).  15b one prefill at 4 × 4,064
+   (unsegmented: capacity 1,912) and its peak memory.  15c one MoE layer
+   at full width in fp32 (TF32 off), T = 4,096, both dispatch modes, the
+   card against the CPU: expert indices equal where the k-th/(k+1)-th
+   margin exceeds 1e-5, outputs within 1e-4 of the largest, two launches
+   equal bit for bit; in bf16, tied router columns go to the lower index.
+   15d ``arctic-480b`` at full width, one layer: a prefill at 1 × 2,048.
+   15e ``flash_attention`` at group 7 (q ``[224, 1600, 128]``) against
+   its plain version, then ``llava-next-34b`` at full width cut to 8
+   layers: batch 4, 576 patches + 1,024 tokens, 32 new tokens, decode
+   from position 1,600.  15f ``deepseek-moe-16b`` cut to 4 layers: two
+   ``train()`` steps at batch 1 × 4,096 (four segments), launches of both
+   attention kernels, the loss ``ce + 0.01 · aux`` with aux above 0,
+   every leaf's gradient non-zero; and at 2 layers in fp32 the card
+   against the CPU (loss and gradients within 1e-4, except experts a
+   printed routing flip touches).  15g decode ≡ prefill within 1e-3 at 4
+   layers, fp32, with a capacity factor that drops nothing.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -984,11 +1009,14 @@ def _sdpa_ms(q, k, v, causal, window, group):
     return _time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), reps=10)
 
 
-def _sdpa_causal_ms(q, k, v):
-    """The same function in one library call where there is no window and
-    no group: ``scaled_dot_product_attention(q, k, v, is_causal=True)``
-    with no mask tensor, so the library may take its flash backend."""
+def _sdpa_causal_ms(q, k, v, group=1):
+    """The same function in one library call where there is no window:
+    ``scaled_dot_product_attention(q, k, v, is_causal=True)`` with no mask
+    tensor, so the library may take its flash backend; with a group, k and
+    v are expanded to every query head before the clock starts."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if group > 1:
+        k, v = (t.repeat_interleave(group, dim=0) for t in (k, v))
     qs, ks, vs = (t[None] for t in (q, k, v))
     return _time_ms(lambda: sdpa(qs, ks, vs, is_causal=True), reps=10)
 
@@ -3915,6 +3943,714 @@ def train_on_the_card(ops, ref):
     return out
 
 
+# phase 15 — the mixture-of-experts models and the patch frontend
+#
+# 15a: deepseek-moe-16b whole at batch 4 and a 3,072-token prompt: three
+# segments of 1,024 positions, T = 4,096 tokens a segment, capacity 480
+MOE_BATCH = 4
+MOE_PROMPT = 3072
+MOE_SEG_CAPACITY = 480
+# 15b: one prefill at 4 × 4,064, unsegmented (4,064 is no multiple of
+# 1,024): T = 16,256, capacity 1,912
+MOE_LONG = 4064
+MOE_LONG_CAPACITY = 1912
+# 15c: one MoE layer, fp32 with TF32 off, the card against the CPU.  A
+# token's expert indices are held equal where the k-th and (k+1)-th
+# probabilities part by more than MOE_MARGIN (the sums of 2,048 products
+# in other orders move a logit by ~1e-6); the outputs of the tokens routed
+# alike within MOE_LAYER_TOL of the largest (fp32 products of width 2,048
+# and 1,408 added in other orders)
+MOE_MARGIN = 1e-5
+MOE_LAYER_TOL = 1e-4
+# 15e: llava-next-34b cut in depth (the fp32 draw of its whole stacked wi,
+# [60, 7168, 20480], would take 35 GB beside 68.8 GB of weights), and its
+# prefill attention: 56 query heads on 8 KV heads, batch 4, 576 patches
+# and 1,024 tokens
+LLAVA_LAYERS = 8
+LLAVA_TEXT = 1024
+GROUP7_FA = (4 * 56, 576 + 1024, 576 + 1024, 128, True, 0, 7)
+
+
+def _p15_config(name, **kw):
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(name), **kw)
+
+
+class _Slots:
+    """Counts the (token, choice) pairs ``moe._slots`` keeps and drops, and
+    the capacities it is called with, while installed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._slots
+        self.kept, self.pairs, self.capacities = [], 0, set()
+
+    def __enter__(self):
+        def counted(cfg, idx, c):
+            rows, keep = self.orig(cfg, idx, c)
+            self.kept.append(keep.sum())
+            self.pairs += keep.numel()
+            self.capacities.add(c)
+            return rows, keep
+
+        self.moe._slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._slots = self.orig
+
+    def dropped_share(self):
+        kept = int(sum(k.item() for k in self.kept))
+        return (self.pairs - kept) / max(1, self.pairs)
+
+
+MOE_PARTS = ("moe.route", "moe.dispatch", "moe.experts", "moe.shared")
+
+
+def _moe_owner(spans, t):
+    """The MoE range whose device span holds time ``t``, the innermost
+    first (the expert products run inside the dispatch's range), or
+    None."""
+    import bisect
+    for name in ("moe.experts", "moe.shared", "moe.route", "moe.dispatch"):
+        starts, ends = spans.get(name, ((), ()))
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ends[i]:
+            return name
+    return None
+
+
+def _moe_prefill_split(model, params, batch, label):
+    """One prefill under ``torch.profiler`` with the MoE functions in
+    ``record_function`` ranges: the device ms of the routing (``_route``),
+    the expert products (``_expert_ffn`` and the shared experts), dispatch
+    and combine (the rest of ``_dispatch_einsum``: slots, the combine
+    tensor, the row gather and the combine product), ``flash_attention``
+    and the rest (the dense layer, projections, norms, the head).  Each
+    kernel goes to the innermost range whose span on the device holds its
+    start; a trace without device spans for the four ranges fails."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+
+    names = dict(zip(MOE_PARTS, ("_route", "_dispatch_einsum", "_expert_ffn",
+                                 "_shared_ffn")))
+    originals = {n: getattr(moe, f) for n, f in names.items()}
+
+    def ranged(label_, fn):
+        def call(*args, **kwargs):
+            with record_function(label_):
+                return fn(*args, **kwargs)
+        return call
+
+    torch.cuda.synchronize()
+    for n, f in names.items():
+        setattr(moe, f, ranged(n, originals[n]))
+    try:
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for n, f in names.items():
+            setattr(moe, f, originals[n])
+    events = prof.events()
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in on_device if e.name not in MOE_PARTS]
+    if not kernels:
+        raise AssertionError(f"the profiler saw no device time in {label}")
+    total = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    spans = {}
+    for n in MOE_PARTS:
+        ss = sorted((e.time_range.start, e.time_range.end)
+                    for e in on_device if e.name == n)
+        if ss:
+            spans[n] = ([a for a, _ in ss], [b for _, b in ss])
+    kind_of = {"moe.experts": "expert products",
+               "moe.shared": "expert products",
+               "moe.route": "routing", "moe.dispatch": "dispatch and combine"}
+    kinds = dict.fromkeys(("expert products", "dispatch and combine",
+                           "routing", "flash_attention", "the rest"), 0.0)
+    if len(spans) != len(MOE_PARTS):
+        raise AssertionError(f"{label}: the trace has device spans for "
+                             f"{sorted(spans)}, not for all of {MOE_PARTS}")
+    by_name = {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        owner = _moe_owner(spans, e.time_range.start)
+        kind = (kind_of[owner] if owner else "flash_attention"
+                if "flash_attention" in e.name else "the rest")
+        kinds[kind] += ms
+        key = (e.name[:60], kind)
+        by_name[key] = by_name.get(key, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    busy = _busy_us(sorted((e.time_range.start, e.time_range.end, e.name)
+                           for e in kernels))
+    print(f"{label} under the profiler: host wall {wall * 1e3!r} ms, device "
+          f"time {total!r} ms by kind [ms, share] "
+          + json.dumps({k: [v, v / total] for k, v in kinds.items()})
+          + f" (from the device spans), device busy {busy / 1e3!r} ms "
+          f"(share of "
+          f"the wall {busy / 1e3 / (wall * 1e3)!r}); top device ms by name "
+          f"and kind "
+          + json.dumps([[n, k, round(t, 3)] for (n, k), t in top]))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits are not finite")
+    return kinds
+
+
+def serve_moe_whole(ops):
+    """15a and 15b: ``deepseek-moe-16b`` whole (28 layers: a dense first
+    layer of d_ff 10,944, then 27 MoE layers of 64 experts of 1,408, top
+    6, two shared experts; d_model 2048, 16 heads of 128; vocab 102,400),
+    bf16 weights from a seed, einsum dispatch, through
+    ``ServingEngine.generate``; returns what the kernel table reads."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine, grow_caches
+
+    cfg = _p15_config("deepseek-moe-16b")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"15a: deepseek-moe-16b, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts of {cfg.moe_d_ff} top "
+          f"{cfg.moe_top_k} + {cfg.num_shared_experts} shared, dispatch "
+          f"{cfg.moe_dispatch}: {n_params} bf16 parameters "
+          f"({cfg.param_count()} by the config's count) drawn in "
+          f"{time.perf_counter() - t0!r} s")
+    engine = ServingEngine(model, params, max_new_tokens=32)
+    batch = model.make_inputs(ShapeConfig("serve", "prefill", MOE_PROMPT,
+                                          MOE_BATCH), model.generator(1))
+    warm = engine.generate(batch, new_tokens=2)
+    print(f"15a: warm-up generate (2 new tokens): prefill "
+          f"{warm.prefill_seconds!r} s, decode {warm.decode_seconds!r} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    out = engine.generate(batch, new_tokens=32)
+    launches = {name: ops.launch_count(name) for name in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    with _Slots() as slots, torch.inference_mode():
+        logits, _ = model.prefill(params, batch)
+        dropped = slots.dropped_share()
+    print(f"15a: serving deepseek-moe-16b, batch {MOE_BATCH}, prompt "
+          f"{MOE_PROMPT}, 32 new tokens: prefill_seconds "
+          f"{out.prefill_seconds!r}, decode_seconds {out.decode_seconds!r} "
+          f"({out.decode_seconds / 32 * 1e3!r} ms a step), "
+          f"tokens_per_second {out.tokens_per_second!r}, peak device memory "
+          f"{peak} bytes; launches {json.dumps(launches)}; a prefill's "
+          f"(token, choice) pairs dropped: {dropped!r} of {slots.pairs} "
+          f"(capacities {sorted(slots.capacities)}) ({_card_line()})")
+    others = {n: c for n, c in launches.items()
+              if n != "flash_attention" and c}
+    if launches["flash_attention"] != cfg.num_layers or others:
+        raise AssertionError(f"15a: flash_attention launched "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.num_layers}, and {others}")
+    if slots.capacities != {MOE_SEG_CAPACITY}:
+        raise AssertionError(f"15a: capacities {slots.capacities}")
+    if out.tokens.shape != (MOE_BATCH, 32) or not (
+            (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"15a: generated tokens {out.tokens.shape}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("15a: prefill logits are not finite")
+    kinds = _moe_prefill_split(model, params, batch, "15a: deepseek-moe-16b "
+                               "prefill")
+    with torch.inference_mode():
+        logits, caches = model.prefill(params, batch)
+        caches = model.prefill_to_decode(grow_caches(caches,
+                                                     MOE_PROMPT + 32))
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        step_logits, _ = _profiled(
+            "15a: deepseek-moe-16b decode step", lambda: model.decode_step(
+                params, tok, caches, MOE_PROMPT), ("flash_attention",),
+            absent=("flash_attention",))
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError("15a: decode logits are not finite")
+    del engine, logits, caches, step_logits
+    torch.cuda.empty_cache()
+
+    # 15b: the unsegmented prefill
+    long_batch = model.make_inputs(ShapeConfig("serve", "prefill", MOE_LONG,
+                                               MOE_BATCH), model.generator(2))
+    torch.cuda.reset_peak_memory_stats()
+    with _Slots() as slots, torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, long_batch)
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        long_dropped = slots.dropped_share()
+    long_peak = torch.cuda.max_memory_allocated()
+    print(f"15b: one deepseek-moe-16b prefill at {MOE_BATCH} x {MOE_LONG} "
+          f"(unsegmented, capacities {sorted(slots.capacities)}): "
+          f"{long_s!r} s, peak device memory {long_peak} bytes, pairs "
+          f"dropped {long_dropped!r}")
+    if slots.capacities != {MOE_LONG_CAPACITY} or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"15b: capacities {slots.capacities}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del params, caches, logits, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": out.prefill_seconds,
+            "decode_s": out.decode_seconds, "peak_bytes": peak,
+            "dropped": dropped, "kinds_ms": kinds, "long_s": long_s,
+            "long_peak_bytes": long_peak}
+
+
+def _moe_layer_params(cfg, seed):
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import init_params
+    return init_params(moe.moe_defs(cfg), torch.float32, torch.device("cpu"),
+                       torch.Generator().manual_seed(seed))
+
+
+def moe_layer_card_against_cpu():
+    """15c: one MoE layer at ``deepseek-moe-16b``'s full width (64 experts
+    of 1,408, top 6, two shared; d_model 2048), fp32 with TF32 off, x [4,
+    1024, 2048] (T = 4,096, capacity 480), both dispatch modes, on the card
+    against the CPU; then the card's tie-break in bf16."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg = _p15_config("deepseek-moe-16b")
+    cpu = _moe_layer_params(cfg, 21)
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    x = torch.randn((4, 1024, cfg.d_model),
+                    generator=torch.Generator().manual_seed(22))
+    xc = x.to("cuda")
+    k = cfg.moe_top_k
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            i_cpu, _, aux_cpu, p_cpu = moe._route(cfg, cpu,
+                                                  x.reshape(-1, cfg.d_model))
+            i_card = moe._route(cfg, card, xc.reshape(-1, cfg.d_model))[0]
+            top = torch.sort(p_cpu, dim=-1, descending=True).values
+            margin = top[:, k - 1] - top[:, k]
+            clear = margin > MOE_MARGIN
+            alike = (i_card.cpu() == i_cpu).all(-1)
+            print(f"15c: routing of {x.shape[0] * x.shape[1]} tokens: "
+                  f"{int((~clear).sum())} with a k-th/(k+1)-th margin at "
+                  f"or below {MOE_MARGIN} (smallest {float(margin.min())!r}), "
+                  f"{int((~alike).sum())} routed otherwise on the card")
+            if not torch.equal(i_card.cpu()[clear], i_cpu[clear]):
+                raise AssertionError("15c: expert indices differ on a "
+                                     "clear margin")
+            for mode in ("einsum", "scatter"):
+                y_cpu, a_cpu = moe.moe_apply(cfg, cpu, x, dispatch=mode)
+                y, a = moe.moe_apply(cfg, card, xc, dispatch=mode)
+                again, _ = moe.moe_apply(cfg, card, xc, dispatch=mode)
+                ms = _time_ms(lambda: moe.moe_apply(cfg, card, xc,
+                                                    dispatch=mode), reps=3)
+                scale = float(y_cpu.abs().max())
+                diff = (y.cpu() - y_cpu).reshape(-1, cfg.d_model)[alike]
+                err = float(diff.abs().max())
+                print(f"15c: {mode}: output within {err / scale!r} of its "
+                      f"largest {scale!r} on the tokens routed alike (bound "
+                      f"{MOE_LAYER_TOL}), aux {float(a)!r} on the card, "
+                      f"{float(a_cpu)!r} on the CPU, two launches equal "
+                      f"{torch.equal(y, again)}; the layer in fp32 {ms!r} ms "
+                      f"on the card")
+                if err > MOE_LAYER_TOL * scale or not torch.equal(y, again):
+                    raise AssertionError(f"15c: {mode}: error {err!r}, or "
+                                         "two launches differ")
+                if abs(float(a) - float(a_cpu)) > 1e-5 * abs(float(a_cpu)):
+                    raise AssertionError(f"15c: {mode}: aux {float(a)!r} "
+                                         f"against {float(a_cpu)!r}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    del cpu, card
+
+    # the tie-break in bf16: router columns equal in fours, then all equal
+    g = torch.Generator().manual_seed(23)
+    xb = torch.randn((4096, cfg.d_model), generator=g).to("cuda",
+                                                          torch.bfloat16)
+    cols = torch.randn((cfg.d_model, cfg.num_experts // 4), generator=g)
+    router = cols.repeat_interleave(4, dim=1).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        idx, _, _, probs = moe._route(cfg, {"router": router}, xb)
+        same = router[:, :1].expand(-1, cfg.num_experts).contiguous()
+        idx_same = moe._route(cfg, {"router": same}, xb)[0]
+    chosen = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, idx, True)
+    chosen = chosen.view(-1, cfg.num_experts // 4, 4).int()
+    fours = probs.view(-1, cfg.num_experts // 4, 4)
+    partial = int(((chosen.sum(-1) % 4) != 0).any(-1).sum())
+    lower = bool((chosen[..., 1:] <= chosen[..., :-1]).all())
+    first_k = torch.equal(idx_same, torch.arange(
+        k, device=idx_same.device).expand_as(idx_same))
+    print(f"15c: bf16 ties: router columns equal in fours, {partial} of "
+          f"{xb.shape[0]} tokens cut a tied four at the top {k}, the lower "
+          f"indices taken {lower}; all columns equal: every token's top {k} "
+          f"is 0..{k - 1} {first_k}")
+    if not (torch.equal(fours, fours[..., :1].expand_as(fours)) and lower
+            and first_k and partial == xb.shape[0]):
+        raise AssertionError("15c: the card broke a top-k tie to a higher "
+                             "index")
+
+
+def arctic_one_layer(ops):
+    """15d: ``arctic-480b`` at full width cut to one layer (d_model 7168,
+    56 heads of 128 on 8, 128 experts of 4,864 top 2 beside a dense
+    residual FFN of 4,864; vocab 32,000), bf16 from a seed: a prefill at
+    batch 1 × 2,048 (T = 2,048, capacity 40)."""
+    from repro_torch.models import Model
+
+    cfg = _p15_config("arctic-480b", num_layers=1)
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(model.generator(30))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048),
+                           generator=model.generator(31), device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_count()
+        with _Slots() as slots:
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            dropped = slots.dropped_share()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"15d: arctic-480b at full width, 1 layer ({n_params} bf16 "
+          f"parameters; peak {init_peak} bytes while drawing them): a "
+          f"prefill of [1, 2048] in {prefill_s!r} s, peak device memory "
+          f"{peak} bytes, flash_attention launches "
+          f"{ops.launch_count('flash_attention')}, capacities "
+          f"{sorted(slots.capacities)}, pairs dropped {dropped!r}")
+    if (ops.launch_count("flash_attention") != 1
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError("15d: launches or logits")
+    del params, logits, model
+    torch.cuda.empty_cache()
+    return {"prefill_s": prefill_s, "peak_bytes": peak}
+
+
+def check_group7_flash(ops, ref):
+    """15e's first step: ``flash_attention`` against its plain version at
+    ``llava-next-34b``'s prefill shape, q ``[224, 1600, 128]`` bf16, k, v
+    ``[32, 1600, 128]``, causal, group 7; a second launch equal bit for
+    bit; timed beside its bound and two library calls: the causal one
+    (``is_causal=True`` on k and v expanded to the 224 query heads) and
+    the one with a boolean mask."""
+    bh, sq, skv, hd, causal, window, group = GROUP7_FA
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((bh // group, skv, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    ops.reset_launch_count()
+    out = ops.flash_attention(q, k, v, causal=causal, group=group)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, group=group)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    rtol, atol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    again = ops.flash_attention(q, k, v, causal=causal, group=group)
+    if not torch.equal(out, again):
+        raise AssertionError("15e: two group-7 launches differ")
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                              group=group), reps=10)
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=causal, group=group), reps=3)
+    (bound_ms, bound_by), pairs = _flash_bound(q, k, causal, window, group)
+    mask_ms = _sdpa_ms(q, k, v, causal, window, group)
+    library_ms = _sdpa_causal_ms(q, k, v, group)
+    print(f"15e: flash_attention at q [{bh}, {sq}, {hd}] bf16, k, v "
+          f"[{bh // group}, {skv}, {hd}], causal, group {group}: max_abs_err "
+          f"{err!r} (rtol {rtol}, atol {atol}), a second launch equal bit "
+          f"for bit; kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}), scaled_dot_product_attention with "
+          f"is_causal=True on k, v expanded {library_ms!r} ms (kernel / "
+          f"library {ms / library_ms!r}), with a boolean mask {mask_ms!r} "
+          f"ms")
+    del q, k, v, out, want, again
+    torch.cuda.empty_cache()
+    return {"q": [bh, sq, hd], "group": group, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_mask_ms": mask_ms}
+
+
+def serve_llava(ops):
+    """15e: ``llava-next-34b`` at full width (d_model 7168, 56 heads of 128
+    on 8, d_ff 20,480, vocab 64,000, patch embeddings of 1,024 projected
+    by ``frontend.proj``) cut to 8 layers, bf16 from a seed, through
+    ``ServingEngine.generate``: batch 4, 576 patch embeddings and 1,024
+    tokens, 32 new tokens; the first decode step at position 1,600."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+
+    cfg = _p15_config("llava-next-34b", num_layers=LLAVA_LAYERS)
+    model = Model(cfg, device="cuda")
+    params = model.init(model.generator(41))
+    n = cfg.num_patches + LLAVA_TEXT
+    batch = model.make_inputs(ShapeConfig("serve", "prefill", n, MOE_BATCH),
+                              model.generator(42))
+    engine = ServingEngine(model, params, max_new_tokens=32)
+    engine.generate(batch, new_tokens=2)
+    calls, positions = [], []
+    launch, step = ops.flash_attention, model.decode_step
+
+    def recorded(q, k, v, **kwargs):
+        calls.append((tuple(q.shape), tuple(k.shape), kwargs.get("group")))
+        return launch(q, k, v, **kwargs)
+
+    def stepped(params_, tokens, caches, pos):
+        positions.append(pos)
+        return step(params_, tokens, caches, pos)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    ops.flash_attention, model.decode_step = recorded, stepped
+    try:
+        out = engine.generate(batch, new_tokens=32)
+    finally:
+        ops.flash_attention = launch
+        del model.decode_step
+    launches = ops.launch_count("flash_attention")
+    peak = torch.cuda.max_memory_allocated()
+    want = ((MOE_BATCH * cfg.num_heads, n, cfg.head_dim),
+            (MOE_BATCH * cfg.num_kv_heads, n, cfg.head_dim),
+            cfg.num_heads // cfg.num_kv_heads)
+    print(f"15e: serving llava-next-34b at full width, {LLAVA_LAYERS} "
+          f"layers, batch {MOE_BATCH}, {cfg.num_patches} patches + "
+          f"{LLAVA_TEXT} tokens, 32 new tokens: prefill_seconds "
+          f"{out.prefill_seconds!r}, decode_seconds {out.decode_seconds!r}, "
+          f"tokens_per_second {out.tokens_per_second!r}, peak device memory "
+          f"{peak} bytes; flash_attention launches {launches} (q, k, group "
+          f"{calls[0] if calls else None}); decode positions "
+          f"{positions[0] if positions else None}..{positions[-1] if positions else None}")
+    if (launches != LLAVA_LAYERS or any(c != want for c in calls)
+            or positions[0] != n or out.tokens.shape != (MOE_BATCH, 32)):
+        raise AssertionError(f"15e: launches {launches}, calls {calls[:1]}, "
+                             f"positions {positions[:1]}")
+    del params, engine, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": out.prefill_seconds,
+            "decode_s": out.decode_seconds, "peak_bytes": peak}
+
+
+def train_moe_cut(ops):
+    """15f: ``deepseek-moe-16b`` at full width cut to 4 layers (the dense
+    first layer and 3 MoE layers), bf16 parameters, fp32 moments, remat
+    full: one ``train()`` step at batch 1 × 4,096 (four segments); then
+    from the same state the loss, its parts and every leaf's gradient."""
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = _p15_config("deepseek-moe-16b", num_layers=4)
+    seq = 4096
+    run = _train_run(cfg, 1, seq, learning_rate=1e-3, warmup_steps=1,
+                     total_steps=5)
+    n_mb = run.microbatches()
+    want = _attention_launches(cfg, n_mb)
+    model = Model(cfg, device="cuda")
+    stamps = []
+
+    def timed(batches):
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    report = loop.train(model, run, timed(_train_batches(cfg, 1, seq,
+                                                         seed=5)), 2,
+                        log_every=100)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = {k: ops.launch_count(k) for k in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:] + [end])]
+    print(f"15f: deepseek-moe-16b at full width, 4 layers ({cfg.param_count()}"
+          f" parameters), batch 1 x {seq} ({seq // cfg.moe_seq_chunk} "
+          f"segments), {n_mb} microbatch: two train() steps, step seconds "
+          f"{step_s}, tokens/s {[seq / t for t in step_s]}, losses "
+          f"{report.losses}, peak device memory {peak} bytes; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} (a step "
+          f"{json.dumps(want)}) ({_card_line()})")
+    if {k: launches[k] for k in want} != {k: 2 * n for k, n in want.items()} \
+            or any(v for k, v in launches.items() if k not in want) \
+            or not all(np.isfinite(report.losses)):
+        raise AssertionError(f"15f: launches {launches}, not 2 x {want}, or "
+                             f"losses {report.losses}")
+    state = loop.init_state(model, run)
+    batch = loop.to_device(next(_train_batches(cfg, 1, seq, seed=6)),
+                           "cuda")
+    loss, metrics, grads = microbatch.accumulate_gradients(
+        model.loss, state.params, batch, n_mb)
+    ce, aux = float(metrics["ce"]), float(metrics["aux"])
+    norms = {"/".join(map(str, p)): float(torch.linalg.vector_norm(
+        g.float())) for p, g in tree_leaves_with_path(grads)}
+    bad = [k for k, v in norms.items() if not (np.isfinite(v) and v > 0)]
+    print(f"15f: loss {float(loss)!r} = ce {ce!r} + {cfg.router_aux_weight} x "
+          f"aux {aux!r}; {len(norms) - len(bad)} of {len(norms)} leaves with "
+          f"a finite non-zero gradient (router norms "
+          f"{[v for k, v in sorted(norms.items()) if k.endswith('router')]})")
+    if (bad or not (np.isfinite(aux) and aux > 0)
+            or abs(float(loss) - (ce + cfg.router_aux_weight * aux))
+            > 1e-5 * abs(float(loss))):
+        raise AssertionError(f"15f: loss {float(loss)!r}, ce {ce!r}, aux "
+                             f"{aux!r}, zero gradients {bad}")
+    del state, grads, model
+    torch.cuda.empty_cache()
+    return {"launches": {k: v // 2 for k, v in launches.items()},
+            "step_s": step_s, "peak_bytes": peak}
+
+
+def train_moe_card_against_cpu():
+    """15f, second part: ``deepseek-moe-16b`` at full width cut to 2 layers
+    (the dense layer and one MoE layer), fp32 with TF32 off, batch 1 ×
+    1,024 (T = 1,024, capacity 120): the loss on the card within 1e-4 of
+    the CPU's, each gradient leaf within 1e-4 of its largest entry, except
+    the experts that a token routed otherwise on the two sides touches
+    (printed)."""
+    from repro_torch.models import Model, moe
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = _p15_config("deepseek-moe-16b", num_layers=2, dtype="float32")
+    run = _train_run(cfg, 1, 1024, learning_rate=1e-3, warmup_steps=1,
+                     total_steps=5)
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(cpu_model.generator(8))
+    host = next(_train_batches(cfg, 1, 1024, seed=7))
+    route = moe._route
+    results = {}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for where, model in (("cpu", cpu_model),
+                             ("cuda", Model(cfg, device="cuda"))):
+            routed = []
+
+            def recorded(cfg_, params, xf):
+                out = route(cfg_, params, xf)
+                routed.append(out[0].detach().cpu())
+                return out
+
+            params = tree_map(lambda t: t.to(where), cpu_params)
+            moe._route = recorded
+            try:
+                loss, metrics, grads = microbatch.accumulate_gradients(
+                    model.loss, params, loop.to_device(host, where),
+                    run.microbatches())
+            finally:
+                moe._route = route
+            results[where] = (float(loss), float(metrics["aux"]),
+                              tree_map(lambda t: t.cpu(), grads), routed)
+            del params, grads
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (l_cpu, a_cpu, g_cpu, r_cpu), (l_card, a_card, g_card, r_card) = (
+        results["cpu"], results["cuda"])
+    # remat full routes each MoE layer twice (forward, recomputation)
+    touched = set()
+    for a, b in zip(r_cpu, r_card):
+        differ = (a != b).any(-1)
+        touched |= set(a[differ].flatten().tolist())
+        touched |= set(b[differ].flatten().tolist())
+    worst, where_worst = 0.0, None
+    for (path, gc), (_, gk) in zip(tree_leaves_with_path(g_cpu),
+                                   tree_leaves_with_path(g_card)):
+        scale = float(gc.abs().max())
+        diff = (gk - gc).abs()
+        if path[-1] in ("we_i", "we_g", "we_d") and touched:
+            keep = torch.ones(diff.shape[0], dtype=torch.bool)
+            keep[sorted(touched)] = False
+            diff = diff[keep]
+        rel = float(diff.max()) / scale if scale else float("inf")
+        if rel > worst:
+            worst, where_worst = rel, "/".join(map(str, path))
+    print(f"15f: deepseek-moe-16b at full width, 2 layers, fp32, batch 1 x "
+          f"1024: loss {l_card!r} on the card, {l_cpu!r} on the CPU "
+          f"(relative {abs(l_card - l_cpu) / abs(l_cpu)!r}), aux {a_card!r} "
+          f"/ {a_cpu!r}; routing flips touch experts {sorted(touched)}; "
+          f"gradients within {worst!r} of each leaf's largest (worst "
+          f"{where_worst}; bound {TRAIN_TOL})")
+    if abs(l_card - l_cpu) > TRAIN_TOL * abs(l_cpu) or worst > TRAIN_TOL:
+        raise AssertionError("15f: the card's loss or gradients part from "
+                             "the CPU's")
+
+
+def moe_decode_invariant():
+    """15g: decode ≡ prefill for ``deepseek-moe-16b`` at full width cut to
+    4 layers, fp32 with TF32 off, a capacity factor of 64 (the expert
+    count: C ≥ T · k, so no pair drops in either prefill), batch 2, P =
+    300."""
+    from repro_torch.models import Model, moe
+    from repro_torch.serving import grow_caches
+
+    cfg = _p15_config("deepseek-moe-16b", num_layers=4, dtype="float32",
+                      capacity_factor=64.0)
+    if moe.capacity(cfg, 2 * 301) < 2 * 301 * cfg.moe_top_k:
+        raise AssertionError("15g: the capacity factor leaves a drop")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = Model(cfg, device="cuda")
+        gen = model.generator(50)
+        params = model.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 301), generator=gen,
+                               device="cuda")
+        with torch.inference_mode(), _Slots() as slots:
+            _, caches = model.prefill(params, {"tokens": tokens[:, :300]})
+            caches = model.prefill_to_decode(grow_caches(caches, 301))
+            stepped, _ = model.decode_step(params, tokens[:, 300:], caches,
+                                           300)
+            whole, _ = model.prefill(params, {"tokens": tokens})
+            dropped = slots.dropped_share()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    err = float((stepped - whole).abs().max())
+    print(f"15g: deepseek-moe-16b decode after prefill(P) vs prefill(P ++ "
+          f"[x]) at full width, 4 layers, fp32, P=300, capacity factor 64 "
+          f"(pairs dropped {dropped!r}): max_abs_err {err!r} on logits up "
+          f"to {float(whole.abs().max())!r} (tolerance {INVARIANT_TOL})")
+    if dropped or not bool(torch.isfinite(whole).all()):
+        raise AssertionError("15g: pairs dropped or logits not finite")
+    torch.testing.assert_close(stepped, whole, rtol=INVARIANT_TOL,
+                               atol=INVARIANT_TOL)
+    del params, caches, model
+    torch.cuda.empty_cache()
+
+
+def moe_and_patch_on_the_card(ops, ref):
+    """Phase 15: 15a–15g."""
+    out = {}
+    t0 = time.perf_counter()
+    out["moe"] = serve_moe_whole(ops)
+    print(f"15a-b: {time.perf_counter() - t0!r} s")
+    for name, step in (("layer", moe_layer_card_against_cpu),
+                       ("arctic", lambda: arctic_one_layer(ops)),
+                       ("group7", lambda: check_group7_flash(ops, ref)),
+                       ("llava", lambda: serve_llava(ops)),
+                       ("train", lambda: train_moe_cut(ops)),
+                       ("train_cpu", train_moe_card_against_cpu),
+                       ("invariant", moe_decode_invariant)):
+        t0 = time.perf_counter()
+        out[name] = step()
+        torch.cuda.empty_cache()
+        print(f"phase 15 {name}: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -4114,6 +4850,14 @@ def main() -> None:
     trained = train_on_the_card(ops, ref)
     print(f"phase 14: {time.perf_counter() - t0!r} s")
 
+    # phase 15 — the mixture-of-experts models and the patch frontend:
+    # deepseek-moe-16b whole, one MoE layer card against CPU, arctic-480b
+    # one layer, llava-next-34b cut in depth (group 7), MoE training and
+    # the MoE decode ≡ prefill
+    t0 = time.perf_counter()
+    p15 = moe_and_patch_on_the_card(ops, ref)
+    print(f"phase 15: {time.perf_counter() - t0!r} s")
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
@@ -4139,6 +4883,11 @@ def main() -> None:
         "local_launches": rg_launches["flash_attention"],
         "train_launches": trained["launches"]["flash_attention"],
         "forward_with_lse_ms": fab_timing["deepseek_7b"]["forward_lse_ms"],
+        "moe_launches": p15["moe"]["launches"]["flash_attention"],
+        "moe_main_path": "deepseek-moe-16b prefill (phase 15a), q [64, "
+                         "3072, 128] bf16, causal, group 1",
+        "patch_launches": p15["llava"]["launches"],
+        "group7": p15["group7"],
         **fa_timing}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4150,6 +4899,7 @@ def main() -> None:
         "launches": trained["launches"]["flash_attention_bwd"],
         "main_path": "musicgen-medium training (phase 14a), q [48, 2048, "
                      "64] bf16, causal, group 1, 5 steps",
+        "moe_train_launches": p15["train"]["launches"]["flash_attention_bwd"],
         **fab_timing}, {
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",

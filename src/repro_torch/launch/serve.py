@@ -10,12 +10,19 @@ Examples:
       --reduced --device cpu --batch 2 --prompt-len 24 --new-tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
       --batch 4 --prompt-len 4064 --new-tokens 32      # int8 KV cache, H100
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --reduced --device cpu --batch 2 --prompt-len 24 --new-tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+      --batch 4 --prompt-len 3072 --new-tokens 32      # all 28 layers, H100
 
-Every config but the mixture-of-experts and patch-frontend ones serves:
-``rwkv6-7b``, ``recurrentgemma-2b`` and the dense decoders (full
-attention; ``deepseek-7b`` with the reference's int8 KV cache).  Weights
-are drawn at full width, so a model whose bf16 weights pass one card's
-memory (``qwen2-72b`` and ``deepseek-67b`` on an 80 GB card) needs
+Every config of the registry serves: ``rwkv6-7b``, ``recurrentgemma-2b``,
+the dense decoders (full attention; ``deepseek-7b`` with the reference's
+int8 KV cache), the mixture-of-experts models (``deepseek-moe-16b``,
+``arctic-480b``) and ``llava-next-34b`` (patch frontend: the first
+``num_patches`` of ``--prompt-len`` positions are random patch
+embeddings).  Weights are drawn at full width, so a model whose bf16
+weights pass one card's memory (``qwen2-72b``, ``deepseek-67b``,
+``arctic-480b`` and ``llava-next-34b`` on an 80 GB card) needs
 ``--reduced``.
 """
 

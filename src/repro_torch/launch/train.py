@@ -7,11 +7,16 @@ Examples:
       --reduced --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \
       --batch 8 --seq 2048 --steps 5      # all 48 layers, one H100
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b \
+      --reduced --device cpu --steps 3
 
-Dense full-attention configs train (``musicgen-medium``, ``deepseek-7b``,
-``internlm2-20b``, ...); ``rwkv6-7b`` and ``recurrentgemma-2b`` raise until
-their backward kernels come (ROADMAP Queue 1, item 13), and the
-mixture-of-experts and patch-frontend configs until their layers do.
+Every config whose layers are all full attention trains: the dense
+decoders (``musicgen-medium``, ``deepseek-7b``, ``internlm2-20b``, ...),
+the mixture-of-experts models (``deepseek-moe-16b``, ``arctic-480b``) and
+``llava-next-34b``, whose batches carry zero patch embeddings before the
+``--seq`` text tokens, as the reference's launcher gives them.
+``rwkv6-7b`` and ``recurrentgemma-2b`` raise until their backward kernels
+come (ROADMAP Queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ def main(argv: Optional[Sequence[str]] = None):
                                   "roofline/) is not ported (ROADMAP Queue "
                                   "1, item 9)")
 
+    import numpy as np
+
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.config import (MeshConfig, RunConfig, ShapeConfig,
                                     TrainConfig, get_config)
@@ -62,18 +69,27 @@ def main(argv: Optional[Sequence[str]] = None):
     logger.info("arch=%s params=%.1fM device=%s", cfg.name,
                 cfg.param_count() / 1e6, model.device)
 
+    p = cfg.num_patches if cfg.frontend == "patch" else 0
     run = RunConfig(
         model=cfg,
-        shape=ShapeConfig("train", "train", args.seq, args.batch),
+        shape=ShapeConfig("train", "train", args.seq + p, args.batch),
         mesh=MeshConfig((1, 1), ("data", "model")),
         train=TrainConfig(total_steps=args.steps))
 
     corpus = lm_token_corpus(1 << 18, cfg.vocab_size, shard_tokens=1 << 14)
     pipe = SubsamplingBatchPipeline(
         corpus, PipelineConfig(batch_size=args.batch, seq_len=args.seq))
+
+    def batches():
+        for b in pipe.batches(None):
+            if p:
+                b["patch_embeds"] = np.zeros(
+                    (args.batch, p, cfg.frontend_dim), np.float32)
+            yield b
+
     mgr = (CheckpointManager(args.ckpt_dir, keep=2)
            if args.ckpt_dir else None)
-    report = train(model, run, pipe.batches(None), num_steps=args.steps,
+    report = train(model, run, batches(), num_steps=args.steps,
                    checkpoint_manager=mgr, log_every=10)
     logger.info("done: %d steps, loss %.3f → %.3f, %.1fs",
                 report.steps,

@@ -30,7 +30,6 @@ class Model:
         if cfg.family == "subsample":
             raise ValueError(f"{cfg.name} is the platform's workload "
                              "configuration, not a model")
-        T.check_supported(cfg)
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
         self.device = check_device(device)
@@ -66,14 +65,21 @@ class Model:
 
     # -- training ------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor]):
-        """``tokens, labels [B, S]`` → (loss, ``{"ce", "aux"}``): the mean
-        next-token cross-entropy over the labels ``>= 0`` plus
-        ``router_aux_weight`` × the mean auxiliary loss."""
+        """``tokens, labels [B, S_text]`` (+ ``patch_embeds [B, P,
+        frontend_dim]``) → (loss, ``{"ce", "aux"}``): the mean next-token
+        cross-entropy over the labels ``>= 0`` plus ``router_aux_weight`` ×
+        the mean auxiliary loss.  With a patch frontend the text's logits
+        are read from the positions ``P - 1 .. S - 2`` of the sequence with
+        the patches prepended, as the reference reads them."""
         cfg = self.cfg
         h = T.embed_inputs(cfg, params, batch, self.dtype)
-        positions = torch.arange(h.shape[1], device=h.device)
+        s = h.shape[1]
+        positions = torch.arange(s, device=h.device)
         x, _, aux = T.forward(cfg, params, h, caches=None, mode="train",
                               positions=positions)
+        p = cfg.num_patches if cfg.frontend == "patch" else 0
+        if p:
+            x = x[:, p - 1:s - 1]
         logits = L.head_apply(cfg, params["embed"], x)
         labels = batch["labels"]
         mask = (labels >= 0).float()
@@ -84,11 +90,12 @@ class Model:
 
     # -- serving -------------------------------------------------------------
     def prefill(self, params, batch: Dict[str, torch.Tensor]):
-        """tokens [B,S] → (last-token logits [B,V] fp32, caches)."""
+        """tokens [B,S] (+ ``patch_embeds [B, P, frontend_dim]``, prepended)
+        → (last-token logits [B,V] fp32, caches)."""
         cfg = self.cfg
         h = T.embed_inputs(cfg, params, batch, self.dtype)
         positions = torch.arange(h.shape[1], device=h.device)
-        x, caches = T.forward(cfg, params, h, caches=None, mode="prefill",
+        x, caches, _ = T.forward(cfg, params, h, caches=None, mode="prefill",
                               positions=positions)
         logits = L.head_apply(cfg, params["embed"], x[:, -1:])[:, 0]
         return logits, caches
@@ -99,22 +106,32 @@ class Model:
         new caches)."""
         cfg = self.cfg
         h = L.embed_apply(cfg, params["embed"], tokens, self.dtype)
-        x, new_caches = T.forward(cfg, params, h, caches=caches,
+        x, new_caches, _ = T.forward(cfg, params, h, caches=caches,
                                   mode="decode", pos=int(pos))
         logits = L.head_apply(cfg, params["embed"], x)[:, 0]
         return logits, new_caches
 
     # -- inputs --------------------------------------------------------------
     def make_inputs(self, shape: ShapeConfig, generator: torch.Generator):
-        """Random token inputs for one (shape) cell, drawn from
-        ``generator`` (on the model's device): ``tokens [B, S]`` for
-        prefill, ``tokens [B, 1]`` and ``pos`` for decode."""
+        """Random inputs for one (shape) cell, drawn from ``generator`` (on
+        the model's device): ``tokens [B, S]`` for prefill, ``tokens [B,
+        1]`` and ``pos`` for decode.  With a patch frontend, a prefill's S
+        positions are ``num_patches`` patch embeddings (``patch_embeds [B,
+        P, frontend_dim]``, standard normal in the model's dtype) and S - P
+        tokens, as the reference's ``input_specs`` lays them out."""
+        cfg = self.cfg
         b = shape.global_batch
-        vocab = max(2, self.cfg.vocab_size)
-        seq = 1 if shape.kind == "decode" else shape.seq_len
+        vocab = max(2, cfg.vocab_size)
+        p = (cfg.num_patches if cfg.frontend == "patch"
+             and shape.kind != "decode" else 0)
+        seq = 1 if shape.kind == "decode" else shape.seq_len - p
         out = {"tokens": torch.randint(0, vocab, (b, seq),
                                        generator=generator,
                                        device=self.device)}
+        if p:
+            out["patch_embeds"] = torch.randn(
+                (b, p, cfg.frontend_dim), generator=generator,
+                device=self.device).to(self.dtype)
         if shape.kind == "decode":
             out["pos"] = shape.seq_len - 1
         return out

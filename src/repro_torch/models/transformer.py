@@ -1,8 +1,11 @@
-"""Decoder assembly (the reference's ``repro.models.transformer``), for
-the layer kinds the port has: RWKV6, RG-LRU, full (``ATTN``) and local
-(sliding-window) attention, each RG-LRU and attention layer with the dense
-gated MLP.  Attention caches are int8 with fp32 scales where the config's
-``kv_cache_dtype`` is ``"int8"``.
+"""Decoder assembly (the reference's ``repro.models.transformer``) for
+every architecture family: RWKV6, RG-LRU, full (``ATTN``) and local
+(sliding-window) attention layers; each RG-LRU and attention layer with
+the dense gated MLP or, in a mixture-of-experts model past its leading
+dense layers, the MoE FFN (``models.moe``, with arctic's dense residual
+FFN beside it).  Attention caches are int8 with fp32 scales where the
+config's ``kv_cache_dtype`` is ``"int8"``.  A ``patch`` frontend projects
+precomputed patch embeddings and prepends them to the token stream.
 
 Layer stacks keep the reference's organisation: ``prefix`` (unrolled
 leading layers) + ``blocks`` (homogeneous pattern units whose parameters
@@ -12,10 +15,11 @@ are stacked ``[n_blocks, ...]``, so that weights carry across one to one)
 the port loops over the block index in Python.
 
 Modes:
-  train    — full sequence, no caches, remat per block, returns hidden and
-             the mean auxiliary loss
+  train    — full sequence, no caches, remat per block
   prefill  — full sequence, returns per-layer caches (KV / recurrent state)
   decode   — one token against caches (``pos`` = current length)
+Every mode returns the mean auxiliary (MoE load-balancing) loss beside the
+hidden state and caches.
 
 Training takes full-attention (``ATTN``) layers only: the recurrences and
 windowed attention have no backward kernel yet (ROADMAP Queue 1, item 13).
@@ -38,22 +42,11 @@ from torch.utils.checkpoint import (
 
 from repro_torch.config.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
-from repro_torch.parallel.sharding import LAYERS, ParamDef
+from repro_torch.parallel.sharding import EMBED, LAYERS, ParamDef
 from repro_torch.tree import tree_leaves, tree_map
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot run yet,
-    naming the ROADMAP item that ports what it lacks."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers "
-                                  "come with the LM substrate (ROADMAP "
-                                  "Queue 1, item 11)")
-    if cfg.frontend == "patch":
-        raise NotImplementedError(f"{cfg.name}: the patch frontend comes "
-                                  "with the LM substrate (ROADMAP Queue 1, "
-                                  "item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +54,20 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    if cfg.family == "moe" and layer_idx >= cfg.first_dense_layers:
+        return "moe"
+    return "dense"
+
+
+def _dense_ff(cfg: ModelConfig, layer_idx: int) -> int:
+    if (cfg.family == "moe" and layer_idx < cfg.first_dense_layers
+            and cfg.first_dense_d_ff):
+        return cfg.first_dense_d_ff
+    return cfg.d_ff
+
+
 def layer_defs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
-    check_supported(cfg)
     kind = cfg.layer_kind(layer_idx)
     d = cfg.d_model
     defs: Dict[str, Any] = {"ln1": L.rms_norm_defs(d),
@@ -73,13 +78,17 @@ def layer_defs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
         return defs
     defs["mix"] = (RG.rglru_defs(cfg) if kind == RGLRU
                    else L.attention_defs(cfg))
-    defs["ffn"] = L.mlp_defs(d, cfg.d_ff)
+    if _ffn_kind(cfg, layer_idx) == "moe":
+        defs["ffn"] = MOE.moe_defs(cfg)
+        if cfg.moe_dense_residual:
+            defs["dense_res"] = L.mlp_defs(d, cfg.d_ff)
+    else:
+        defs["ffn"] = L.mlp_defs(d, _dense_ff(cfg, layer_idx))
     return defs
 
 
 def layer_cache_defs(cfg: ModelConfig, layer_idx: int, batch: int,
                      seq: int, cache_dtype=None) -> Dict[str, Any]:
-    check_supported(cfg)
     kind = cfg.layer_kind(layer_idx)
     if kind == ATTN:
         return L.attention_cache_defs(cfg, batch, seq, cache_dtype)
@@ -129,14 +138,19 @@ def stack_plan(cfg: ModelConfig) -> StackPlan:
 
 def build_param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     plan = stack_plan(cfg)
-    return {
+    defs: Dict[str, Any] = {
         "embed": L.embed_defs(cfg),
         "final_norm": L.rms_norm_defs(cfg.d_model),
-        "prefix": [layer_defs(cfg, i) for i in plan.prefix],
-        "blocks": [_stack_defs(layer_defs(cfg, i), plan.n_blocks)
-                   for i in plan.pattern_idx],
-        "tail": [layer_defs(cfg, i) for i in plan.tail],
     }
+    if cfg.frontend == "patch":
+        defs["frontend"] = {
+            "proj": ParamDef((cfg.frontend_dim, cfg.d_model), (None, EMBED)),
+        }
+    defs["prefix"] = [layer_defs(cfg, i) for i in plan.prefix]
+    defs["blocks"] = [_stack_defs(layer_defs(cfg, i), plan.n_blocks)
+                      for i in plan.pattern_idx]
+    defs["tail"] = [layer_defs(cfg, i) for i in plan.tail]
+    return defs
 
 
 def build_cache_defs(cfg: ModelConfig, batch: int, seq: int,
@@ -188,12 +202,14 @@ def check_trainable(cfg: ModelConfig, kind: str) -> None:
             "(ROADMAP Queue 1, item 13)")
 
 
-def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
-                positions: Optional[torch.Tensor], cache, mode: str,
-                pos: Optional[int]) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache); ``new_cache`` is None in ``train`` mode.  The
-    mixture-of-experts auxiliary loss of the reference comes with the MoE
-    layers."""
+def layer_apply(cfg: ModelConfig, kind: str, ffn_kind: str, params,
+                x: torch.Tensor, *, positions: Optional[torch.Tensor], cache,
+                mode: str, pos: Optional[int]
+                ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """Returns (x, new_cache, aux_loss); ``new_cache`` is None in ``train``
+    mode, ``aux_loss`` the MoE layer's load-balancing loss (None for a
+    dense FFN, which adds zero: no tensor is made for it)."""
+    aux = None
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
     decode = mode == "decode"
 
@@ -236,9 +252,13 @@ def layer_apply(cfg: ModelConfig, kind: str, params, x: torch.Tensor, *,
     if kind == RWKV:
         ffn_out, new_cache = RW.channel_mix_apply(
             cfg, params["ffn"], h, new_cache, decode)
+    elif ffn_kind == "moe":
+        ffn_out, aux = MOE.moe_apply(cfg, params["ffn"], h)
+        if cfg.moe_dense_residual:
+            ffn_out = ffn_out + L.mlp_apply(params["dense_res"], h)
     else:
         ffn_out = L.mlp_apply(params["ffn"], h)
-    return x + ffn_out.to(x.dtype), new_cache
+    return x + ffn_out.to(x.dtype), new_cache, aux
 
 
 def _zero_state(cfg: ModelConfig, kind: str, batch: int,
@@ -264,7 +284,7 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg: ModelConfig, body):
-    """``body(x)`` checkpointed as ``cfg.remat`` asks."""
+    """``body(*args)`` checkpointed as ``cfg.remat`` asks."""
     if cfg.remat == "none":
         return body
     if cfg.remat not in ("full", "dots"):
@@ -273,17 +293,23 @@ def _remat(cfg: ModelConfig, body):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_saveable)
-    return lambda x: checkpoint(body, x, use_reentrant=False, **kw)
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
+
+
+def _add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    return total if aux is None else total + aux
 
 
 def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
             mode: str, positions: Optional[torch.Tensor] = None,
             pos: Optional[int] = None):
-    """hidden [B,S,D] → (hidden after the final norm, new caches), or in
-    ``train`` mode (hidden, None, mean auxiliary loss: 0 until the MoE
-    layers come).  ``positions [S]`` are the full sequence's token
-    positions, ``pos`` the decode step's (the current length); attention
-    layers read them."""
+    """hidden [B,S,D] → (hidden after the final norm, new caches (None in
+    ``train`` mode), mean auxiliary loss).  The auxiliary loss is each
+    layer's summed in layer order and divided by ``num_layers`` (dense
+    layers add zero), as the reference's.  ``positions [S]`` are the full
+    sequence's token positions, ``pos`` the decode step's (the current
+    length); attention layers read them."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: train, prefill or decode")
     plan = stack_plan(cfg)
@@ -292,14 +318,18 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
         for i in range(cfg.num_layers):
             check_trainable(cfg, cfg.layer_kind(i))
         return _train_forward(cfg, params, plan, x, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     new_prefix = []
     for j, i in enumerate(plan.prefix):
         c = None if caches is None else caches["prefix"][j]
-        x, nc = layer_apply(cfg, cfg.layer_kind(i), params["prefix"][j], x,
-                            positions=positions, cache=c, mode=mode, pos=pos)
+        x, nc, aux = layer_apply(
+            cfg, cfg.layer_kind(i), _ffn_kind(cfg, i), params["prefix"][j],
+            x, positions=positions, cache=c, mode=mode, pos=pos)
         new_prefix.append(nc)
+        aux_total = _add_aux(aux_total, aux)
 
+    pat_ffn = tuple(_ffn_kind(cfg, i) for i in plan.pattern_idx)
     per_block = []
     for bi in range(plan.n_blocks):
         ncs = []
@@ -311,28 +341,34 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
                 c = caches["blocks_flat"][bi][p]
             else:
                 c = tree_map(lambda t: t[bi], caches["blocks"][p])
-            x, nc = layer_apply(cfg, kind, bp, x, positions=positions,
-                                cache=c, mode=mode, pos=pos)
+            x, nc, aux = layer_apply(cfg, kind, pat_ffn[p], bp, x,
+                                     positions=positions, cache=c, mode=mode,
+                                     pos=pos)
             ncs.append(nc)
+            aux_total = _add_aux(aux_total, aux)
         per_block.append(ncs)
 
     new_tail = []
     for j, i in enumerate(plan.tail):
         c = None if caches is None else caches["tail"][j]
-        x, nc = layer_apply(cfg, cfg.layer_kind(i), params["tail"][j], x,
-                            positions=positions, cache=c, mode=mode, pos=pos)
+        x, nc, aux = layer_apply(
+            cfg, cfg.layer_kind(i), _ffn_kind(cfg, i), params["tail"][j], x,
+            positions=positions, cache=c, mode=mode, pos=pos)
         new_tail.append(nc)
+        aux_total = _add_aux(aux_total, aux)
 
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    aux_mean = aux_total / max(1, cfg.num_layers)
     if mode == "decode":
         return x, {"prefix": new_prefix, "blocks_flat": per_block,
-                   "tail": new_tail}
+                   "tail": new_tail}, aux_mean
     # prefill: stack each pattern position's caches over the blocks, as
     # the reference's scan does
     blocks = [tree_map(lambda *ts: torch.stack(ts),
                        *[per_block[bi][p] for bi in range(plan.n_blocks)])
               for p in range(len(plan.pattern))]
-    return x, {"prefix": new_prefix, "blocks": blocks, "tail": new_tail}
+    return x, {"prefix": new_prefix, "blocks": blocks,
+               "tail": new_tail}, aux_mean
 
 
 def _unstack(tree, n: int) -> list:
@@ -348,34 +384,43 @@ def _unstack(tree, n: int) -> list:
 
 def _train_forward(cfg: ModelConfig, params, plan: StackPlan,
                    x: torch.Tensor, positions: torch.Tensor):
-    def apply(kind, p, x):
-        return layer_apply(cfg, kind, p, x, positions=positions, cache=None,
-                           mode="train", pos=None)[0]
+    def apply(kind, ffn_kind, p, x, aux_acc):
+        x, _, aux = layer_apply(cfg, kind, ffn_kind, p, x,
+                                positions=positions, cache=None,
+                                mode="train", pos=None)
+        return x, _add_aux(aux_acc, aux)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, i in enumerate(plan.prefix):
-        x = apply(cfg.layer_kind(i), params["prefix"][j], x)
+        x, aux = apply(cfg.layer_kind(i), _ffn_kind(cfg, i),
+                       params["prefix"][j], x, aux)
     # the stacked block parameters split once: the backward of unbind
     # stacks the blocks' gradients in one copy, where indexing a block
     # (t[bi]) would add a zero-filled gradient of the whole stack a block
     blocks = [_unstack(params["blocks"][p], plan.n_blocks)
               for p in range(len(plan.pattern))]
+    pat_ffn = tuple(_ffn_kind(cfg, i) for i in plan.pattern_idx)
     for bi in range(plan.n_blocks):
-        def block_body(x, bi=bi):
+        def block_body(x, aux, bi=bi):
             for p, kind in enumerate(plan.pattern):
-                x = apply(kind, blocks[p][bi], x)
-            return x
+                x, aux = apply(kind, pat_ffn[p], blocks[p][bi], x, aux)
+            return x, aux
 
-        x = _remat(cfg, block_body)(x)
+        x, aux = _remat(cfg, block_body)(x, aux)
     for j, i in enumerate(plan.tail):
-        x = apply(cfg.layer_kind(i), params["tail"][j], x)
+        x, aux = apply(cfg.layer_kind(i), _ffn_kind(cfg, i),
+                       params["tail"][j], x, aux)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    # the reference sums each layer's auxiliary loss (MoE routing) and
-    # divides by the depth; dense layers add zero
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, None, aux
+    return x, None, aux / max(1, cfg.num_layers)
 
 
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                  dtype: torch.dtype) -> torch.Tensor:
-    """tokens → hidden [B,S,D]."""
-    return L.embed_apply(cfg, params["embed"], batch["tokens"], dtype)
+    """tokens (+ optional patch embeddings) → hidden [B,S,D]: with a
+    ``patch`` frontend, ``batch["patch_embeds"] [B, P, frontend_dim]``
+    projected to the model width and prepended to the tokens' embeddings."""
+    h = L.embed_apply(cfg, params["embed"], batch["tokens"], dtype)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(dtype) @ params["frontend"]["proj"]
+        h = torch.cat([pe, h], dim=1)
+    return h

@@ -40,15 +40,19 @@ class ServingEngine:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, torch.Tensor],
                  new_tokens: Optional[int] = None) -> GenerationResult:
-        """Prefill ``batch["tokens"] [B, S]``, then decode ``new_tokens``
-        tokens by greedy argmax.  Returns the tokens and the host seconds
-        of each phase, each closed by a synchronise on the card."""
+        """Prefill ``batch["tokens"] [B, S]`` (after ``patch_embeds [B, P,
+        ...]`` where the model has a patch frontend), then decode
+        ``new_tokens`` tokens by greedy argmax from position S (+ P).
+        Returns the tokens and the host seconds of each phase, each closed
+        by a synchronise on the card."""
         n_new = new_tokens or self.max_new_tokens
         cfg = self.model.cfg
         self._sync()
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(self.params, batch)
         prompt_len = batch["tokens"].shape[1]
+        if cfg.frontend == "patch" and "patch_embeds" in batch:
+            prompt_len += batch["patch_embeds"].shape[1]
         caches = grow_caches(caches, prompt_len + n_new, cfg.local_window)
         caches = self.model.prefill_to_decode(caches)
         self._sync()

@@ -203,9 +203,10 @@ def test_local_layer_prefill_and_rolled_cache_match_reference(s):
     want_x, want_cache, _ = TJ.layer_apply(
         cfg, LOCAL, "dense", jp, jnp.asarray(x), positions=jnp.arange(s),
         cache=None, mode="prefill", pos=None)
-    got_x, got_cache = T.layer_apply(
-        cfg, LOCAL, tp, torch.from_numpy(x), positions=torch.arange(s),
-        cache=None, mode="prefill", pos=None)
+    got_x, got_cache, got_aux = T.layer_apply(
+        cfg, LOCAL, "dense", tp, torch.from_numpy(x),
+        positions=torch.arange(s), cache=None, mode="prefill", pos=None)
+    assert got_aux is None              # a dense FFN adds no aux loss
     _close(got_x, want_x)
     assert got_cache["k"].shape[1] == min(s, cfg.local_window)
     for n in ("k", "v"):

@@ -1621,3 +1621,86 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
     assert ops.launch_count("flash_attention") == 4     # 2 layers, remat
     assert ops.launch_count("flash_attention_bwd") == 2
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+# -- the mixture-of-experts layer on the card
+
+
+def _moe_layer(cfg, seed, device):
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import init_params
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    params = init_params(moe.moe_defs(cfg), torch.float32,
+                         torch.device("cpu"), gen)
+    return {k: (v.to(device) if torch.is_tensor(v)
+                else {n: t.to(device) for n, t in v.items()})
+            for k, v in params.items()}
+
+
+@pytest.mark.cuda
+def test_moe_top_k_ties_go_to_the_lower_index_on_the_card(cuda):
+    """Router columns equal in fours (4j .. 4j + 3), bf16: every token's
+    probabilities tie in fours, the top 6 takes part of a four, and there
+    the lower indices; with every column equal, the top k is 0 .. k - 1
+    for every token."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), d_model=256)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1024, cfg.d_model), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    cols = torch.randn((cfg.d_model, cfg.num_experts // 4),
+                       generator=g).to(cuda)
+    router = cols.repeat_interleave(4, dim=1).to(torch.bfloat16)
+    idx, _, _, probs = moe._route(cfg, {"router": router}, x)
+    fours = probs.view(-1, cfg.num_experts // 4, 4)
+    assert torch.equal(fours, fours[..., :1].expand_as(fours))
+    chosen = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, idx, True)
+    chosen = chosen.view(-1, cfg.num_experts // 4, 4).int()
+    partial = (chosen.sum(-1) % 4) != 0
+    assert bool(partial.any(-1).all())           # a tie at the cut, a token
+    assert bool((chosen[..., 1:] <= chosen[..., :-1]).all())
+    same = torch.ones((cfg.d_model, cfg.num_experts), device=cuda,
+                      dtype=torch.bfloat16) * cols[:, :1].to(torch.bfloat16)
+    idx, _, _, _ = moe._route(cfg, {"router": same}, x)
+    assert torch.equal(idx, torch.arange(cfg.moe_top_k, device=cuda)
+                       .expand_as(idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["einsum", "scatter"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, mode):
+    """A ``deepseek-moe-16b`` MoE layer at width 256 (64 experts, top 6,
+    two shared), fp32 with TF32 off, x [2, 512, 256] (T = 1,024): the
+    expert indices equal wherever the k-th/(k+1)-th probability margin
+    exceeds 1e-5, the output within 1e-4 of its largest value on the rows
+    routed alike, and two launches equal bit for bit."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), d_model=256,
+                              moe_d_ff=128)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = torch.randn((2, 512, cfg.d_model),
+                        generator=torch.Generator().manual_seed(5))
+        outs, idxs = [], []
+        for device in ("cpu", cuda):
+            params = _moe_layer(cfg, 6, device)
+            xd = x.to(device)
+            idx, _, _, probs = moe._route(cfg, params, xd.reshape(-1, 256))
+            y, aux = moe.moe_apply(cfg, params, xd, dispatch=mode)
+            if device != "cpu":
+                again, _ = moe.moe_apply(cfg, params, xd, dispatch=mode)
+                assert torch.equal(y, again)
+            outs.append(y.cpu())
+            idxs.append((idx.cpu(), probs.cpu()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (i_cpu, p_cpu), (i_card, _) = idxs
+    top = torch.sort(p_cpu, dim=-1, descending=True).values
+    margin = top[:, cfg.moe_top_k - 1] - top[:, cfg.moe_top_k]
+    clear = margin > 1e-5
+    assert torch.equal(i_card[clear], i_cpu[clear])
+    alike = (i_card == i_cpu).all(-1)
+    scale = float(outs[0].abs().max())
+    diff = (outs[1] - outs[0]).reshape(-1, cfg.d_model)[alike].abs().max()
+    assert float(diff) <= 1e-4 * scale

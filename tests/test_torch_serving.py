@@ -243,13 +243,6 @@ def test_configs_equal_the_reference(arch):
     assert ours.param_count() == theirs.param_count()
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-moe-16b",
-                                  "llava-next-34b"])
-def test_unported_arch_raises_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch), device="cpu")
-
-
 def test_workload_config_is_not_a_model():
     with pytest.raises(ValueError):
         Model(get_config("paper-subsample"), device="cpu")

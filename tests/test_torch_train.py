@@ -592,13 +592,6 @@ def test_training_a_recurrent_model_raises(arch):
         microbatch.value_and_grad(model.loss, params, batch)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b",
-                                  "llava-next-34b"])
-def test_training_moe_and_patch_configs_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced(arch), device="cpu")
-
-
 def test_kernels_without_a_backward_refuse_grad():
     g = torch.Generator().manual_seed(0)
     r, k, v = (torch.randn((1, 2, 16, 64), generator=g) for _ in range(3))
