@@ -6,10 +6,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the seven CUDA kernel sources from ``src/repro_torch``
+2. Builds the nine CUDA kernel sources from ``src/repro_torch``
    (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
-   ``rglru_scan``, ``flash_attention``, ``subsample_grid`` and
-   ``flash_attention_bwd``), one nvcc each, started together, and prints
+   ``rglru_scan``, ``flash_attention``, ``subsample_grid``,
+   ``flash_attention_bwd``, ``rwkv6_chunked_bwd`` and ``rglru_scan_bwd``),
+   one nvcc each, started together, and prints
    ptxas' registers, shared memory and spills; any spill in
    ``flash_attention_bwd``'s tensor-core kernels fails.
 3. Holds each kernel against its plain PyTorch version on the card, at
@@ -53,7 +54,22 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    beside its bound, its plain version and the backward of
    ``scaled_dot_product_attention(is_causal=True)``, split by kernel (D,
    dK/dV, dQ) under the profiler, and the forward with and without its
-   log-sum-exp.
+   log-sum-exp.  Then windowed (the local layers' training path):
+   ``recurrentgemma-2b``'s q ``[10, 4096, 256]`` on one KV head at window
+   2,048 (the CUDA-core body), q ``[48, 2048, 64]`` at window 512 (the
+   tensor cores), window 1, ragged and non-causal windows and fp32, and
+   windows of S and past it, which must equal the causal backward bit for
+   bit; every case timed beside its bound and the backward of
+   ``scaled_dot_product_attention`` with a boolean window mask.
+   Phase 3h holds ``rwkv6_chunked_bwd`` against its plain version, both
+   fed the forward kernel's own chunk states and a non-zero state0 and
+   dstate_out, at ``rwkv6-7b``'s training shape ([1, 64, 4096, 64] bf16,
+   fp32 logw, C = 64), at extreme decays, C = 16 with hd = 32, fp32 and
+   one short chunk; phase 3i holds both forms of ``rglru_scan_bwd``
+   (read form bit for bit; gated form du and dh0 bit for bit, the gate
+   vectors' sums within 1e-4) at ``recurrentgemma-2b``'s ([1, 4096,
+   2560] bf16), S = 1 and widths off the channel block.  Each new kernel
+   repeats bit for bit and is timed beside its bound and plain version.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -230,6 +246,22 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    against the CPU (loss and gradients within 1e-4, except experts a
    printed routing flip touches).  15g decode ≡ prefill within 1e-3 at 4
    layers, fp32, with a capacity factor that drops nothing.
+16. After phase 15: training the recurrent models.  16a trains
+   ``recurrentgemma-2b`` whole (26 layers, bf16 parameters from a seed,
+   remat full) for 3 steps of ``train()`` at batch 4 × 4,096 (4
+   microbatches; S past the window of 2,048): 34 ``rglru_scan``, 18
+   ``rglru_scan_bwd``, 16 ``flash_attention`` and 8 ``flash_attention_bwd``
+   launches a microbatch; step times, tokens/s, peak memory, one profiled
+   step's device ms by kind, every leaf's gradient finite and non-zero and
+   every leaf changed within two steps.  16b the same for ``rwkv6-7b`` at
+   full width cut to 8 layers (16 ``rwkv6_chunked`` and 8
+   ``rwkv6_chunked_bwd`` a microbatch).  16c one ``make_train_step`` on
+   the card against the CPU, fp32 with TF32 off, batch 2 × 256, for
+   ``rwkv6-7b`` at 2 layers and ``recurrentgemma-2b`` at 3 (one RG-LRU,
+   RG-LRU, local pattern): the loss within 1e-4, gradients and parameters
+   within 14b's bounds (``rwkv6-7b``'s gradients within 1e-3: the CPU
+   sums its log decays in double, the card in fp32;
+   ``RWKV_CARD_CPU_TOL``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -1145,12 +1177,12 @@ MUSICGEN_FA = (2 * 24, 2048, 2048, 64, True, 0, 1)
 DENSE_BWD_PLAIN_HEADS = 16
 
 
-def _flash_bwd_bound(q, k, causal, group):
+def _flash_bwd_bound(q, k, causal, group, window=0):
     """Least time for one backward: q, k, v, out, dout and lse read once,
     dq, dk and dv written once, over 3.35 TB/s, against five products of
-    2·HD operations for every (query, key) pair the mask leaves (S, dP,
-    dV, dK, dQ; the forward does two) over the tensor-core rate of the
-    inputs' type."""
+    2·HD operations for every (query, key) pair the mask (causal, window)
+    leaves (S, dP, dV, dK, dQ; the forward does two) over the tensor-core
+    rate of the inputs' type."""
     from repro_torch.kernels import ref
 
     bh, sq, hd = q.shape
@@ -1158,7 +1190,7 @@ def _flash_bwd_bound(q, k, causal, group):
     esize = q.element_size()
     nbytes = ((4 * bh * sq * hd + 4 * (bh // group) * skv * hd) * esize
               + 4 * bh * sq)
-    pairs = int(ref.attention_mask(sq, skv, causal=causal, window=0,
+    pairs = int(ref.attention_mask(sq, skv, causal=causal, window=window,
                                    device=q.device).sum()) * bh
     rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else TF32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1177,6 +1209,28 @@ def _sdpa_bwd_ms(q, k, v, dout):
     grad = dout[None]
     return _time_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), grad, retain_graph=True), reps=10)
+
+
+def _sdpa_bwd_masked_ms(q, k, v, dout, causal, window, group):
+    """The library yardstick of a windowed backward: the backward alone of
+    autograd through ``scaled_dot_product_attention`` on the same tensors
+    with the mask given as a boolean tensor (a window has no one-call
+    form), k and v expanded to every query head."""
+    from repro_torch.kernels import ref
+
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    mask = ref.attention_mask(sq, skv, causal=causal, window=window,
+                              device=q.device)
+    qs = q.view(bh // group, group, sq, hd).detach().requires_grad_()
+    ks, vs = (t.view(bh // group, 1, skv, hd).detach().requires_grad_()
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = sdpa(qs, ks.expand(-1, group, -1, -1), vs.expand(-1, group, -1, -1),
+               attn_mask=mask)
+    grad = dout.view(bh // group, group, sq, hd)
+    return _time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), grad, retain_graph=True), reps=5)
 
 
 def _off_16_bytes(t):
@@ -1388,6 +1442,386 @@ def check_flash_bwd_kernel(ops, ref):
         torch.cuda.empty_cache()
     return {"max_abs_err": worst["grad"], "lse_max_abs_err": worst["lse"],
             **timings[MUSICGEN_FA], "deepseek_7b": timings[dense]}
+
+
+# phase 3g, windowed: recurrentgemma-2b's LOCAL layer at one training
+# microbatch (batch 1 × 4,096 tokens: 10 query heads of 256 on one KV head,
+# window 2,048, causal; the CUDA-core body) and a tensor-core case, beside
+# window 1 and windows past S (which must equal the causal result bit for
+# bit); bh, sq, skv, hd, causal, window, group, dtype
+LOCAL_BWD = (10, 4096, 4096, 256, True, 2048, 10, torch.bfloat16)
+WINDOWED_TC_BWD = (48, 2048, 2048, 64, True, 512, 1, torch.bfloat16)
+
+
+def check_windowed_flash_bwd(ops, ref):
+    """Phase 3g, windowed: ``flash_attention_bwd`` with a window against
+    its plain version on the card, fed the forward's own windowed output
+    and log-sum-exp (the lse held first against the plain one): the local
+    training shape (``LOCAL_BWD``, the CUDA-core body at HD 256), a
+    tensor-core case (``WINDOWED_TC_BWD``), window 1, a window of 100 at a
+    ragged group of 2, fp32, a window that is not causal (Sq < Skv), and
+    windows of S and past it, each of which must equal the causal
+    (window 0) result bit for bit.  At the two main shapes a second launch
+    must equal the first bit for bit.  Every case is timed beside its
+    bound and beside the backward alone of autograd through
+    ``scaled_dot_product_attention`` with a boolean window mask; the local
+    shape is also split by kernel under the profiler."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    card = _card_line()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    cases = [LOCAL_BWD, WINDOWED_TC_BWD,
+             (8, 300, 300, 64, True, 1, 1, torch.bfloat16),
+             (12, 577, 577, 128, True, 100, 2, torch.bfloat16),
+             (8, 700, 700, 64, True, 200, 2, torch.float32),
+             (6, 200, 257, 64, False, 50, 2, torch.bfloat16),
+             (4, 300, 300, 128, True, 300, 2, torch.bfloat16),
+             (4, 300, 300, 256, True, 1000, 2, torch.bfloat16)]
+    worst = 0.0
+    out_t = {}
+    for bh, sq, skv, hd, causal, window, group, dtype in cases:
+        shape = (bh, sq, skv, hd, causal, window, group, dtype)
+        body = fab.BODY[(dtype, hd)]
+        q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((bh // group, skv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        dout = torch.randn((bh, sq, hd), generator=gen,
+                           device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window, group=group)
+        out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+        torch.testing.assert_close(lse, ref.flash_attention_lse_ref(q, k,
+                                                                    **kw),
+                                   rtol=1e-5, atol=1e-5)
+        ops.reset_launch_count()
+        grads = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if ops.launch_count("flash_attention_bwd") != 1:
+            raise AssertionError("flash_attention_bwd did not count its "
+                                 "launch")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        rtol, atol = FA_BWD_TOL[dtype]
+        errs = []
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            torch.testing.assert_close(got, w, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{name} at {shape}: {m}")
+            errs.append(float((got.float() - w.float()).abs().max()))
+        worst = max(worst, *errs)
+        del want
+        note = ""
+        if window >= sq:
+            out0, lse0 = fa.flash_attention(q, k, v, causal=causal, window=0,
+                                            group=group, with_lse=True)
+            causal_grads = ops.flash_attention_bwd(q, k, v, out0, lse0, dout,
+                                                   causal=causal,
+                                                   group=group)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(grads, causal_grads)):
+                raise AssertionError(f"window {window} >= S at {shape} "
+                                     "parts from the causal backward")
+            note = "; equal to the causal backward bit for bit"
+        if shape in (LOCAL_BWD, WINDOWED_TC_BWD):
+            again = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"two flash_attention_bwd launches on "
+                                     f"the inputs of {shape} differ")
+            note += "; a second launch equal bit for bit"
+            del again
+        torch.cuda.empty_cache()
+        reps = 5 if sq >= 2048 else 20
+        ms = _time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse,
+                                                      dout, **kw), reps=reps)
+        (bound_ms, bound_by), pairs = _flash_bwd_bound(q, k, causal, group,
+                                                       window)
+        library_ms = _sdpa_bwd_masked_ms(q, k, v, dout, causal, window,
+                                         group)
+        torch.cuda.empty_cache()
+        tflops = 10.0 * hd * pairs / ms / 1e9
+        print(f"flash_attention_bwd windowed check BH={bh} Sq={sq} Skv={skv} "
+              f"HD={hd} causal={causal} window={window} group={group} "
+              f"{str(dtype).split('.')[-1]}, body {body}: max_abs_err dq "
+              f"{errs[0]!r}, dk {errs[1]!r}, dv {errs[2]!r} (rtol {rtol}, "
+              f"atol {atol}){note}; kernel {ms!r} ms ({pairs} pairs, "
+              f"{tflops!r} TFLOP/s, {bound_ms / ms!r} of its bound "
+              f"{bound_ms!r} ms, {bound_by}), the backward of "
+              f"scaled_dot_product_attention with a boolean mask "
+              f"{library_ms!r} ms ({card})")
+        if shape in (LOCAL_BWD, WINDOWED_TC_BWD):
+            t = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms, "body": body,
+                 "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_ref(
+                     q, k, v, out, lse, dout, **kw), reps=2)}
+            if shape == LOCAL_BWD:
+                t["split_ms"] = _flash_bwd_split(
+                    lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    **kw))
+            print(f"  timed: {json.dumps(t)}")
+            out_t["local" if shape == LOCAL_BWD else "tensor_core"] = t
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **out_t}
+
+
+# rwkv6_chunked_bwd vs its plain version: the same fp32 formulas from the
+# same inputs and the forward's own states, with the same log-decay sums;
+# the kernel adds its products in other orders on the CUDA cores and takes
+# each pairwise decay by one ex2.approx (2 ulp), so the fp32 gradients
+# agree to ~1e-6 of their leaf's largest entry, held to RW_BWD_TOL; a bf16
+# gradient is one rounding of such a value and may also part by one bf16
+# step (at most 2^-7 of the entry)
+RW_BWD_TOL = 1e-4
+# the training path: one rwkv6-7b layer of a 4,096-token microbatch
+RW_BWD_MAIN = (1, 64, 4096, 64, 64, torch.bfloat16, 2.45)
+
+
+def _leaf_err(got, want, tol, what):
+    """Max |got − want| over want's largest entry; raises past ``tol`` of
+    it (and, for a bf16 gradient, past one bf16 step of an entry more)."""
+    g, w = got.double(), want.double()
+    scale = max(float(w.abs().max()), 1e-30)
+    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    if bool(((g - w).abs() > tol * scale + step * w.abs()).any()):
+        raise AssertionError(f"{what}: max_abs_err "
+                             f"{float((g - w).abs().max())!r} against a "
+                             f"largest entry of {scale!r}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: a value that is not finite")
+    return float((g - w).abs().max()) / scale
+
+
+def _rwkv6_bwd_bound(r, logw, chunk):
+    """Least time for one backward: r, k, v, u, logw and dout read once,
+    the forward's states (state0, the states entering every chunk but the
+    first, the final state) and dstate_out read once, dr, dk, dv, du,
+    dlogw and dstate0 written once, over 3.35 TB/s, against the products
+    of the gradient's chunk form over 495 TFLOP/s (TF32 dense): per (b, h)
+    and chunk of C, 8·C·hd² (the reverse state pass, S_c dout, dS' v,
+    k̃ᵀ dS') and 6·C²·hd (DP, and the four contractions over the pairs
+    j ≤ i: A, A dout, dr's and dk's), the pairwise exponentials left out."""
+    b, h, s, hd = r.shape
+    n = s // chunk
+    esize, wsize = r.element_size(), logw.element_size()
+    elems = b * h * s * hd
+    nbytes = (elems * (6 * esize + 2 * wsize + 4) + 2 * h * hd * esize
+              + b * h * (n + 3) * hd * hd * 4)
+    flops = (8 * chunk * hd * hd + 6 * chunk * chunk * hd) * b * h * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_rwkv6_bwd_kernel(ops, ref, rw):
+    """Phase 3h: ``rwkv6_chunked_bwd`` against its plain version
+    (``ref.rwkv6_chunked_bwd_ref``) on the card, both fed the forward
+    kernel's own states and a non-zero state0 and dstate_out: at the
+    training path's shape (``RW_BWD_MAIN``), at extreme decays (logw down
+    to -40 a token, as phase 3b drives the forward), at C = 16 and hd =
+    32, in fp32 and at one short chunk.  At the main shape a second launch
+    must equal the first bit for bit, and the kernel is timed beside its
+    bound and its plain version (no PyTorch call computes this
+    function)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card_line()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = [RW_BWD_MAIN,
+             (1, 16, 512, 64, 64, torch.bfloat16, 39.95),
+             (2, 8, 256, 32, 16, torch.bfloat16, 2.45),
+             (2, 8, 256, 64, 64, torch.float32, 2.45),
+             (2, 4, 13, 64, 13, torch.float32, 39.95)]
+    worst = 0.0
+    for b, h, s, hd, chunk, dtype, span in cases:
+        x = _rwkv6_inputs(b, h, s, hd, gen, dtype=dtype, span=span)
+        _, state_out, states = rw.rwkv6_chunked(*x, chunk, with_states=True)
+        dout = torch.randn((b, h, s, hd), generator=gen, device="cuda")
+        dstate = 0.5 * torch.randn((b, h, hd, hd), generator=gen,
+                                   device="cuda")
+        args = (*x, states, state_out, dout, dstate)
+        ops.reset_launch_count()
+        got = ops.rwkv6_chunked_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if ops.launch_count("rwkv6_chunked_bwd") != 1:
+            raise AssertionError("rwkv6_chunked_bwd did not count its launch")
+        want = ref.rwkv6_chunked_bwd_ref(*args, chunk)
+        what = (f"rwkv6_chunked_bwd B={b} H={h} S={s} hd={hd} C={chunk} "
+                f"{str(dtype).split('.')[-1]} r/k/v/u, logw down to "
+                f"{-0.05 - span:.2f}")
+        errs = {}
+        for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "dstate0"),
+                              got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{what}: {name} is {g.dtype} "
+                                     f"{tuple(g.shape)}, not {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            errs[name] = _leaf_err(g, w, RW_BWD_TOL, f"{what}: {name}")
+        worst = max(worst, *errs.values())
+        print(f"{what}: error over each leaf's largest entry "
+              f"{json.dumps(errs)} (tolerance {RW_BWD_TOL}; bf16 leaves one "
+              "bf16 step more)")
+        if (b, h, s, hd, chunk, dtype, span) == RW_BWD_MAIN:
+            again = ops.rwkv6_chunked_bwd(*args, chunk=chunk)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError("two rwkv6_chunked_bwd launches on the "
+                                     "same inputs differ")
+            del again
+            ms = _time_ms(lambda: ops.rwkv6_chunked_bwd(*args, chunk=chunk),
+                          reps=10)
+            plain_ms = _time_ms(lambda: ref.rwkv6_chunked_bwd_ref(*args,
+                                                                  chunk),
+                                reps=2)
+            bound_ms, bound_by = _rwkv6_bwd_bound(x[0], x[3], chunk)
+            print(f"rwkv6_chunked_bwd at [1, 64, 4096, 64] bf16 r/k/v/u, "
+                  f"fp32 logw, C=64: kernel {ms!r} ms, plain {plain_ms!r} "
+                  f"ms, bound {bound_ms!r} ms ({bound_by}), {bound_ms / ms!r}"
+                  f" of its bound; two launches equal bit for bit; no PyTorch"
+                  f" call computes this function, so library_ms is null "
+                  f"({card})")
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        del x, states, state_out, dout, dstate, args, got, want
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timing}
+
+
+# rglru_scan_bwd vs its plain version: the read form and the gated form's
+# du and dh0 take the plain version's operations one by one (each product
+# rounded before its sum, the gates op by op), so they are equal bit for
+# bit; the gate vectors' gradients sum B·S terms in another order than the
+# plain version's torch.sum: within RG_SUM_TOL of each one's largest entry
+RG_SUM_TOL = 1e-4
+# the training path: one recurrentgemma-2b RG-LRU layer of a 4,096-token
+# microbatch (width 2,560, bf16 u and gate vectors)
+RG_BWD_MAIN = (1, 4096, 2560)
+
+
+def _rglru_bwd_bound(x, gate_vectors=None):
+    """Least time for one backward over 3.35 TB/s, against fp32
+    operations an element over 67 TFLOP/s.  Gated form (``gate_vectors``
+    given): u read and du written in u's type, h and dh (fp32) read, the
+    gate vectors and softplus(Λ) read and their gradients written, h0 read
+    and dh0 written, once each; ``RGLRU_BWD_OPS`` operations an element.
+    Read form: a, h and dh read and da and db written (fp32), h0 read and
+    dh0 written; 4 operations an element."""
+    b, s, w = x.shape
+    n = b * s * w
+    if gate_vectors is not None:
+        nbytes = (n * (2 * x.element_size() + 8) + 2 * 4 * b * w
+                  + 2 * sum(t.numel() * t.element_size()
+                            for t in gate_vectors))
+        flops = RGLRU_BWD_OPS * n
+    else:
+        nbytes = n * 5 * 4 + 2 * 4 * b * w
+        flops = 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# fp32 operations of one element of the gated backward, counted from
+# kernels/ref.py rglru_gated_scan_bwd_ref (each exp, quotient and root
+# one): the gates formed again (21 of the forward's 23), the reverse
+# step's multiply and add, da and the chain back through the gates (26),
+# and the five sums' adds and products (8)
+RGLRU_BWD_OPS = 57
+
+
+def check_rglru_bwd_kernel(ops, ref):
+    """Phase 3i: both forms of ``rglru_scan_bwd`` against their plain
+    versions on the card, fed the forward kernel's own output: the read
+    form (``ref.rglru_scan_bwd_ref``) bit for bit, the gated form
+    (``ref.rglru_gated_scan_bwd_ref``) with du and dh0 bit for bit and the
+    gate vectors' sums within ``RG_SUM_TOL``, at the training path's shape
+    (``RG_BWD_MAIN``, bf16 u and gate vectors), at S = 1, at widths off
+    the kernel's 16-channel block, in fp32 and with Λ so negative that the
+    clamp of 1 − a² binds.  A second gated launch at the main shape must
+    equal the first bit for bit; both forms are timed beside their bounds
+    and plain versions (no PyTorch call computes this function)."""
+    card = _card_line()
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    worst = 0.0
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit for bit, max_abs_err "
+                                 f"{float((got - want).abs().max())!r}")
+        return 0.0
+
+    for b, s, w in [(4, 4096, 2560), (2, 1, 100), (3, 70, 2563)]:
+        a = 0.2 + 0.79 * torch.rand((b, s, w), generator=gen, device="cuda")
+        x = 0.5 * torch.randn((b, s, w), generator=gen, device="cuda")
+        h0 = torch.randn((b, w), generator=gen, device="cuda")
+        dh = torch.randn((b, s, w), generator=gen, device="cuda")
+        h = ops.rglru_scan(a, x, h0)
+        ops.reset_launch_count()
+        got = ops.rglru_scan_bwd(a, h, h0, dh)
+        torch.cuda.synchronize()
+        if ops.launch_count("rglru_scan_bwd") != 1:
+            raise AssertionError("rglru_scan_bwd did not count its launch")
+        for name, g, ww in zip(("da", "db", "dh0"), got,
+                               ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+            same(g, ww, f"read form B={b} S={s} W={w} {name}")
+        print(f"rglru_scan_bwd read form B={b} S={s} W={w}: da, db and dh0 "
+              "bit for bit")
+        if s == 4096:
+            read = {"ms": _time_ms(lambda: ops.rglru_scan_bwd(a, h, h0, dh)),
+                    "plain_ms": _time_ms(lambda: ref.rglru_scan_bwd_ref(
+                        a, h, h0, dh), reps=2)}
+            read["bound_ms"], read["bound_by"] = _rglru_bwd_bound(a)
+        del a, x, h0, dh, h, got
+
+    for b, s, w, dtype, lam_mean in [
+            RG_BWD_MAIN + (torch.bfloat16, 1.0),
+            (2, 1, 100, torch.bfloat16, 1.0),
+            (3, 70, 2563, torch.bfloat16, 1.0),
+            (2, 13, 100, torch.float32, 1.0),
+            (2, 200, 48, torch.float32, -20.0)]:
+        u = (2.0 * torch.randn((b, s, w), generator=gen,
+                               device="cuda")).to(dtype)
+        gv = _rglru_gate_vectors(w, dtype, gen, lam_mean)
+        h0 = torch.randn((b, w), generator=gen, device="cuda")
+        dh = torch.randn((b, s, w), generator=gen, device="cuda")
+        h = ops.rglru_gated_scan(u, *gv, h0)
+        args = (u, *gv, h0, h, dh)
+        got = ops.rglru_gated_scan_bwd(*args)
+        want = ref.rglru_gated_scan_bwd_ref(*args)
+        what = (f"rglru_scan_bwd gated form B={b} S={s} W={w} "
+                f"{str(dtype).split('.')[-1]} u and gates, Λ ~ {lam_mean}")
+        names = ("du", "dgate_a_w", "dgate_a_b", "dgate_x_w", "dgate_x_b",
+                 "dsoftplus_lam", "dh0")
+        errs = {}
+        for name, g, ww in zip(names, got, want):
+            if g.dtype != ww.dtype or g.shape != ww.shape:
+                raise AssertionError(f"{what}: {name} is {g.dtype}, not "
+                                     f"{ww.dtype}")
+            if name in ("du", "dh0"):
+                errs[name] = same(g, ww, f"{what}: {name}")
+            else:
+                errs[name] = _leaf_err(g, ww, RG_SUM_TOL, f"{what}: {name}")
+        worst = max(worst, *errs.values())
+        print(f"{what}: du and dh0 bit for bit; the gate vectors' sums "
+              f"within {json.dumps(errs)} of their largest entries "
+              f"(tolerance {RG_SUM_TOL})")
+        if (b, s, w) == RG_BWD_MAIN:
+            again = ops.rglru_gated_scan_bwd(*args)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError("two rglru_gated_scan_bwd launches on "
+                                     "the same inputs differ")
+            ms = _time_ms(lambda: ops.rglru_gated_scan_bwd(*args))
+            plain_ms = _time_ms(lambda: ref.rglru_gated_scan_bwd_ref(*args),
+                                reps=2)
+            bound_ms, bound_by = _rglru_bwd_bound(u, gv)
+            print(f"rglru_scan_bwd gated form at [1, 4096, 2560] bf16 u and "
+                  f"gates: kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+                  f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms!r} of its "
+                  f"bound; read form at [4, 4096, 2560] fp32: kernel "
+                  f"{read['ms']!r} ms, plain {read['plain_ms']!r} ms, bound "
+                  f"{read['bound_ms']!r} ms ({read['bound_by']}); two gated "
+                  f"launches equal bit for bit; no PyTorch call computes "
+                  f"this function, so library_ms is null ({card})")
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "read_form": read}
+        del u, gv, h0, dh, h, args, got, want
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timing}
 
 
 def serve_recurrentgemma(ops):
@@ -3509,18 +3943,30 @@ def _train_batches(cfg, batch, seq, seed=0):
                                seed=seed)).batches(None)
 
 
-def _attention_launches(cfg, n_mb):
-    """``flash_attention`` and ``flash_attention_bwd`` launches a step:
+# the forward and backward kernel of each layer kind's mixer
+_LAYER_KERNELS = {"attn": ("flash_attention", "flash_attention_bwd"),
+                  "local": ("flash_attention", "flash_attention_bwd"),
+                  "rglru": ("rglru_scan", "rglru_scan_bwd"),
+                  "rwkv": ("rwkv6_chunked", "rwkv6_chunked_bwd")}
+
+
+def _train_launches(cfg, n_mb):
+    """Launches a step of each layer kind's forward and backward kernel:
     one of each a layer and microbatch, and a second forward for every
-    layer under remat, which runs each block's forward again inside its
-    backward."""
+    layer in a block under remat, which runs each block's forward again
+    inside its backward (the unrolled prefix and tail layers run once).
+    Only the kernels the model's layers take are listed."""
     from repro_torch.models import transformer as T
     plan = T.stack_plan(cfg)
-    unrolled = len(plan.prefix) + len(plan.tail)
-    blocks = plan.n_blocks * len(plan.pattern)
     again = 2 if cfg.remat != "none" else 1
-    return ({"flash_attention": n_mb * (unrolled + again * blocks),
-             "flash_attention_bwd": n_mb * (unrolled + blocks)})
+    layers = ([(cfg.layer_kind(i), 1) for i in plan.prefix + plan.tail]
+              + [(kind, again) for kind in plan.pattern] * plan.n_blocks)
+    want = {}
+    for kind, runs in layers:
+        fwd, bwd = _LAYER_KERNELS[kind]
+        want[fwd] = want.get(fwd, 0) + n_mb * runs
+        want[bwd] = want.get(bwd, 0) + n_mb
+    return want
 
 
 def _kind_of(name):
@@ -3528,6 +3974,14 @@ def _kind_of(name):
         return "flash_attention forward"
     if "flash_bwd" in name:
         return "flash_attention_bwd"
+    if "rglru_bwd" in name:
+        return "rglru_scan_bwd"
+    if "rglru" in name:
+        return "rglru_scan forward"
+    if "rwkv6_bwd" in name:
+        return "rwkv6_chunked_bwd"
+    if "rwkv6_chunked" in name:
+        return "rwkv6_chunked forward"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "nvjet",
                                        "sm90_", "cublas")):
         return "GEMM"
@@ -3621,7 +4075,7 @@ def train_musicgen_whole(ops):
     n_mb = run.microbatches()
     if n_mb != 4:
         raise AssertionError(f"14a: {n_mb} microbatches, not 4")
-    want = _attention_launches(cfg, n_mb)
+    want = _train_launches(cfg, n_mb)
     model = Model(cfg)
     stamps = []
 
@@ -3699,20 +4153,25 @@ def train_musicgen_whole(ops):
             "adamw_ms": opt_ms}
 
 
-def train_card_against_cpu():
+def train_card_against_cpu(cfg=None, label="14b", grad_tol=TRAIN_TOL):
     """14b: one ``make_train_step`` on the card (the kernels) and on the
     CPU (their plain versions) from the same fp32 parameters and batch:
-    ``musicgen-medium`` at full width cut to 2 layers, batch 2 × 256, from
-    step 1 (a learning rate of 1e-2)."""
+    ``musicgen-medium`` at full width cut to 2 layers (or ``cfg``, phase
+    16c), batch 2 × 256, from step 1 (a learning rate of 1e-2).  TF32 is
+    off for fp32 products (PyTorch's default, held here).  Gradient leaves
+    are held to ``grad_tol`` of their largest entry, the updated
+    parameters to the reach of that tolerance."""
     import dataclasses as dc
 
     from repro_torch.config import get_config
     from repro_torch.models import Model
     from repro_torch.train import loop, microbatch
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
 
-    cfg = dc.replace(get_config("musicgen-medium"), num_layers=2,
-                     dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if cfg is None:
+        cfg = dc.replace(get_config("musicgen-medium"), num_layers=2,
+                         dtype="float32")
     run = _train_run(cfg, 2, 256, learning_rate=1e-2, warmup_steps=1,
                      total_steps=5)
     cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg)
@@ -3730,39 +4189,48 @@ def train_card_against_cpu():
         results[where] = (tree_map(lambda t: t.cpu(), grads),
                           tree_map(lambda t: t.cpu(), new.params),
                           float(metrics["loss"]))
+        del grads, new
     (g_cpu, p_cpu, l_cpu), (g_card, p_card, l_card) = (results["cpu"],
                                                        results["cuda"])
     if abs(l_card - l_cpu) > TRAIN_TOL * abs(l_cpu):
-        raise AssertionError(f"14b: loss {l_card!r} on the card, {l_cpu!r} "
-                             "on the CPU")
+        raise AssertionError(f"{label}: loss {l_card!r} on the card, "
+                             f"{l_cpu!r} on the CPU")
     worst_g = worst_p = 0.0
     lr, eps = run.train.learning_rate, run.train.eps
     # the update sees the gradients clipped to a global norm of grad_clip
     gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g))
                                  for g in tree_leaves(g_cpu))))
     clip = min(1.0, run.train.grad_clip / gnorm)
-    for gc, gk, pc_, pk in zip(tree_leaves(g_cpu), tree_leaves(g_card),
-                               tree_leaves(p_cpu), tree_leaves(p_card)):
+    per_leaf = {}
+    for (path, gc), gk, pc_, pk in zip(
+            tree_leaves_with_path(g_cpu), tree_leaves(g_card),
+            tree_leaves(p_cpu), tree_leaves(p_card)):
         scale = float(gc.abs().max())
-        worst_g = max(worst_g, float((gk - gc).abs().max()) / scale)
-        dg = clip * TRAIN_TOL * scale
+        per_leaf["/".join(map(str, path))] = float(
+            (gk - gc).abs().max()) / scale
+        worst_g = max(worst_g, per_leaf["/".join(map(str, path))])
+        dg = clip * grad_tol * scale
         reach = torch.clamp(
             lr * eps * dg / torch.square(clip * gc.abs() + eps), max=2 * lr)
         tol = reach + TRAIN_TOL * float(pc_.abs().max())
         diff = (pk - pc_).abs()
         if bool((diff > tol).any()):
-            raise AssertionError("14b: an updated parameter parts from the "
-                                 f"CPU's by {float(diff.max())!r}")
+            raise AssertionError(f"{label}: an updated parameter parts from "
+                                 f"the CPU's by {float(diff.max())!r}")
         worst_p = max(worst_p, float(diff.max()))
-    if worst_g > TRAIN_TOL:
-        raise AssertionError(f"14b: gradients part by {worst_g!r} of their "
-                             "leaves' largest")
-    print(f"14b: musicgen-medium at full width, 2 layers, fp32, batch 2 x "
-          f"256: loss {l_card!r} on the card, {l_cpu!r} on the CPU "
-          f"(relative {abs(l_card - l_cpu) / abs(l_cpu)!r}, within "
-          f"{TRAIN_TOL}); gradients within {worst_g!r} of each leaf's "
-          f"largest; updated parameters within {worst_p!r} (each held to "
-          "the reach of its gradient's tolerance)")
+    top = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:4]
+    if worst_g > grad_tol:
+        raise AssertionError(f"{label}: gradients part by {worst_g!r} of "
+                             f"their leaves' largest (worst {top})")
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    print(f"{label}: {cfg.name} at full width, {cfg.num_layers} layers, "
+          f"fp32 (TF32 off), batch 2 x 256: loss {l_card!r} on the card, "
+          f"{l_cpu!r} on the CPU (relative {rel!r}, within {TRAIN_TOL}); "
+          f"gradients within {worst_g!r} of each leaf's largest (within "
+          f"{grad_tol}; worst leaves {top}); updated parameters within "
+          f"{worst_p!r} (each held to the reach of its gradient's "
+          "tolerance)")
+    return {"loss_rel": rel, "grad_rel": worst_g}
 
 
 # 14e: a bf16 microbatch's gradients with flash_attention_bwd's kernel
@@ -3797,22 +4265,17 @@ def train_bf16_against_plain_bwd(ops, ref):
     batch = loop.to_device(next(_train_batches(cfg, 2, 2048, seed=4)),
                            "cuda")
     kernel_bwd = ops.flash_attention_bwd
-
-    def plain_bwd(q, k, v, out, lse, dout, *, causal=True, group=1):
-        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                           causal=causal, group=group)
-
     ops.reset_launch_count()
     loss_k, _, grads_k = microbatch.accumulate_gradients(
         model.loss, state.params, batch, 1)
     launched = ops.launch_count("flash_attention_bwd")
-    ops.flash_attention_bwd = plain_bwd
+    ops.flash_attention_bwd = ref.flash_attention_bwd_ref
     try:
         loss_p, _, grads_p = microbatch.accumulate_gradients(
             model.loss, state.params, batch, 1)
     finally:
         ops.flash_attention_bwd = kernel_bwd
-    want = _attention_launches(cfg, 1)["flash_attention_bwd"]
+    want = _train_launches(cfg, 1)["flash_attention_bwd"]
     if launched != want or ops.launch_count(
             "flash_attention_bwd") != launched:
         raise AssertionError(f"14e: {launched} kernel backward launches, "
@@ -3864,7 +4327,7 @@ def train_deepseek_cut():
         model.loss, state.params, batch, run.microbatches())
     counted = {k: ops.launch_count(k) for k in ("flash_attention",
                                                 "flash_attention_bwd")}
-    want = _attention_launches(cfg, run.microbatches())
+    want = _train_launches(cfg, run.microbatches())
     mix = grads["blocks"][0]["mix"]
     norms = {n: torch.linalg.vector_norm(mix[n].float(), dim=(1, 2)).tolist()
              for n in ("wq", "wk", "wv")}
@@ -4458,7 +4921,7 @@ def train_moe_cut(ops):
     run = _train_run(cfg, 1, seq, learning_rate=1e-3, warmup_steps=1,
                      total_steps=5)
     n_mb = run.microbatches()
-    want = _attention_launches(cfg, n_mb)
+    want = _train_launches(cfg, n_mb)
     model = Model(cfg, device="cuda")
     stamps = []
 
@@ -4651,6 +5114,161 @@ def moe_and_patch_on_the_card(ops, ref):
     return out
 
 
+# phase 16 — training the recurrent models
+#
+# 16a: recurrentgemma-2b whole (26 layers: 18 RG-LRU, 8 local attention at
+# window 2,048) at batch 4 × 4,096, four microbatches by its 4,096-token
+# kneepoint, so S > window and the window's mask bites; 16b: rwkv6-7b at
+# full width cut to 8 layers (its 32 layers' state, ~120 GB at 16 bytes a
+# parameter, exceeds one card), batch 4 × 4,096; 16c: both at full width,
+# 2 layers of rwkv6-7b and one pattern of recurrentgemma-2b (3 layers:
+# RG-LRU, RG-LRU, local), fp32 with TF32 off, the card against the CPU as
+# in 14b.  16a and 16b step at a learning rate of 1e-2: Adam's first step
+# moves a parameter by about the rate, and a bf16 leaf drawn as ones (the
+# RG-LRU's gate_a_w) moves up only past half its ulp, 2^-8; at 3e-3 a leaf
+# whose gradient is negative throughout keeps its bits
+RECURRENT_LR = 1e-2
+RECURRENT_TRAIN = (("16a", "recurrentgemma-2b", 26),
+                   ("16b", "rwkv6-7b", 8))
+# 16c's gradient bound for rwkv6-7b: its log decays (about -1 a token at
+# these weights) sum to some -64 over a chunk, and the CPU's torch.cumsum
+# accumulates them in double where the card (the kernels, and torch's own
+# cumsum there) adds them in fp32 in row order.  That rounding alone moves
+# the gradients by up to 4.0e-4 of a leaf's largest entry (the plain
+# version on the CPU at 1 layer with an fp32 row-order cumsum against its
+# own); the card against the CPU read 1.2e-4 at 1 layer and 1.6e-4 at 2.
+# recurrentgemma-2b is held to TRAIN_TOL, as 14b
+RWKV_CARD_CPU_TOL = 1e-3
+
+
+def train_recurrent_whole(ops, label, arch, layers, batch=4, seq=4096,
+                          steps=3):
+    """16a/16b: ``arch`` at full width cut to ``layers`` (bf16 parameters
+    from a seed, the reference's default precision: fp32 moments and
+    accumulation, remat full), a learning rate of ``RECURRENT_LR`` with
+    one warm-up step, ``steps`` steps of ``train()`` at batch × seq tokens
+    from the subsampling pipeline; the launches of each recurrent and attention
+    kernel a step against ``_train_launches``, step seconds, tokens/s and
+    peak memory.  Then from a fresh state: every leaf's gradient of one
+    batch finite and non-zero, and every leaf changed over two steps, the
+    second profiled (device ms by kind)."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path
+
+    card = _card_line()
+    cfg = dc.replace(get_config(arch), num_layers=layers)
+    run = _train_run(cfg, batch, seq, learning_rate=RECURRENT_LR,
+                     warmup_steps=1, total_steps=steps)
+    n_mb = run.microbatches()
+    want = _train_launches(cfg, n_mb)
+    model = Model(cfg)
+    stamps = []
+
+    def timed(batches):
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    report = loop.train(model, run, timed(_train_batches(cfg, batch, seq)),
+                        steps, log_every=100)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = {k: ops.launch_count(k) for k in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(stamps, stamps[1:] + [end])]
+    tokens = batch * seq
+    print(f"{label}: {arch} at full width, {layers} layers "
+          f"({cfg.param_count() / 1e9!r} G parameters), batch {batch} x "
+          f"{seq}, {n_mb} microbatches, remat {cfg.remat}: {steps} steps "
+          f"through train() in {report.seconds!r} s: losses "
+          f"{report.losses}, step seconds {step_s}, tokens/s "
+          f"{[tokens / t for t in step_s]}, peak memory {peak} bytes; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f" in {steps} steps, a microbatch "
+          f"{json.dumps({k: v // n_mb for k, v in want.items()})} ({card})")
+    if not all(np.isfinite(report.losses)):
+        raise AssertionError(f"{label}: a loss is not finite: "
+                             f"{report.losses}")
+    for k, n in want.items():
+        if launches[k] != steps * n:
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
+                                 f"times in {steps} steps, not {steps} x {n}")
+    if any(v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"{label}: other kernels launched: {launches}")
+
+    # from the same state again (init_state draws it from the run's seed):
+    # the gradients of one batch, then two steps; only the first state's
+    # parameters are kept beside the steps' states
+    state0 = loop.init_state(model, run)
+    batches = _train_batches(cfg, batch, seq, seed=1)
+    b1 = loop.to_device(next(batches), "cuda")
+    _, _, grads = microbatch.accumulate_gradients(model.loss, state0.params,
+                                                  b1, n_mb)
+    norms = {"/".join(map(str, p)): float(torch.linalg.vector_norm(
+        g.float())) for p, g in tree_leaves_with_path(grads)}
+    del grads
+    torch.cuda.empty_cache()
+    bad = [k for k, v in norms.items() if not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"{label}: zero or non-finite gradients: {bad}")
+    step_fn = loop.make_train_step(model, run)
+    params0 = state0.params
+    s1, m1 = step_fn(state0, b1)
+    del state0, b1
+    torch.cuda.empty_cache()
+    (s2, m2), kinds = _profiled_step(step_fn, s1, loop.to_device(
+        next(batches), "cuda"), f"{label}: step 2")
+    del s1
+    still = ["/".join(map(str, p)) for (p, a), (_, b) in zip(
+        tree_leaves_with_path(params0), tree_leaves_with_path(s2.params))
+        if torch.equal(a, b)]
+    moved = len(norms) - len(still)
+    print(f"{label}: every one of {len(norms)} leaves has a finite non-zero "
+          f"gradient (smallest norm {min(norms.values())!r}); {moved} of "
+          f"{len(norms)} leaves changed over two steps (losses "
+          f"{float(m1['loss'])!r}, {float(m2['loss'])!r}) ({card})")
+    if still or not (np.isfinite(float(m1["loss"]))
+                     and np.isfinite(float(m2["loss"]))):
+        raise AssertionError(f"{label}: {still} leaves did not change")
+    del params0, s2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "want": want, "losses": report.losses,
+            "step_s": step_s, "peak_bytes": peak, "kinds_ms": kinds,
+            "params": cfg.param_count(), "microbatches": n_mb}
+
+
+def train_recurrent_on_the_card(ops):
+    """Phase 16: 16a, 16b, then 16c (both recurrent models, card against
+    CPU)."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+
+    out = {}
+    for label, arch, layers in RECURRENT_TRAIN:
+        t0 = time.perf_counter()
+        out[arch] = train_recurrent_whole(ops, label, arch, layers)
+        torch.cuda.empty_cache()
+        print(f"{label}: {time.perf_counter() - t0!r} s")
+    for arch, layers, tol in (("rwkv6-7b", 2, RWKV_CARD_CPU_TOL),
+                              ("recurrentgemma-2b", 3, TRAIN_TOL)):
+        t0 = time.perf_counter()
+        cfg = dc.replace(get_config(arch), num_layers=layers,
+                         dtype="float32")
+        out[f"{arch} card against cpu"] = train_card_against_cpu(cfg, "16c",
+                                                                 tol)
+        torch.cuda.empty_cache()
+        print(f"16c {arch}: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -4661,15 +5279,17 @@ def main() -> None:
     from repro_torch.core import subsample as ss
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                     rglru_scan, rwkv6_scan,
-                                     subsample_gather, subsample_grid)
+                                     rglru_scan, rglru_scan_bwd, rwkv6_scan,
+                                     rwkv6_scan_bwd, subsample_gather,
+                                     subsample_grid)
     from repro_torch.platform import MOMENTS, Platform
     from repro_torch.platform import compute as pc
 
     libraries = (subsample_gather.LIBRARY, subsample_gather.GATHER_LIBRARY,
                  rwkv6_scan.LIBRARY, rglru_scan.LIBRARY,
                  flash_attention.LIBRARY, subsample_grid.LIBRARY,
-                 flash_attention_bwd.LIBRARY)
+                 flash_attention_bwd.LIBRARY, rwkv6_scan_bwd.LIBRARY,
+                 rglru_scan_bwd.LIBRARY)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -4694,6 +5314,9 @@ def main() -> None:
     rg_timing = check_rglru_kernel(ops, ref)
     fa_timing = check_flash_kernel(ops, ref)
     fab_timing = check_flash_bwd_kernel(ops, ref)
+    fab_windowed = check_windowed_flash_bwd(ops, ref)
+    rwb_timing = check_rwkv6_bwd_kernel(ops, ref, rwkv6_scan)
+    rgb_timing = check_rglru_bwd_kernel(ops, ref)
     sg_timing = check_gather_kernel(ops, ref)
 
     # phase 4 — the main path at real size
@@ -4858,6 +5481,13 @@ def main() -> None:
     p15 = moe_and_patch_on_the_card(ops, ref)
     print(f"phase 15: {time.perf_counter() - t0!r} s")
 
+    # phase 16 — training the recurrent models: recurrentgemma-2b whole,
+    # rwkv6-7b cut to 8 layers, both card against CPU at 2-3 layers
+    t0 = time.perf_counter()
+    p16 = train_recurrent_on_the_card(ops)
+    print(f"phase 16: {time.perf_counter() - t0!r} s")
+    rg16, rw16 = p16["recurrentgemma-2b"], p16["rwkv6-7b"]
+
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_stats.cu",
@@ -4868,12 +5498,14 @@ def main() -> None:
         "name": "rwkv6_chunked", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:69",
-        "launches": rw_launches, "library_ms": None, **rw_timing}, {
+        "launches": rw_launches, "library_ms": None,
+        "train_launches": rw16["launches"]["rwkv6_chunked"], **rw_timing}, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:47",
         "launches": rg_launches["rglru_scan"], "library_ms": None,
-        "main_path_form": "gated (ops.rglru_gated_scan)", **rg_timing}, {
+        "main_path_form": "gated (ops.rglru_gated_scan)",
+        "train_launches": rg16["launches"]["rglru_scan"], **rg_timing}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
@@ -4900,7 +5532,30 @@ def main() -> None:
         "main_path": "musicgen-medium training (phase 14a), q [48, 2048, "
                      "64] bf16, causal, group 1, 5 steps",
         "moe_train_launches": p15["train"]["launches"]["flash_attention_bwd"],
+        "recurrent_train_launches": rg16["launches"]["flash_attention_bwd"],
+        "windowed": fab_windowed,
         **fab_timing}, {
+        "name": "rwkv6_chunked_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/models/rwkv6.py:125",
+        "replaces_note": "no TPU kernel: the reference trains through XLA's "
+                         "gradient of the jnp chunk_body under lax.scan; "
+                         "src/repro/kernels/rwkv6_scan.py:69 has no backward",
+        "launches": rw16["launches"]["rwkv6_chunked_bwd"],
+        "main_path": "rwkv6-7b training cut to 8 layers (phase 16b), "
+                     "[1, 64, 4096, 64] bf16 r/k/v/u, fp32 logw, C = 64, "
+                     "3 steps",
+        "library_ms": None, **rwb_timing}, {
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        "replaces": "src/repro/models/rglru.py:75",
+        "replaces_note": "no TPU kernel: the reference trains through XLA's "
+                         "gradient of _gates and its associative scan; "
+                         "src/repro/kernels/rglru_scan.py:47 has no backward",
+        "launches": rg16["launches"]["rglru_scan_bwd"],
+        "main_path": "recurrentgemma-2b training whole (phase 16a), gated "
+                     "form, u [1, 4096, 2560] bf16, 3 steps",
+        "library_ms": None, **rgb_timing}, {
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:64",

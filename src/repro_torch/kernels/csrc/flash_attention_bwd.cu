@@ -19,8 +19,12 @@
 //   dk_j  = scale * sum_(heads of j's group) sum_i dS_ij q_i
 //   dv_j  =         sum_(heads of j's group) sum_i P_ij do_i
 // with scale = 1 / sqrt(HD) and key j seen by query i when j <= i (if
-// causal): the FlashAttention-2 backward.  window > 0 is refused by the
-// wrapper for now.  Types: fp32 or bf16 (one type); dq, dk and dv come out
+// causal) and i - j < window (if window > 0), the forward's mask: the
+// FlashAttention-2 backward.  A window bounds the work as it bounds the
+// forward's: a key block's query rows end at its last key + window - 1, a
+// row block's keys start at its first row - window + 1, and only the tiles
+// that cross the causal diagonal or the window's edge apply the element
+// mask.  Types: fp32 or bf16 (one type); dq, dk and dv come out
 // in it, every sum in fp32, rounded once.  No atomics anywhere: one CTA owns
 // each output tile and sums in a fixed order, so a second launch equals the
 // first bit for bit.
@@ -183,7 +187,7 @@ __device__ __forceinline__ void scores(const float* s_q, const float* s_do,
                                        const float* s_lse, const float* s_d,
                                        float* s_p, float* s_ds, int64_t q0,
                                        int64_t k0, int64_t skv, int causal,
-                                       float scale) {
+                                       int64_t window, float scale) {
   using G = Geo<HD>;
   constexpr int LD = G::LD;
   const int tr = threadIdx.x / 16;
@@ -233,7 +237,8 @@ __device__ __forceinline__ void scores(const float* s_q, const float* s_do,
     for (int j = 0; j < kKeysPerThread; ++j) {
       const int c = tc + 16 * j;
       const int64_t key = k0 + c;
-      const bool seen = key < skv && (!causal || key <= row) && l != -INFINITY;
+      const bool seen = key < skv && (!causal || key <= row) &&
+                        (window <= 0 || row - key < window) && l != -INFINITY;
       const float p = seen ? expf(s[i][j] * scale - l) : 0.f;
       s_p[r * kLdP + c] = p;
       s_ds[r * kLdP + c] = p * (dp[i][j] - dd);
@@ -265,7 +270,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int64_t sq, int64_t skv, int group,
-                      int causal, float scale) {
+                      int causal, int64_t window, float scale) {
   using G = Geo<HD>;
   constexpr int LD = G::LD;
   constexpr int BQ = G::BQ;
@@ -301,9 +306,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
   // query rows that see some key of the block: from the block's first key
-  // on when causal
+  // on when causal, up to its last key + window - 1 when windowed
   const int64_t qb0 = causal ? k0 / BQ : 0;
-  const int64_t nqb = (sq + BQ - 1) / BQ;
+  int64_t nqb = (sq + BQ - 1) / BQ;
+  if (window > 0) nqb = min64(nqb, (k0 + kBlockK + window - 2) / BQ + 1);
   for (int t = 0; t < group; ++t) {
     const int64_t bh = g * group + t;
     const T* qh = q + bh * sq * HD;
@@ -316,7 +322,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       stage_rows(s_lse, s_d, lse + bh * sq, delta + bh * sq, q0, BQ, sq);
       __syncthreads();
       scores<HD>(s_q, s_do, s_k, s_v, s_lse, s_d, s_p, s_ds, q0, k0, skv,
-                 causal, scale);
+                 causal, window, scale);
       __syncthreads();
       // dV += P^T do, dK += dS^T q over the block's rows
       for (int i = 0; i < BQ; ++i) {
@@ -377,7 +383,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int64_t sq, int64_t skv, int group, int causal,
-                    float scale) {
+                    int64_t window, float scale) {
   using G = Geo<HD>;
   constexpr int LD = G::LD;
   constexpr int BQ = G::BQ;
@@ -419,7 +425,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_last = min64(q0 + BQ, sq) - 1;
   const int64_t hi = causal ? min64(skv, q_last + 1) : skv;
-  for (int64_t k0 = 0; k0 < hi; k0 += kBlockK) {
+  // the first key block the block's first row sees when windowed
+  const int64_t lo =
+      window > 0 && q0 - window + 1 > 0 ? (q0 - window + 1) / kBlockK * kBlockK
+                                        : 0;
+  for (int64_t k0 = lo; k0 < hi; k0 += kBlockK) {
     __syncthreads();  // the previous tile's product has read k and dS
     stage<HD>(s_k, kh, k0, kBlockK, skv);
     stage<HD>(s_v, vh, k0, kBlockK, skv);
@@ -427,7 +437,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // P lands in s_ds first and is overwritten by dS in the same thread:
     // both are the same element, written in order by its one owner
     scores<HD>(s_q, s_do, s_k, s_v, s_lse, s_d, s_p, s_ds, q0, k0, skv,
-               causal, scale);
+               causal, window, scale);
     __syncthreads();
     const int nk = static_cast<int>(min64(kBlockK, hi - k0));
     for (int j = 0; j < nk; ++j) {
@@ -473,7 +483,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const float* lse, const void* dout,
                    float* delta, void* dq, void* dk, void* dv, int64_t bh,
                    int64_t sq, int64_t skv, int group, int causal,
-                   cudaStream_t stream) {
+                   int64_t window, cudaStream_t stream) {
   using G = Geo<HD>;
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -498,7 +508,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                        static_cast<unsigned>((skv + kBlockK - 1) / kBlockK));
     kdkdv<<<grid_kv, kThreads, G::DKDV_SMEM, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        sq, skv, group, causal, scale);
+        sq, skv, group, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -511,7 +521,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                     static_cast<unsigned>((sq + G::BQ - 1) / G::BQ));
   kdq<<<grid_q, kThreads, G::DQ_SMEM, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, skv, group,
-      causal, scale);
+      causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -638,7 +648,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ lse2,
                             const float* __restrict__ delta, int64_t sq,
                             int64_t sq_pad, int group, int causal,
-                            float scale_log2, float scale) {
+                            int64_t window, float scale_log2, float scale) {
   using B = Box<HD>;
   using G = Tc<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -656,9 +666,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // under a causal mask the first key blocks see the most rows: they start
   // first as they are
   const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kTcBlock;
-  const int64_t nqt = (sq + kTcTile - 1) / kTcTile;
-  // the first query tile with a row that sees a key of the block
+  int64_t nqt = (sq + kTcTile - 1) / kTcTile;
+  // the first query tile with a row that sees a key of the block, and past
+  // the last when windowed (its last key + window - 1)
   const int64_t qt0 = causal ? k0 / kTcTile : 0;
+  if (window > 0) nqt = min64(nqt, (k0 + kTcBlock + window - 2) / kTcTile + 1);
   const int tiles = nqt > qt0 ? group * static_cast<int>(nqt - qt0) : 0;
 
   if (threadIdx.x == 0) {
@@ -738,8 +750,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         // the tile's first row less the half's first key
         const int lag = static_cast<int>(qt * kTcTile - keys);
         mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
-        if (causal && lag + kTcTile - 1 < 0) {  // no row sees these keys
-          mbar_arrive(bar_empty + 8 * st);
+        if ((causal && lag + kTcTile - 1 < 0) ||
+            (window > 0 && lag - (kTcTile - 1) >= window)) {
+          mbar_arrive(bar_empty + 8 * st);  // no row sees these keys
           continue;
         }
         const uint32_t qs = s_q + st * G::TILE;
@@ -770,21 +783,27 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                      cb + kk > 0);
         wgmma_commit();
 
-        // P^T while dP^T runs; the mask on the causal edge only (rows past Sq
-        // have lse2 = +inf and keys past Skv are dropped at the store)
+        // P^T while dP^T runs; the mask on the causal and window edges only
+        // (rows past Sq have lse2 = +inf and keys past Skv are dropped at the
+        // store)
         wgmma_wait<1>();
         fence_regs(s);
         const uint32_t l2 = s_rows + st * G::ROWS + 4 * col;
         const uint32_t dd = l2 + G::ROWS / 2;
-        const bool edge = causal && lag < kTcTile - 1;
+        const bool edge = (causal && lag < kTcTile - 1) ||
+                          (window > 0 && lag + kTcTile - 1 >= window);
   #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float2 l = lds_f2(l2 + 32 * j);
   #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float p = exp2f(fmaf(s[4 * j + e], scale_log2, -(e % 2 ? l.y : l.x)));
-            // key > row: masked
-            if (edge && diag + 8 * (e / 2) - e % 2 - 8 * j > lag) p = 0.f;
+            // key - row + lag: masked past the row (causal) and at window or
+            // more before it
+            const int rel = diag + 8 * (e / 2) - e % 2 - 8 * j;
+            if (edge && ((causal && rel > lag) ||
+                         (window > 0 && lag - rel >= window)))
+              p = 0.f;
             s[4 * j + e] = p;
           }
         }
@@ -871,7 +890,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ lse2,
                           const float* __restrict__ delta, int64_t sq,
                           int64_t sq_pad, int64_t skv, int group, int causal,
-                          float scale_log2, float scale) {
+                          int64_t window, float scale_log2, float scale) {
   using B = Box<HD>;
   using G = Tc<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -892,6 +911,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int64_t q_last = min64(q0 + kTcBlock, sq) - 1;
   const int64_t hi = causal ? min64(skv, q_last + 1) : skv;
   const int tiles = static_cast<int>((hi + kTcTile - 1) / kTcTile);
+  // the first key tile the block's first row sees when windowed
+  const int t0 = window > 0 && q0 - window + 1 > 0
+                     ? static_cast<int>((q0 - window + 1) / kTcTile)
+                     : 0;
+  const int n_tiles = tiles > t0 ? tiles - t0 : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -907,7 +931,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (wg == 0) {
     // ---- producer: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 0 && tiles > 0) {
+    if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(bar_q, 2 * G::BLOCK);
       for (int h = 0; h < 2; ++h)
         for (int cb = 0; cb < B::NCB; ++cb) {
@@ -916,16 +940,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           tma_load(s_q + off, &tq, cb * B::C, row, bh, bar_q);
           tma_load(s_do + off, &tdo, cb * B::C, row, bh, bar_q);
         }
-      for (int t = 0; t < tiles; ++t) {
-        const int st = t % kTcStages;
-        const int round = t / kTcStages;
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % kTcStages;
+        const int round = n / kTcStages;
         if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
         const uint32_t full = bar_full + 8 * st;
         mbar_expect_tx(full, 2 * G::TILE);
+        const int key = kTcTile * (t0 + n);
         for (int cb = 0; cb < B::NCB; ++cb) {
           const uint32_t off = st * G::TILE + cb * B::BYTES;
-          tma_load(s_k + off, &tk, cb * B::C, kTcTile * t, g, full);
-          tma_load(s_v + off, &tv, cb * B::C, kTcTile * t, g, full);
+          tma_load(s_k + off, &tk, cb * B::C, key, g, full);
+          tma_load(s_v + off, &tv, cb * B::C, key, g, full);
         }
       }
     }
@@ -949,13 +974,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 
-    if (tiles > 0) mbar_wait(bar_q, 0);
-    for (int t = 0; t < tiles; ++t) {
-      const int st = t % kTcStages;
-      const int64_t k0 = static_cast<int64_t>(t) * kTcTile;
-      mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
-      if (causal && k0 > rows + kTcTile - 1) {  // no row here sees these keys
-        mbar_arrive(bar_empty + 8 * st);
+    if (n_tiles > 0) mbar_wait(bar_q, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % kTcStages;
+      const int64_t k0 = static_cast<int64_t>(t0 + n) * kTcTile;
+      mbar_wait(bar_full + 8 * st, (n / kTcStages) & 1);
+      if ((causal && k0 > rows + kTcTile - 1) ||
+          (window > 0 && rows - (k0 + kTcTile - 1) >= window)) {
+        mbar_arrive(bar_empty + 8 * st);  // no row here sees these keys
         continue;
       }
       const uint32_t ks = s_k + st * G::TILE;
@@ -989,15 +1015,18 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // that no exp2 of a large -lse2 reaches dQ
       wgmma_wait<1>();
       fence_regs(s);
-      const bool edge =
-          (causal && k0 + kTcTile - 1 > rows) || k0 + kTcTile > skv;
+      const bool edge = (causal && k0 + kTcTile - 1 > rows) ||
+                        k0 + kTcTile > skv ||
+                        (window > 0 && rows + kTcTile - 1 - k0 >= window);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i / 2) % 2;
         float p = exp2f(fmaf(s[i], scale_log2, -l2[r]));
         if (edge) {
           const int64_t kx = k0 + 8 * (i / 4) + col + i % 2;
-          if (kx >= skv || (causal && kx > row + 8 * r)) p = 0.f;
+          if (kx >= skv || (causal && kx > row + 8 * r) ||
+              (window > 0 && row + 8 * r - kx >= window))
+            p = 0.f;
         }
         s[i] = p;
       }
@@ -1045,7 +1074,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* out, const float* lse, const void* dout,
                          float* scratch, void* dq, void* dk, void* dv,
                          int64_t bh, int64_t sq, int64_t skv, int group,
-                         int causal, cudaStream_t stream) {
+                         int causal, int64_t window, cudaStream_t stream) {
   using G = Tc<HD>;
   if (skv == 0)  // no key: dq is 0, and dk and dv are empty
     return cudaMemsetAsync(dq, 0, static_cast<size_t>(bh * sq * HD) * 2,
@@ -1090,7 +1119,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                      static_cast<unsigned>((skv + kTcBlock - 1) / kTcBlock));
   kdkdv<<<grid_kv, kTcThreads, G::DKDV_SMEM, stream>>>(
       tq, tk, tv, tdo, tdk, tdv, lse2, delta, sq, sq_pad, group, causal,
-      scale_log2, scale);
+      window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1102,7 +1131,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                     static_cast<unsigned>((sq + kTcBlock - 1) / kTcBlock));
   kdq<<<grid_q, kTcThreads, G::DQ_SMEM, stream>>>(
       tq, tk, tv, tdo, tdq, lse2, delta, sq, sq_pad, skv, group, causal,
-      scale_log2, scale);
+      window, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -1112,17 +1141,17 @@ cudaError_t launch_hd(bool bf16, bool tensor_cores, const void* q,
                       const float* lse, const void* dout,
                       float* scratch, void* dq, void* dk, void* dv,
                       int64_t bh, int64_t sq, int64_t skv, int group,
-                      int causal, cudaStream_t s) {
+                      int causal, int64_t window, cudaStream_t s) {
   if constexpr (HD != 256) {
     if (tensor_cores)
       return launch_wgmma<HD>(q, k, v, out, lse, dout, scratch, dq, dk, dv,
-                              bh, sq, skv, group, causal, s);
+                              bh, sq, skv, group, causal, window, s);
   }
   return bf16 ? launch<HD, __nv_bfloat16>(q, k, v, out, lse, dout, scratch,
                                           dq, dk, dv, bh, sq, skv, group,
-                                          causal, s)
+                                          causal, window, s)
               : launch<HD, float>(q, k, v, out, lse, dout, scratch, dq, dk,
-                                  dv, bh, sq, skv, group, causal, s);
+                                  dv, bh, sq, skv, group, causal, window, s);
 }
 
 }  // namespace
@@ -1150,10 +1179,11 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* lse, const void* dout, void* scratch, void* dq, void* dk,
     void* dv, int64_t bh, int64_t sq, int64_t skv, int64_t hd, int64_t group,
-    int causal, int bf16, int tensor_cores, void* stream) {
+    int causal, int64_t window, int bf16, int tensor_cores, void* stream) {
   const int64_t sq_pad = (sq + kTcBlock - 1) / kTcBlock * kTcBlock;
   if ((tensor_cores && !(bf16 && (hd == 32 || hd == 64 || hd == 128))) ||
-      bh < 0 || sq < 0 || skv < 0 || group < 1 || group > 0x7fffffff ||
+      bh < 0 || sq < 0 || skv < 0 || window < 0 || group < 1 ||
+      group > 0x7fffffff ||
       bh % group != 0 || bh > 0x7fffffff || skv > 0x7fffffff ||
       sq > 0x7fffffff || (sq + 31) / 32 > 65535 ||
       (skv + kBlockK - 1) / kBlockK > 65535 ||
@@ -1170,19 +1200,19 @@ extern "C" int flash_attention_bwd_launch(
     case 32:
       return static_cast<int>(launch_hd<32>(b, tc, q, k, v, out, l, dout, w,
                                             dq, dk, dv, bh, sq, skv, g,
-                                            causal, s));
+                                            causal, window, s));
     case 64:
       return static_cast<int>(launch_hd<64>(b, tc, q, k, v, out, l, dout, w,
                                             dq, dk, dv, bh, sq, skv, g,
-                                            causal, s));
+                                            causal, window, s));
     case 128:
       return static_cast<int>(launch_hd<128>(b, tc, q, k, v, out, l, dout,
                                              w, dq, dk, dv, bh, sq, skv, g,
-                                             causal, s));
+                                             causal, window, s));
     case 256:
       return static_cast<int>(launch_hd<256>(b, tc, q, k, v, out, l, dout,
                                              w, dq, dk, dv, bh, sq, skv, g,
-                                             causal, s));
+                                             causal, window, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -36,7 +36,8 @@ BODY = {(dtype, hd): ("wgmma" if dtype == torch.bfloat16 and hd != 256
 def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int64] * 2
     lib.flash_attention_bwd_scratch_floats.restype = ctypes.c_int64
@@ -51,12 +52,14 @@ build_info = LIBRARY.info
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, *, causal: bool, group: int):
+                        dout: torch.Tensor, *, causal: bool, window: int,
+                        group: int):
     """Launch the kernels on CUDA tensors already checked by
     ``ops.flash_attention_bwd``: ``q, out, dout [BH, Sq, HD]``, ``k, v
     [BH / group, Skv, HD]`` of one type (fp32 or bf16), ``lse [BH, Sq]``
-    fp32.  TMA reads bf16 tiles from addresses on 16 bytes, so a tensor
-    that does not start on 16 bytes is copied first.  Returns ``(dq, dk,
+    fp32, under the forward's mask (``causal``, ``window``).  TMA reads
+    bf16 tiles from addresses on 16 bytes, so a tensor that does not start
+    on 16 bytes is copied first.  Returns ``(dq, dk,
     dv)`` in the inputs' type, allocated here (with the fp32 scratch the
     library asks for: the tensor-core body's ``lse · log2 e`` and ``D``,
     Sq padded to 128 rows), on PyTorch's current stream, without
@@ -76,14 +79,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, skv, hd,
-            group, int(causal), int(q.dtype == torch.bfloat16),
+            group, int(causal), window, int(q.dtype == torch.bfloat16),
             int(BODY[(q.dtype, hd)] == "wgmma"), stream)
     if code != 0:
         raise RuntimeError(
             "flash_attention_bwd launch failed: "
             f"{lib.flash_attention_bwd_error_string(code).decode()} "
             f"(BH={bh}, Sq={sq}, Skv={skv}, HD={hd}, group={group}, "
-            f"causal={causal}, body {BODY[(q.dtype, hd)]})")
+            f"causal={causal}, window={window}, body "
+            f"{BODY[(q.dtype, hd)]})")
     if sq == 0:         # no query: the kernels leave dk and dv unwritten
         dk.zero_()
         dv.zero_()

@@ -7,14 +7,14 @@ tensor that the kernel cannot take, or a build or launch that fails,
 raises.  Each wrapper counts its kernel launches, so a run can show that
 its main path went through the kernel.
 
-``flash_attention`` is differentiable: with grad on and an input that
-requires it, it runs as a ``torch.autograd.Function`` whose forward also
-writes each row's log-sum-exp and whose backward is
-:func:`flash_attention_bwd` (the hand-written backward on the card, the
-plain one on the CPU).  The recurrences have no backward kernel yet
-(ROADMAP Queue 1, item 13): ``rwkv6_chunked``, ``rglru_scan`` and
-``rglru_gated_scan`` raise when asked for a gradient, on the CPU as on the
-card, rather than cut the graph there.
+``flash_attention``, ``rwkv6_chunked``, ``rglru_scan`` and
+``rglru_gated_scan`` are differentiable: with grad on and an input that
+requires it, each runs as a ``torch.autograd.Function`` whose forward
+saves what its backward reads (attention's log-sum-exp, the RWKV6 states
+entering every chunk, the RG-LRU's output) and whose backward is a kernel
+of its own (:func:`flash_attention_bwd`, :func:`rwkv6_chunked_bwd`,
+:func:`rglru_scan_bwd` and :func:`rglru_gated_scan_bwd`): hand-written on
+the card, the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -30,13 +30,16 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import rglru_scan_bwd as _rgb
 from repro_torch.kernels import rwkv6_scan as _rw
+from repro_torch.kernels import rwkv6_scan_bwd as _rwb
 from repro_torch.kernels import subsample_gather as _sg
 from repro_torch.kernels import subsample_grid as _sgrid
 
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
            "flash_attention", "subsample_gather", "subsample_grid",
-           "threefry_randint", "flash_attention_bwd")
+           "threefry_randint", "flash_attention_bwd", "rwkv6_chunked_bwd",
+           "rglru_scan_bwd")
 
 _COUNTERS = 2 ** 32                      # flat positions a threefry key draws
 _count_lock = threading.Lock()
@@ -62,14 +65,8 @@ def _counted(name: str) -> None:
         _launches[name] += 1
 
 
-def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where a gradient is asked of a kernel with no backward: its
-    output would otherwise end the graph on the card, silently, while the
-    plain version on the CPU differentiates."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet (ROADMAP Queue 1, item 13): "
-            "models with RWKV or RG-LRU layers do not train")
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _check_subsample_stats(data: torch.Tensor, indices: torch.Tensor,
@@ -406,7 +403,9 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked RWKV6 recurrence: ``r, k, v, logw [B, H, S, hd]`` (log decay
     ≤ 0) and ``u [H, hd]`` → ``(out [B, H, S, hd] fp32, state_out [B, H,
     hd, hd] fp32)``, carried from ``state`` (zeros when None), in chunks of
-    ``min(chunk, S)`` tokens; ``S`` must be a multiple of that."""
+    ``min(chunk, S)`` tokens; ``S`` must be a multiple of that.  With grad
+    on and an input that requires it, the call is differentiable
+    (:class:`_RWKV6Chunked`)."""
     if r.dim() != 4:
         raise ValueError(f"rwkv6_chunked takes r [B, H, S, hd]; got "
                          f"{tuple(r.shape)}")
@@ -416,12 +415,83 @@ def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = torch.zeros((b, h, hd, hd), dtype=torch.float32,
                             device=r.device)
     _check_rwkv6(r, k, v, logw, u, state, chunk)
-    _refuse_grad("rwkv6_chunked", r, k, v, logw, u, state)
+    if _wants_grad(r, k, v, logw, u, state):
+        return _RWKV6Chunked.apply(r, k, v, logw, u, state, chunk)
     if not r.is_cuda:
         return ref.rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk)
     out = _rw.rwkv6_chunked(r, k, v, logw, u, state, chunk)
     _counted("rwkv6_chunked")
     return out
+
+
+class _RWKV6Chunked(torch.autograd.Function):
+    """``rwkv6_chunked`` with its gradient.  The forward saves its inputs,
+    the final state and the states entering every chunk but the first
+    (the kernel's state pass writes them anyway), so that the backward,
+    :func:`rwkv6_chunked_bwd`, never runs the state pass again.  Under
+    remat the forward runs again inside the backward and saves its own
+    states: the kernel is deterministic, so they equal the first."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state, chunk: int):
+        if r.is_cuda:
+            out, state_out, states = _rw.rwkv6_chunked(
+                r, k, v, logw, u, state, chunk, with_states=True)
+            _counted("rwkv6_chunked")
+        else:
+            out, state_out, states = ref.rwkv6_chunk_form_ref(
+                r, k, v, logw, u, state, chunk, with_states=True)
+        ctx.save_for_backward(r, k, v, logw, u, state, states, state_out)
+        ctx.chunk = chunk
+        return out, state_out
+
+    @staticmethod
+    def backward(ctx, dout, dstate_out):
+        r, k, v, logw, u, state, states, state_out = ctx.saved_tensors
+        grads = rwkv6_chunked_bwd(r, k, v, logw, u, state, states, state_out,
+                                  dout.contiguous(), dstate_out.contiguous(),
+                                  chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def rwkv6_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      logw: torch.Tensor, u: torch.Tensor,
+                      state0: torch.Tensor, states: torch.Tensor,
+                      state_out: torch.Tensor, dout: torch.Tensor,
+                      dstate_out: torch.Tensor, *, chunk: int):
+    """The gradient of :func:`rwkv6_chunked` from its inputs (``state0``
+    the state it started from), the states entering every chunk but the
+    first ``states [B, H, S / chunk − 1, hd, hd]`` and the final state
+    ``state_out`` (fp32, what its forward wrote), and the gradients of its
+    two outputs ``dout [B, H, S, hd]`` and ``dstate_out [B, H, hd, hd]``
+    (fp32) → ``(dr, dk, dv, dlogw, du, dstate0)``: dr, dk, dv and du in
+    r's type, dlogw in logw's, dstate0 fp32.  ``chunk`` is the forward's
+    (divides S).  On the card one call launches the three passes of
+    ``csrc/rwkv6_scan_bwd.cu`` and counts once as ``rwkv6_chunked_bwd``; on
+    the CPU it runs :func:`kernels.ref.rwkv6_chunked_bwd_ref`."""
+    _check_rwkv6(r, k, v, logw, u, state0, chunk)
+    b, h, s, hd = r.shape
+    want = {"states": (b, h, s // chunk - 1, hd, hd),
+            "state_out": (b, h, hd, hd), "dout": (b, h, s, hd),
+            "dstate_out": (b, h, hd, hd)}
+    for name, t in (("states", states), ("state_out", state_out),
+                    ("dout", dout), ("dstate_out", dstate_out)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes fp32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}, r on {r.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rwkv6_chunked_bwd takes a contiguous {name}")
+    if not r.is_cuda:
+        return ref.rwkv6_chunked_bwd_ref(r, k, v, logw, u, state0, states,
+                                         state_out, dout, dstate_out, chunk)
+    grads = _rwb.rwkv6_chunked_bwd(r, k, v, logw, u, state0, states,
+                                   state_out, dout, dstate_out, chunk)
+    _counted("rwkv6_chunked_bwd")
+    return grads
 
 
 def _check_rglru(a, b, h0) -> None:
@@ -447,14 +517,68 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The RG-LRU linear recurrence ``h_t = a_t ⊙ h_{t−1} + b_t`` from
     ``h_{−1} = h0``: ``a, b [B, S, W]`` and ``h0 [B, W]``, all fp32, →
     ``[B, S, W]`` fp32.  Any ``S >= 1`` and any ``W``: the reference's
-    tiling arguments (``chunk``, ``width_block``) have no counterpart."""
+    tiling arguments (``chunk``, ``width_block``) have no counterpart.
+    With grad on and an input that requires it, the call is
+    differentiable (:class:`_RGLRUScan`)."""
     _check_rglru(a, b, h0)
-    _refuse_grad("rglru_scan", a, b, h0)
+    if _wants_grad(a, b, h0):
+        return _RGLRUScan.apply(a, b, h0)
+    return _rglru_scan(a, b, h0)
+
+
+def _rglru_scan(a, b, h0):
     if not a.is_cuda:
         return ref.linear_scan_ref(a, b, h0)
     out = _rg.rglru_scan(a, b, h0)
     _counted("rglru_scan")
     return out
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """``rglru_scan`` with its gradient: the forward saves ``a``, ``h0``
+    and its output, the backward is :func:`rglru_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        out = _rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, out = ctx.saved_tensors
+        return rglru_scan_bwd(a, out, h0, dh.contiguous())
+
+
+def _check_rglru_bwd(h, dh, like) -> None:
+    if tuple(h.shape) != tuple(like.shape) or tuple(dh.shape) != tuple(
+            like.shape):
+        raise ValueError(f"h and dh must be {tuple(like.shape)}; got "
+                         f"{tuple(h.shape)} and {tuple(dh.shape)}")
+    if h.dtype != torch.float32 or dh.dtype != torch.float32:
+        raise TypeError(f"h and dh take fp32; got {h.dtype} and {dh.dtype}")
+    if h.device != like.device or dh.device != like.device:
+        raise ValueError("h and dh must lie on the inputs' device")
+    if not (h.is_contiguous() and dh.is_contiguous()):
+        raise ValueError("rglru_scan_bwd takes contiguous tensors")
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                   dh: torch.Tensor):
+    """The gradient of :func:`rglru_scan` from its decay ``a``, its output
+    ``h``, ``h0`` and the output's gradient ``dh`` (fp32 ``[B, S, W]``,
+    ``h0 [B, W]``) → ``(da, db, dh0)`` fp32: the reverse scan ``g_t = dh_t
+    + a_{t+1} g_{t+1}``, ``da_t = g_t h_{t−1}``, ``db_t = g_t``, ``dh0 = a_0
+    g_0``.  On the card one launch of ``csrc/rglru_scan_bwd.cu``'s read
+    form, counted as ``rglru_scan_bwd``; on the CPU
+    :func:`kernels.ref.rglru_scan_bwd_ref`."""
+    _check_rglru(a, a, h0)
+    _check_rglru_bwd(h, dh, a)
+    if not a.is_cuda:
+        return ref.rglru_scan_bwd_ref(a, h, h0, dh)
+    grads = _rgb.rglru_scan_bwd(a, h, h0, dh)
+    _counted("rglru_scan_bwd")
+    return grads
 
 
 def _check_rglru_gated(u, gates, softplus_lam, h0) -> None:
@@ -501,12 +625,60 @@ def rglru_gated_scan(u: torch.Tensor, gate_a_w: torch.Tensor,
     launch."""
     gates = (gate_a_w, gate_a_b, gate_x_w, gate_x_b)
     _check_rglru_gated(u, gates, softplus_lam, h0)
-    _refuse_grad("rglru_gated_scan", u, *gates, softplus_lam, h0)
+    if _wants_grad(u, *gates, softplus_lam, h0):
+        return _RGLRUGatedScan.apply(u, *gates, softplus_lam, h0)
+    return _rglru_gated_scan(u, *gates, softplus_lam, h0)
+
+
+def _rglru_gated_scan(u, *rest):
     if not u.is_cuda:
-        return ref.rglru_gated_scan_ref(u, *gates, softplus_lam, h0)
-    out = _rg.rglru_gated_scan(u, *gates, softplus_lam, h0)
+        return ref.rglru_gated_scan_ref(u, *rest)
+    out = _rg.rglru_gated_scan(u, *rest)
     _counted("rglru_scan")
     return out
+
+
+class _RGLRUGatedScan(torch.autograd.Function):
+    """``rglru_gated_scan`` with its gradient: the forward saves its inputs
+    and its output (``a`` and the gated input exist nowhere: the backward
+    forms them again from ``u``), the backward is
+    :func:`rglru_gated_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                softplus_lam, h0):
+        out = _rglru_gated_scan(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                                softplus_lam, h0)
+        ctx.save_for_backward(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                              softplus_lam, h0, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        return rglru_gated_scan_bwd(*ctx.saved_tensors, dh.contiguous())
+
+
+def rglru_gated_scan_bwd(u: torch.Tensor, gate_a_w: torch.Tensor,
+                         gate_a_b: torch.Tensor, gate_x_w: torch.Tensor,
+                         gate_x_b: torch.Tensor, softplus_lam: torch.Tensor,
+                         h0: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The gradient of :func:`rglru_gated_scan` from its inputs, its output
+    ``h`` and the output's gradient ``dh`` (fp32 ``[B, S, W]``) → ``(du,
+    dgate_a_w, dgate_a_b, dgate_x_w, dgate_x_b, dsoftplus_lam, dh0)``: du
+    in u's type, the gate vectors' in theirs, the last two fp32.  On the
+    card one call launches ``csrc/rglru_scan_bwd.cu``'s gated form (which
+    forms ``a`` and the gated input from ``u`` again) and its reduction
+    over B, and counts once as ``rglru_scan_bwd``; on the CPU
+    :func:`kernels.ref.rglru_gated_scan_bwd_ref`."""
+    gates = (gate_a_w, gate_a_b, gate_x_w, gate_x_b)
+    _check_rglru_gated(u, gates, softplus_lam, h0)
+    _check_rglru_bwd(h, dh, u)
+    if not u.is_cuda:
+        return ref.rglru_gated_scan_bwd_ref(u, *gates, softplus_lam, h0, h,
+                                            dh)
+    grads = _rgb.rglru_gated_scan_bwd(u, *gates, softplus_lam, h0, h, dh)
+    _counted("rglru_scan_bwd")
+    return grads
 
 
 def _check_flash(q, k, v, causal: bool, window: int, group: int) -> None:
@@ -547,15 +719,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     arguments (``block_q``, ``block_k``) have no counterpart.
 
     With grad on and an input that requires it, the call is differentiable
-    (:class:`_FlashAttention`; ``window`` > 0 raises there for now); else
-    it launches the forward alone, with no log-sum-exp."""
+    (:class:`_FlashAttention`); else it launches the forward alone, with
+    no log-sum-exp."""
     _check_flash(q, k, v, causal, window, group)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if window:
-            raise NotImplementedError(
-                "flash_attention's backward takes window 0 only (window > 0 "
-                "comes with ROADMAP Queue 1, item 13)")
-        return _FlashAttention.apply(q, k, v, causal, group)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, group)
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        group=group)
@@ -566,47 +734,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``flash_attention`` (window 0) with its gradient.  The forward
-    writes the output and each row's log-sum-exp and saves ``q, k, v, out,
-    lse``; the backward is :func:`flash_attention_bwd`.  Under remat the
-    forward runs again inside the backward and saves its own ``lse``: the
-    kernel is deterministic, so the recomputed output equals the first."""
+    """``flash_attention`` with its gradient.  The forward writes the
+    output and each row's log-sum-exp and saves ``q, k, v, out, lse``; the
+    backward is :func:`flash_attention_bwd`.  Under remat the forward runs
+    again inside the backward and saves its own ``lse``: the kernel is
+    deterministic, so the recomputed output equals the first."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, group: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, group: int):
+        kw = dict(causal=causal, window=window, group=group)
         if q.is_cuda:
-            out, lse = _fa.flash_attention(q, k, v, causal=causal, window=0,
-                                           group=group, with_lse=True)
+            out, lse = _fa.flash_attention(q, k, v, with_lse=True, **kw)
             _counted("flash_attention")
         else:
-            out = ref.flash_attention_ref(q, k, v, causal=causal, group=group)
-            lse = ref.flash_attention_lse_ref(q, k, causal=causal,
-                                              group=group)
+            out = ref.flash_attention_ref(q, k, v, **kw)
+            lse = ref.flash_attention_lse_ref(q, k, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.group = causal, group
+        ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(),
-                                         causal=ctx.causal, group=ctx.group)
-        return dq, dk, dv, None, None
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        group: int = 1):
+                        window: int = 0, group: int = 1):
     """The gradient of :func:`flash_attention` from its inputs, its output
     ``out`` and log-sum-exp ``lse [BH, Sq]`` fp32, and the output's
     gradient ``dout`` (``out``'s shape and type) → ``(dq, dk, dv)`` in the
-    inputs' type, window 0.  On the card one call launches the three
-    kernels of ``csrc/flash_attention_bwd.cu`` and counts once as
+    inputs' type, under the forward's mask (``causal``, ``window``).  On
+    the card one call launches the three kernels of
+    ``csrc/flash_attention_bwd.cu`` and counts once as
     ``flash_attention_bwd``; on the CPU it runs
     :func:`kernels.ref.flash_attention_bwd_ref`."""
-    _check_flash(q, k, v, causal, 0, group)
+    _check_flash(q, k, v, causal, window, group)
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(
             q.shape):
         raise ValueError(f"out and dout must be q's shape {tuple(q.shape)}; "
@@ -623,8 +790,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd takes contiguous tensors")
     if not q.is_cuda:
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                           causal=causal, group=group)
+                                           causal=causal, window=window,
+                                           group=group)
     grads = _fab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
-                                     group=group)
+                                     window=window, group=group)
     _counted("flash_attention_bwd")
     return grads

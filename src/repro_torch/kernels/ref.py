@@ -212,20 +212,31 @@ def chunk_body(r, k, v, logw, u, state):
     return inter + intra, new_state
 
 
-def rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk: int):
+def rwkv6_chunk_form_ref(r, k, v, logw, u, state, chunk: int, *,
+                         with_states: bool = False):
     """The ``rwkv6_chunked`` kernel's plain version: :func:`chunk_body`
     chunk after chunk from ``state [B, H, hd, hd]`` fp32.  ``r, k, v, logw
     [B, H, S, hd]`` with ``S`` a multiple of ``chunk``; ``u [H, hd]``.
-    Returns ``(out [B, H, S, hd] fp32, final_state [B, H, hd, hd] fp32)``."""
+    Returns ``(out [B, H, S, hd] fp32, final_state [B, H, hd, hd] fp32)``;
+    with ``with_states`` also the states entering every chunk but the
+    first, ``[B, H, S / chunk − 1, hd, hd]`` fp32 (what the kernel's state
+    pass writes, and its backward reads)."""
     s = r.shape[2]
     state = state.float()
-    outs = []
+    outs, entering = [], []
     for c0 in range(0, s, chunk):
         part = slice(c0, c0 + chunk)
+        if c0:
+            entering.append(state)
         out, state = chunk_body(r[:, :, part], k[:, :, part], v[:, :, part],
                                 logw[:, :, part], u, state)
         outs.append(out)
-    return torch.cat(outs, dim=2), state
+    if not with_states:
+        return torch.cat(outs, dim=2), state
+    b, h, _, hd = r.shape
+    states = (torch.stack(entering, dim=2) if entering else torch.empty(
+        (b, h, 0, hd, hd), dtype=torch.float32, device=r.device))
+    return torch.cat(outs, dim=2), state, states
 
 
 def rwkv6_two_pass_ref(r, k, v, logw, u, state, chunk: int, sub: int = 16):
@@ -302,6 +313,116 @@ def rwkv6_two_pass_ref(r, k, v, logw, u, state, chunk: int, sub: int = 16):
     return out.reshape(b, h, s, hd), st
 
 
+def rwkv6_chunked_bwd_ref(r, k, v, logw, u, state0, states, state_out, dout,
+                          dstate_out, chunk: int):
+    """The gradient of :func:`rwkv6_chunk_form_ref`, chunk by chunk, as the
+    ``rwkv6_chunked_bwd`` kernel takes it: explicit formulas in fp32, not
+    autograd.  ``states [B, H, S / chunk − 1, hd, hd]`` are the states
+    entering every chunk but the first (what the forward's state pass
+    writes), ``state_out`` the final state; ``dout [B, H, S, hd]`` and
+    ``dstate_out [B, H, hd, hd]`` the gradients of the two outputs.
+
+    With ``logP`` and ``logP_{j+1}`` a chunk's log-decay sums (formed as
+    :func:`chunk_body` forms them), ``S_c`` the state entering chunk c,
+    ``S'_c`` the one leaving it and ``dS'_c`` its gradient:
+
+    1. The reverse state pass, from ``dS'_{n−1} = dstate_out``:
+       ``dS_c = e^{logP_C} ⊙_rows dS'_c + (r ⊙ e^{logP})ᵀ dout``,
+       ``dS'_{c−1} = dS_c``, ``dstate0 = dS_0``.
+    2. Every chunk from its ``S_c``, ``S'_c`` and ``dS'_c``, with
+       ``E_ij = e^{logP_i − logP_{j+1}}`` (j < i) and ``DP_ij = dout_i ·
+       v_j``:
+       ``dr'_i = e^{logP_i} ⊙ (S_c dout_i) + Σ_{j<i} DP_ij k_j ⊙ E_ij``,
+       ``dk'_j = Σ_{i>j} DP_ij r_i ⊙ E_ij + e^{logP_C − logP_{j+1}} ⊙
+       (dS'_c v_j)``,
+       ``dr = dr' + u ⊙ k DP_ii``, ``dk = dk' + u ⊙ r DP_jj``,
+       ``dv_j = Σ_{i≥j} A_ij dout_i + (k_j ⊙ e^{logP_C −
+       logP_{j+1}})ᵀ dS'_c`` (A the forward's, bonus on its diagonal),
+       ``du = Σ_{b, i} r_i ⊙ k_i DP_ii``.
+    3. The log decays.  ``logw_m`` enters ``logP_i`` for i > m,
+       ``logP_{j+1}`` for j ≥ m and ``logP_C``; every term that holds
+       ``e^{logP_i}`` also holds ``r_i`` (so ``∂/∂logP_i = r_i ⊙ dr'_i``),
+       every term with ``e^{−logP_{j+1}}`` holds ``k_j`` (``∂/∂logP_{j+1}
+       = −k_j ⊙ dk'_j``), and ``S'_c`` is ``e^{logP_C}`` times the rest
+       (``∂/∂logP_C = Σ_e dS'_c ⊙ S'_c``).  So
+       ``dlogw_m = Σ_e dS'_c ⊙ S'_c + Σ_{i>m} r_i ⊙ dr'_i − Σ_{j≥m} k_j ⊙
+       dk'_j``, within the chunk: no sum crosses a chunk.
+
+    Every exponent is a difference ``later − earlier`` ≤ 0.  Returns ``(dr,
+    dk, dv, dlogw, du, dstate0)``: dr, dk, dv and du in r's type, dlogw in
+    logw's, dstate0 fp32.  Float64 inputs are taken in float64 throughout
+    (the tests' oracle at extreme decays, where the fp32 log-decay sums'
+    own rounding moves the gradients by some 1e-5)."""
+    b, h, s, hd = r.shape
+    n = s // chunk
+    wide = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, lw, do = (t.to(wide).reshape(b, h, n, chunk, hd)
+                          for t in (r, k, v, logw, dout))
+    uf = u.to(wide)
+    lp = torch.cumsum(lw, dim=3) - lw                 # logP_i
+    lq = lp + lw                                      # logP_{j+1}
+    total = lq[..., -1, :]                            # logP_C
+    entering = torch.cat([state0.to(wide)[:, :, None], states.to(wide)],
+                         dim=2)
+    leaving = torch.cat([states.to(wide), state_out.to(wide)[:, :, None]],
+                        dim=2)
+
+    # 1. the reverse state pass
+    inc = torch.einsum("bhncd,bhnce->bhnde", rf * torch.exp(lp), do)
+    decay = torch.exp(total)
+    dleaving = [None] * n
+    ds = dstate_out.to(wide)
+    for c in range(n - 1, -1, -1):
+        dleaving[c] = ds
+        ds = decay[:, :, c, :, None] * ds + inc[:, :, c]
+    dstate0 = ds
+    dl = torch.stack(dleaving, dim=2)                 # dS'_c
+
+    # 2. every chunk
+    idx = torch.arange(chunk, device=r.device)
+    lower = idx[:, None] > idx[None, :]                # i > j, strict
+    dp = torch.einsum("bhnie,bhnje->bhnij", do, vf)
+    diag = torch.diagonal(dp, dim1=3, dim2=4)          # DP_ii [b,h,n,C]
+    dpl = dp * lower                                    # j < i only
+    # k_j e^{logP_C − logP_{j+1}}
+    kdec = kf * torch.exp(total[..., None, :] - lq)
+    drp = torch.exp(lp) * torch.einsum("bhnde,bhnie->bhnid", entering, do)
+    dkp = torch.exp(total[..., None, :] - lq) * torch.einsum(
+        "bhnde,bhnje->bhnjd", dl, vf)
+    amat = torch.zeros((b, h, n, chunk, chunk), dtype=wide, device=r.device)
+    for c in range(n):          # one chunk's [B, H, C, C, hd] at a time
+        dm = lp[:, :, c, :, None, :] - lq[:, :, c, None, :, :]
+        e = torch.exp(torch.where(lower[..., None], dm,
+                                  torch.full_like(dm, -math.inf)))
+        drp[:, :, c] += torch.einsum("bhij,bhjd,bhijd->bhid", dpl[:, :, c],
+                                     kf[:, :, c], e)
+        dkp[:, :, c] += torch.einsum("bhij,bhid,bhijd->bhjd", dpl[:, :, c],
+                                     rf[:, :, c], e)
+        amat[:, :, c] = torch.einsum("bhid,bhjd,bhijd->bhij", rf[:, :, c],
+                                     kf[:, :, c], e)
+    bonus = torch.einsum("bhnid,hd,bhnid->bhni", rf, uf, kf)
+    amat = amat + torch.diag_embed(bonus)
+    dr = drp + uf[None, :, None, None] * kf * diag[..., None]
+    dk = dkp + uf[None, :, None, None] * rf * diag[..., None]
+    dv = (torch.einsum("bhnij,bhnie->bhnje", amat, do)
+          + torch.einsum("bhnjd,bhnde->bhnje", kdec, dl))
+    du = torch.einsum("bhnid,bhnid,bhni->hd", rf, kf, diag)
+
+    # 3. the log decays, within each chunk
+    x = rf * drp
+    y = kf * dkp
+    after_x = torch.flip(torch.cumsum(torch.flip(x, [3]), dim=3), [3]) - x
+    from_y = torch.flip(torch.cumsum(torch.flip(y, [3]), dim=3), [3])
+    tail = (dl * leaving).sum(dim=-1)                  # Σ_e dS'_c ⊙ S'_c
+    dlogw = tail[..., None, :] + after_x - from_y
+
+    def back(t, like):
+        return t.reshape(b, h, s, hd).to(like.dtype)
+
+    return (back(dr, r), back(dk, k), back(dv, v), back(dlogw, logw),
+            du.to(u.dtype), dstate0)
+
+
 def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
                     h0: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t ⊙ h_{t−1} + b_t`` from ``h_{−1} = h0``, one step after
@@ -342,6 +463,70 @@ def rglru_gated_scan_ref(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
     a, gated = rglru_gates(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
                            softplus_lam)
     return linear_scan_ref(a, gated, h0)
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                       dh: torch.Tensor):
+    """The gradient of :func:`linear_scan_ref` from its decay ``a``, its
+    output ``h``, ``h0`` and the output's gradient ``dh`` (all fp32 ``[B,
+    S, W]``, ``h0 [B, W]``): the reverse scan ``g_t = dh_t + a_{t+1} ⊙
+    g_{t+1}`` (``g_{S−1} = dh_{S−1}``), one step after another, each
+    product rounded before the sum as the ``rglru_scan_bwd`` kernel takes
+    it, then ``da_t = g_t ⊙ h_{t−1}`` (``h_{−1} = h0``), ``db_t = g_t``
+    and ``dh0 = a_0 ⊙ g_0``.  Returns ``(da, db, dh0)`` fp32."""
+    af, dhf = a.float(), dh.float()
+    g = torch.empty_like(dhf)
+    acc = dhf[:, -1]
+    g[:, -1] = acc
+    for t in range(af.shape[1] - 2, -1, -1):
+        acc = dhf[:, t] + af[:, t + 1] * acc
+        g[:, t] = acc
+    hprev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], dim=1)
+    return g * hprev, g, af[:, 0] * g[:, 0]
+
+
+def rglru_gated_scan_bwd_ref(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                             softplus_lam, h0, h, dh):
+    """The gradient of :func:`rglru_gated_scan_ref` from its inputs, its
+    output ``h`` and the output's gradient ``dh [B, S, W]`` fp32:
+    :func:`rglru_gates` formed again, :func:`rglru_scan_bwd_ref`, then the
+    chain rule back through the gates, op by op:
+
+        d√ = db ⊙ (i u),  d(i u) = db ⊙ √keep,
+        dkeep = d√ ⊙ 0.5 / √keep   where 1 − a² ≥ 1e-6 (the clamp passes
+                                     no gradient where it binds),
+        dlog_a = (da − 2 a ⊙ dkeep) ⊙ a,
+        dr = dlog_a ⊙ softplus_lam ⊙ (−8),   dsp = Σ dlog_a ⊙ (−8 r),
+        dz_a = dr ⊙ r (1 − r),   dz_x = d(i u) ⊙ u ⊙ i (1 − i),
+        du = dz_a ⊙ w_a + dz_x ⊙ w_x + d(i u) ⊙ i,
+        dw_a = Σ dz_a ⊙ u,  db_a = Σ dz_a,  dw_x = Σ dz_x ⊙ u,  db_x = Σ dz_x,
+
+    the sums over B and S.  Returns ``(du, dw_a, db_a, dw_x, db_x,
+    dsoftplus_lam, dh0)``: du in u's type, the gate vectors' gradients in
+    theirs, the last two fp32."""
+    uf = u.float()
+    sp = softplus_lam.float()
+    r = torch.sigmoid(gate_a_w * uf + gate_a_b)
+    i = torch.sigmoid(gate_x_w * uf + gate_x_b)
+    a = torch.exp(-8.0 * r * sp)
+    keep = 1.0 - torch.square(a)
+    root = torch.sqrt(torch.clamp(keep, min=1e-6))
+    iu = i * uf
+    da, db, dh0 = rglru_scan_bwd_ref(a, h, h0, dh)
+    dkeep = torch.where(keep >= 1e-6, db * iu * (0.5 / root),
+                        torch.zeros_like(db))
+    dlog_a = (da - 2.0 * a * dkeep) * a
+    dr = dlog_a * sp * -8.0
+    diu = db * root
+    dza = dr * (r * (1.0 - r))
+    dzx = diu * uf * (i * (1.0 - i))
+    du = dza * gate_a_w.float() + dzx * gate_x_w.float() + diu * i
+    dims = (0, 1)
+    return (du.to(u.dtype), (dza * uf).sum(dims).to(gate_a_w.dtype),
+            dza.sum(dims).to(gate_a_b.dtype),
+            (dzx * uf).sum(dims).to(gate_x_w.dtype),
+            dzx.sum(dims).to(gate_x_b.dtype),
+            (dlog_a * (-8.0 * r)).sum(dims), dh0)
 
 
 def attention_mask(sq: int, skv: int, *, causal: bool, window: int,

@@ -76,15 +76,17 @@ def launch(r, k, v, logw, u, state, chunk: int, out: torch.Tensor,
 
 def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                  chunk: int):
+                  chunk: int, *, with_states: bool = False):
     """Launch both passes on CUDA tensors already checked by
     ``ops.rwkv6_chunked``: ``r, k, v, logw [B, H, S, hd]``, ``u [H, hd]``,
     ``state [B, H, hd, hd]`` fp32, ``S`` a multiple of ``chunk``.  Returns
     ``(out [B, H, S, hd] fp32, state_out [B, H, hd, hd] fp32)`` allocated
-    here, on PyTorch's current stream, without synchronising."""
+    here, on PyTorch's current stream, without synchronising; with
+    ``with_states`` also the scratch states the state pass wrote (the
+    backward's input)."""
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state_out = torch.empty(state.shape, dtype=torch.float32,
                             device=r.device)
-    launch(r, k, v, logw, u, state, chunk, out, state_out,
-           scratch_states(r, chunk))
-    return out, state_out
+    states = scratch_states(r, chunk)
+    launch(r, k, v, logw, u, state, chunk, out, state_out, states)
+    return (out, state_out, states) if with_states else (out, state_out)

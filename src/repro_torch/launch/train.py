@@ -10,13 +10,16 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b \
       --reduced --device cpu --steps 3
 
-Every config whose layers are all full attention trains: the dense
-decoders (``musicgen-medium``, ``deepseek-7b``, ``internlm2-20b``, ...),
-the mixture-of-experts models (``deepseek-moe-16b``, ``arctic-480b``) and
-``llava-next-34b``, whose batches carry zero patch embeddings before the
-``--seq`` text tokens, as the reference's launcher gives them.
-``rwkv6-7b`` and ``recurrentgemma-2b`` raise until their backward kernels
-come (ROADMAP Queue 1, item 13).
+Every config trains: the dense decoders (``musicgen-medium``,
+``deepseek-7b``, ``internlm2-20b``, ...), the mixture-of-experts models
+(``deepseek-moe-16b``, ``arctic-480b``), ``llava-next-34b``, whose batches
+carry zero patch embeddings before the ``--seq`` text tokens, as the
+reference's launcher gives them, and the recurrent models ``rwkv6-7b``
+(RWKV6 layers, through ``rwkv6_chunked``'s backward kernel) and
+``recurrentgemma-2b`` (RG-LRU layers and windowed attention, through the
+backward kernels of ``rglru_scan`` and ``flash_attention``):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+      --batch 4 --seq 4096 --steps 3     # all 26 layers, one H100
 """
 
 from __future__ import annotations

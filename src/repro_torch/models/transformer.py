@@ -21,8 +21,8 @@ Modes:
 Every mode returns the mean auxiliary (MoE load-balancing) loss beside the
 hidden state and caches.
 
-Training takes full-attention (``ATTN``) layers only: the recurrences and
-windowed attention have no backward kernel yet (ROADMAP Queue 1, item 13).
+Training takes every layer kind: full and windowed attention, RWKV6 and
+RG-LRU, each kernel differentiable through its own backward kernel.
 Remat follows ``cfg.remat`` per block, as the reference's
 ``jax.checkpoint(block_body)``: ``"full"`` keeps a block's input alone,
 ``"dots"`` also the outputs of its plain matrix products, ``"none"``
@@ -191,17 +191,6 @@ def prefill_to_decode_caches(cfg: ModelConfig, caches):
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg: ModelConfig, kind: str) -> None:
-    """Raise ``NotImplementedError`` for a layer kind that cannot train
-    yet: its kernel has no backward, and a gradient through it would be
-    silently zero on the card."""
-    if kind in (RWKV, RGLRU, LOCAL):
-        raise NotImplementedError(
-            f"{cfg.name}: training a {kind} layer needs the backward kernels "
-            "of rwkv6_chunked, rglru_scan and windowed flash_attention "
-            "(ROADMAP Queue 1, item 13)")
-
-
 def layer_apply(cfg: ModelConfig, kind: str, ffn_kind: str, params,
                 x: torch.Tensor, *, positions: Optional[torch.Tensor], cache,
                 mode: str, pos: Optional[int]
@@ -315,8 +304,6 @@ def forward(cfg: ModelConfig, params, hidden: torch.Tensor, *, caches,
     plan = stack_plan(cfg)
     x = hidden
     if mode == "train":
-        for i in range(cfg.num_layers):
-            check_trainable(cfg, cfg.layer_kind(i))
         return _train_forward(cfg, params, plan, x, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -4,6 +4,8 @@ new key, so that a library built from other bytes is never loaded; a
 library built before gives back its compiler's log.  Pure Python: runs
 without nvcc or a card."""
 
+import ctypes
+import re
 import subprocess
 from pathlib import Path
 from types import SimpleNamespace
@@ -148,3 +150,56 @@ def test_tensor_core_bwd_spill_check_fails(log, error):
 
     with pytest.raises(AssertionError, match=error):
         chip_smoke.check_tensor_core_bwd_spills(log)
+
+
+# -- each wrapper's ctypes declarations against its source's C interface -----
+
+_C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+            "int32_t": ctypes.c_int32,
+            "uint32_t": ctypes.c_uint32, "float": ctypes.c_float,
+            "double": ctypes.c_double}
+
+
+def _c_signatures(source: Path) -> dict:
+    """``{name: [ctypes type of each parameter]}`` of every ``extern "C"``
+    function defined in ``source``."""
+    sigs = {}
+    text = source.read_text()
+    for m in re.finditer(r'extern "C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)',
+                         text):
+        params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+        sigs[m.group(1)] = [
+            ctypes.c_void_p if "*" in p
+            else _C_TYPES[p.replace("const", "").split()[0]] for p in params]
+    return sigs
+
+
+def _libraries():
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     rglru_scan, rglru_scan_bwd, rwkv6_scan,
+                                     rwkv6_scan_bwd, subsample_gather,
+                                     subsample_grid)
+    mods = (flash_attention, flash_attention_bwd, rglru_scan, rglru_scan_bwd,
+            rwkv6_scan, rwkv6_scan_bwd, subsample_gather, subsample_grid)
+    return [lib for mod in mods for lib in vars(mod).values()
+            if isinstance(lib, _build.KernelLibrary)]
+
+
+@pytest.mark.parametrize("lib", _libraries(), ids=lambda lib: lib.source.name)
+def test_wrapper_declares_its_sources_c_interface(lib):
+    """Every function a wrapper declares exists in its source with the
+    parameters its ``argtypes`` name, in order: a pointer passed as a
+    32-bit int, or a missing argument, would reach the card unseen."""
+    declared = {}
+
+    class Recorder:
+        def __getattr__(self, name):
+            fn = declared.setdefault(name, SimpleNamespace())
+            return fn
+
+    lib._declare(Recorder())
+    sigs = _c_signatures(lib.source)
+    assert declared, lib.source
+    for name, fn in declared.items():
+        assert name in sigs, f"{name} is not defined in {lib.source.name}"
+        assert list(fn.argtypes) == sigs[name], name

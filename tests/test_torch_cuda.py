@@ -1623,6 +1623,182 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
 
 
+# -- the recurrences' backward kernels ---------------------------------------
+
+# rwkv6_chunked_bwd against its plain version on the forward kernel's own
+# states: fp32 gradients within RW_BWD_TOL of each leaf's largest entry
+# (products in other orders, each pairwise decay one ex2.approx); a bf16
+# gradient is one rounding of such a value, one bf16 step more at most
+RW_BWD_TOL = 1e-4
+
+
+def _held(got, want, tol):
+    g, w = got.double(), want.double()
+    scale = float(w.abs().max())
+    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(((g - w).abs() <= tol * scale + step * w.abs()).all()), (
+        float((g - w).abs().max()), scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,hd,chunk,dtype,logw_dtype,span", [
+    (1, 4, 512, 64, 64, torch.bfloat16, torch.float32, 2.45),  # the model's
+    (2, 3, 96, 32, 16, torch.bfloat16, torch.float32, 2.45),   # hd 32, C 16
+    (2, 2, 128, 64, 64, torch.float32, torch.float32, 39.95),  # extreme decay
+    (1, 2, 40, 64, 8, torch.float32, torch.bfloat16, 2.45),    # bf16 decays
+    (3, 1, 21, 32, 7, torch.bfloat16, torch.bfloat16, 2.45),   # odd chunk
+    (1, 3, 13, 64, 13, torch.float32, torch.float32, 2.45),    # one chunk
+])
+def test_rwkv6_bwd_kernel_matches_plain_version(cuda, b, h, s, hd, chunk,
+                                                dtype, logw_dtype, span):
+    from repro_torch.kernels import rwkv6_scan
+
+    x = _rwkv_inputs(b, h, s, hd, dtype, logw_dtype, b + s, cuda, span=span)
+    _, state_out, states = rwkv6_scan.rwkv6_chunked(*x, chunk,
+                                                    with_states=True)
+    rng = np.random.default_rng(s)
+    dout = torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(
+        np.float32)).to(cuda)
+    dstate = torch.from_numpy(rng.standard_normal((b, h, hd, hd)).astype(
+        np.float32)).to(cuda)
+    args = (*x, states, state_out, dout, dstate)
+    before = ops.launch_count("rwkv6_chunked_bwd")
+    got = ops.rwkv6_chunked_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_count("rwkv6_chunked_bwd") == before + 1
+    want = ref.rwkv6_chunked_bwd_ref(*args, chunk)
+    for g, w in zip(got, want):
+        _held(g, w, RW_BWD_TOL)
+    again = ops.rwkv6_chunked_bwd(*args, chunk=chunk)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_rwkv6_function_backward_launches_the_kernel(cuda):
+    r, k, v, logw, u, state = _rwkv_inputs(1, 2, 64, 64, torch.bfloat16,
+                                           torch.float32, 5, cuda)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u, state)]
+    ops.reset_launch_count()
+    out, state_out = ops.rwkv6_chunked(*leaves[:5], chunk=16,
+                                       state=leaves[5])
+    (out.square().sum() + state_out.sum()).backward()
+    assert ops.launch_count("rwkv6_chunked") == 1
+    assert ops.launch_count("rwkv6_chunked_bwd") == 1
+    assert all(float(t.grad.float().abs().sum()) > 0 for t in leaves)
+
+
+# rglru_scan_bwd: the read form and the gated form's du and dh0 take the
+# plain version's operations one by one, bit for bit; the gate vectors'
+# sums add in another order
+RG_SUM_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", [(2, 300, 200), (1, 1, 7), (3, 70, 2563),
+                                   (1, 4096, 2560)])
+def test_rglru_bwd_kernel_read_form_equals_plain_version(cuda, b, s, w):
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    a = 0.2 + 0.79 * torch.rand((b, s, w), generator=g, device=cuda)
+    x, dh = (torch.randn((b, s, w), generator=g, device=cuda)
+             for _ in range(2))
+    h0 = torch.randn((b, w), generator=g, device=cuda)
+    h = ops.rglru_scan(a, x, h0)
+    before = ops.launch_count("rglru_scan_bwd")
+    got = ops.rglru_scan_bwd(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert ops.launch_count("rglru_scan_bwd") == before + 1
+    for p, q in zip(got, ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w,dtype,lam", [
+    (1, 4096, 2560, torch.bfloat16, 1.0),      # the model's path
+    (2, 1, 100, torch.bfloat16, 1.0),          # S = 1
+    (3, 70, 2563, torch.bfloat16, 1.0),        # W off the channel block
+    (2, 130, 48, torch.float32, -20.0),        # the clamp binds
+])
+def test_rglru_bwd_kernel_gated_form_matches_plain_version(cuda, b, s, w,
+                                                           dtype, lam):
+    g = torch.Generator(device=cuda).manual_seed(s + w)
+    u = (2.0 * torch.randn((b, s, w), generator=g, device=cuda)).to(dtype)
+    gates = [(m + 0.3 * torch.randn((w,), generator=g, device=cuda)).to(dtype)
+             for m in (1.0, 0.0, 1.0, 0.0)]
+    sp = torch.nn.functional.softplus(
+        lam + 0.3 * torch.randn((w,), generator=g, device=cuda))
+    h0 = torch.randn((b, w), generator=g, device=cuda)
+    dh = torch.randn((b, s, w), generator=g, device=cuda)
+    h = ops.rglru_gated_scan(u, *gates, sp, h0)
+    args = (u, *gates, sp, h0, h, dh)
+    got = ops.rglru_gated_scan_bwd(*args)
+    want = ref.rglru_gated_scan_bwd_ref(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[6], want[6])
+    for p, q in zip(got[1:6], want[1:6]):
+        _held(p, q, RG_SUM_TOL)
+        assert p.dtype == q.dtype
+    again = ops.rglru_gated_scan_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_rglru_function_backward_launches_the_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    u = torch.randn((2, 50, 40), generator=g, device=cuda).to(torch.bfloat16)
+    gates = [torch.randn((40,), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(4)]
+    lam = torch.randn((40,), generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (u, *gates, lam)]
+    h0 = torch.zeros((2, 40), device=cuda)
+    ops.reset_launch_count()
+    out = ops.rglru_gated_scan(*leaves[:5],
+                               torch.nn.functional.softplus(leaves[5]), h0)
+    out.square().sum().backward()
+    assert ops.launch_count("rglru_scan") == 1
+    assert ops.launch_count("rglru_scan_bwd") == 1
+    assert all(float(t.grad.float().abs().sum()) > 0 for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,skv,hd,causal,window,group,dtype", [
+    (10, 600, 600, 256, True, 128, 10, torch.bfloat16),   # the local layer
+    (8, 700, 700, 64, True, 128, 1, torch.bfloat16),      # tensor cores
+    (12, 577, 577, 128, True, 100, 2, torch.bfloat16),    # ragged, group 2
+    (4, 300, 300, 64, True, 1, 1, torch.bfloat16),        # window 1
+    (6, 200, 257, 64, False, 50, 2, torch.bfloat16),      # not causal
+    (6, 400, 400, 64, True, 64, 3, torch.float32),        # fp32
+])
+def test_windowed_flash_bwd_kernel_matches_plain_version(
+        cuda, bh, sq, skv, hd, causal, window, group, dtype):
+    q, k, v = _attn_inputs(bh, sq, skv, hd, group, dtype, bh + sq, cuda)
+    dout = torch.randn_like(q.float()).to(dtype)
+    kw = dict(causal=causal, window=window, group=group)
+    out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    rtol, atol = FA_BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(64, torch.bfloat16),
+                                      (256, torch.bfloat16),
+                                      (128, torch.float32)])
+def test_windowed_flash_bwd_past_s_is_the_causal_backward(cuda, hd, dtype):
+    q, k, v = _attn_inputs(4, 300, 300, hd, 2, dtype, hd, cuda)
+    dout = torch.randn_like(q.float()).to(dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=0, group=2,
+                                  with_lse=True)
+    causal = ops.flash_attention_bwd(q, k, v, out, lse, dout, group=2)
+    for window in (300, 1000):
+        got = ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                      window=window, group=2)
+        assert all(torch.equal(a, b) for a, b in zip(got, causal))
+
+
 # -- the mixture-of-experts layer on the card
 
 

@@ -20,7 +20,9 @@ the kernel takes two.
 
 Shapes: the main paths' lengths at a few heads (2 heads of 2,048 at HD 64,
 a ``musicgen-medium`` layer's; 1 head of 4,064 at HD 128, ``deepseek-7b``'s)
-and ``internlm2-20b``'s group of 6 at a ragged Sq = Skv = 577.
+and ``internlm2-20b``'s group of 6 at a ragged Sq = Skv = 577; windowed,
+the card's tensor-core case (2,048 at HD 64, window 512) and a ragged
+group of 2 at window 100.
 """
 
 import math
@@ -39,10 +41,13 @@ from repro_torch.kernels import ref
 RTOL, ATOL = 1e-2, 1e-3       # FA_BWD_TOL[torch.bfloat16]
 LOG2E = 1.4426950408889634
 
-CASES = [  # bh, sq, skv, hd, causal, group
-    (2, 2048, 2048, 64, True, 1),
-    (1, 4064, 4064, 128, True, 1),
-    (12, 577, 577, 128, True, 6),
+CASES = [  # bh, sq, skv, hd, causal, group, window
+    (2, 2048, 2048, 64, True, 1, 0),
+    (1, 4064, 4064, 128, True, 1, 0),
+    (12, 577, 577, 128, True, 6, 0),
+    # windowed: the card's tensor-core case (window 512) and a ragged one
+    (2, 2048, 2048, 64, True, 1, 512),
+    (4, 600, 600, 128, True, 2, 100),
 ]
 
 
@@ -59,12 +64,12 @@ def _inputs(bh, sq, skv, hd, group, seed=0):
     return q, k, v, dout
 
 
-def _forward(q, k, v, causal, group):
+def _forward(q, k, v, causal, group, window):
     """The forward's bf16 output and fp32 log-sum-exp, as the backward is
     fed them."""
-    out = ref.flash_attention_ref(q, k, v, causal=causal, group=group)
-    lse = ref.flash_attention_lse_ref(q, k, causal=causal, group=group)
-    return out, lse
+    kw = dict(causal=causal, window=window, group=group)
+    return (ref.flash_attention_ref(q, k, v, **kw),
+            ref.flash_attention_lse_ref(q, k, **kw))
 
 
 def _terms(x: torch.Tensor, terms: int) -> torch.Tensor:
@@ -76,7 +81,7 @@ def _terms(x: torch.Tensor, terms: int) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def _emulate(q, k, v, out, lse, dout, *, causal, group, terms):
+def _emulate(q, k, v, out, lse, dout, *, causal, group, window, terms):
     """The tensor-core body's arithmetic: ``(dq, dk, dv)`` in bf16."""
     bh, sq, hd = q.shape
     skv = k.shape[1]
@@ -88,7 +93,7 @@ def _emulate(q, k, v, out, lse, dout, *, causal, group, terms):
     delta = (out.float() * dof).sum(dim=-1)
     lse2 = torch.where(torch.isneginf(lse),
                        torch.full_like(lse, float("inf")), lse * LOG2E)
-    mask = ref.attention_mask(sq, skv, causal=causal, window=0)
+    mask = ref.attention_mask(sq, skv, causal=causal, window=window)
     s = torch.einsum("bid,bjd->bij", qf, kf)
     p = torch.where(mask[None], torch.exp2(s * scale_log2 - lse2[..., None]),
                     torch.zeros(()))
@@ -122,13 +127,14 @@ def _violations(got, want):
 
 @pytest.mark.parametrize("case", CASES)
 def test_two_bf16_terms_hold_the_plain_version(case):
-    bh, sq, skv, hd, causal, group = case
+    bh, sq, skv, hd, causal, group, window = case
     q, k, v, dout = _inputs(bh, sq, skv, hd, group)
-    out, lse = _forward(q, k, v, causal, group)
+    out, lse = _forward(q, k, v, causal, group, window)
     got = _emulate(q, k, v, out, lse, dout, causal=causal, group=group,
-                   terms=2)
+                   window=window, terms=2)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                       causal=causal, group=group)
+                                       causal=causal, window=window,
+                                       group=group)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
@@ -140,13 +146,14 @@ def test_one_bf16_term_parts_from_the_plain_version(case):
     """Why the kernel takes two terms: with one, P's and dS's rounding
     (up to 2^-9 of each) moves gradients near zero past atol at the main
     shapes."""
-    bh, sq, skv, hd, causal, group = case
+    bh, sq, skv, hd, causal, group, window = case
     q, k, v, dout = _inputs(bh, sq, skv, hd, group)
-    out, lse = _forward(q, k, v, causal, group)
+    out, lse = _forward(q, k, v, causal, group, window)
     got = _emulate(q, k, v, out, lse, dout, causal=causal, group=group,
-                   terms=1)
+                   window=window, terms=1)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                       causal=causal, group=group)
+                                       causal=causal, window=window,
+                                       group=group)
     bad = {name: _violations(g, w)
            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
     assert all(n > 0 for n in bad.values()), bad
@@ -156,19 +163,19 @@ def test_one_bf16_term_parts_from_the_plain_version(case):
 def test_two_bf16_terms_hold_jax_grad_of_attend_block(case):
     """Against ``jax.vjp`` of the reference's attention on the same bf16
     values in fp32: q ``[1, Sq, KV, G, HD]`` (query head ``kv * G + g``), k
-    and v ``[1, Skv, KV, HD]``, the causal mask as a boolean ``[Sq, Skv]``.
+    and v ``[1, Skv, KV, HD]``, the causal (and window's) mask as a boolean
+    ``[Sq, Skv]``.
     The emulation takes the forward's output in fp32 here, as
     ``test_flash_attention_bwd_ref_matches_jax_grad`` does: JAX's gradient
     reads its own unrounded output, and the bf16 output the kernel reads
     in training moves D by one rounding, which is the forward's, not the
     backward's."""
-    bh, sq, skv, hd, causal, group = case
+    bh, sq, skv, hd, causal, group, window = case
     q, k, v, dout = _inputs(bh, sq, skv, hd, group, seed=9)
-    out = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                  causal=causal, group=group)
-    lse = ref.flash_attention_lse_ref(q, k, causal=causal, group=group)
-    got = _emulate(q, k, v, out, lse, dout, causal=causal, group=group,
-                   terms=2)
+    kw = dict(causal=causal, window=window, group=group)
+    out = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    lse = ref.flash_attention_lse_ref(q, k, **kw)
+    got = _emulate(q, k, v, out, lse, dout, terms=2, **kw)
     kv = bh // group
 
     def heads_last(t):   # [BH, S, HD] -> [1, S, KV, G, HD]
@@ -176,7 +183,7 @@ def test_two_bf16_terms_hold_jax_grad_of_attend_block(case):
                            2, 0)[None]
 
     mask = jnp.asarray(ref.attention_mask(sq, skv, causal=causal,
-                                          window=0).numpy())
+                                          window=window).numpy())
     _, vjp = jax.vjp(
         lambda a, b, c: _attend_block(a, b, c, mask, 1.0 / math.sqrt(hd)),
         jnp.asarray(heads_last(q)),

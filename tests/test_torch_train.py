@@ -10,7 +10,10 @@ the same numpy weights, states and batches go to both sides.  Tolerances:
   remat full, dots and none: 1e-4 relative to the leaf's largest entry
   (fp32 products and sums in other orders through every layer; the port's
   attention keeps its probabilities in fp32, as the reference does in
-  fp32 configs).
+  fp32 configs).  The recurrent models too: ``rwkv6-7b`` (the chunked
+  recurrence, 3 chunks of 8) and ``recurrentgemma-2b`` (RG-LRU layers and
+  local attention at S = 24 past its reduced window of 16), through the
+  plain backwards of ``tests/test_torch_recurrent_train.py``.
 * one ``adamw.update`` from the same state, fp32, bf16 and int8 moments,
   and ``lr_schedule`` at warm-up, middle and end: 1e-6 (one fp32 step in
   the reference's order of operations); the int8 moments' quantize and
@@ -148,7 +151,8 @@ def test_cross_entropy_matches_reference(onehot):
 
 @pytest.mark.parametrize("remat", ["full", "dots", "none"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "internlm2-20b-g6",
-                                  "musicgen-medium"])
+                                  "musicgen-medium", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
 def test_loss_and_gradients_match_reference(arch, remat):
     cfg = _cfg(arch, remat=remat)
     ref_model = RefModel(cfg)
@@ -503,6 +507,9 @@ BWD_CASES = [  # bh, sq, skv, hd, causal, window, group
     (12, 33, 33, 16, True, 0, 6),
     (4, 30, 21, 16, True, 0, 2),
     (4, 40, 12, 16, True, 4, 1),      # rows 15.. see no key
+    (2, 30, 30, 16, True, 1, 1),      # window 1: a row sees itself
+    (4, 40, 40, 16, True, 16, 2),     # the reduced models' window
+    (2, 30, 30, 16, True, 64, 1),     # a window past S: the causal result
 ]
 
 
@@ -532,14 +539,19 @@ def test_flash_attention_bwd_ref_matches_autograd(case):
                                 group=group), leaves, do)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-    if window == 0:
-        # the differentiable op on the CPU: the Function's wiring
-        fn = ops.flash_attention(*leaves, causal=causal, group=group)
-        via_op = torch.autograd.grad(fn, leaves, do)
-        for g, w in zip(via_op, got):
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-        assert all(ops.launch_count(n) == 0 for n in ops.KERNELS)
-    else:
+    # the differentiable op on the CPU: the Function's wiring
+    fn = ops.flash_attention(*leaves, causal=causal, window=window,
+                             group=group)
+    via_op = torch.autograd.grad(fn, leaves, do)
+    for g, w in zip(via_op, got):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert all(ops.launch_count(n) == 0 for n in ops.KERNELS)
+    if window >= sq:
+        causal_grads = torch.autograd.grad(
+            ops.flash_attention(*leaves, causal=causal, group=group),
+            leaves, do)
+        assert all(torch.equal(g, w) for g, w in zip(via_op, causal_grads))
+    elif window and sq > skv + window - 1:
         assert bool(torch.isneginf(lse).any())
         assert float(got[0][torch.isneginf(lse)].abs().max()) == 0.0
 
@@ -574,52 +586,6 @@ def test_flash_attention_lse_ref_matches_logsumexp():
     want = jax.nn.logsumexp(jnp.asarray(s), axis=-1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# what cannot train yet raises
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
-def test_training_a_recurrent_model_raises(arch):
-    cfg = reduced(arch, dtype="float32", num_layers=2) if arch == "rwkv6-7b" \
-        else reduced(arch, dtype="float32")
-    model = Model(cfg, device="cpu")
-    params = model.init(model.generator(0))
-    batch = _torch(_batch(cfg, b=1, s=16))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        microbatch.value_and_grad(model.loss, params, batch)
-
-
-def test_kernels_without_a_backward_refuse_grad():
-    g = torch.Generator().manual_seed(0)
-    r, k, v = (torch.randn((1, 2, 16, 64), generator=g) for _ in range(3))
-    logw = -torch.rand((1, 2, 16, 64), generator=g)
-    u = torch.randn((2, 64), generator=g)
-    a = torch.rand((1, 8, 32), generator=g)
-    b = torch.randn((1, 8, 32), generator=g)
-    h0 = torch.zeros((1, 32))
-    gates = [torch.randn((32,), generator=g) for _ in range(4)]
-    lam = torch.rand((32,), generator=g)
-    calls = {
-        "rwkv6_chunked": lambda x: ops.rwkv6_chunked(x, k, v, logw, u,
-                                                     chunk=16),
-        "rglru_scan": lambda x: ops.rglru_scan(x, b, h0),
-        "rglru_gated_scan": lambda x: ops.rglru_gated_scan(
-            x, *gates, lam, h0),
-    }
-    inputs = {"rwkv6_chunked": r, "rglru_scan": a, "rglru_gated_scan": b}
-    for name, call in calls.items():
-        x = inputs[name].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match=name):
-            call(x)
-        with torch.no_grad():
-            call(x)                       # serving: no gradient asked
-        call(inputs[name])                # no input requires one
-    q = torch.randn((2, 16, 16), generator=g, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.flash_attention(q, q.detach(), q.detach(), window=4)
 
 
 # ---------------------------------------------------------------------------
