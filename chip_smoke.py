@@ -1243,8 +1243,10 @@ def _off_16_bytes(t):
 
 
 def _flash_bwd_split(fn, reps: int = 3):
-    """Device ms a call of ``fn`` by the backward's three kernels (D,
-    dK/dV, dQ), summed by ``torch.profiler`` over ``reps`` calls."""
+    """Device ms a call of ``fn`` by the backward's kernels (D, dK/dV, dQ),
+    summed by ``torch.profiler`` over ``reps`` calls; where the HD-256
+    tensor-core body adds dK's and dV's partials, that launch is part of
+    dK/dV and is also shown alone ("dK/dV partial sum")."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1261,8 +1263,13 @@ def _flash_bwd_split(fn, reps: int = 3):
                 "dQ" if "flash_bwd_dq" in e.name else
                 "D" if ("flash_bwd_rows" in e.name
                         or "flash_bwd_delta" in e.name) else None)
-        if part is not None:
-            split[part] += (e.time_range.end - e.time_range.start) / 1e3
+        if part is None:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        split[part] += ms
+        if "flash_bwd_dkdv_sum" in e.name:
+            split["dK/dV partial sum"] = split.get("dK/dV partial sum",
+                                                   0.0) + ms
     if not all(split.values()):
         raise AssertionError(f"the profiler missed a backward kernel: {split}")
     return {k: v / reps for k, v in split.items()}
@@ -1271,7 +1278,9 @@ def _flash_bwd_split(fn, reps: int = 3):
 def check_tensor_core_bwd_spills(log: str) -> None:
     """Phase 2: the registers and spills ptxas reports for each of
     ``flash_attention_bwd.cu``'s tensor-core kernels (``flash_bwd_*`` with
-    ``wgmma`` or ``rows`` in its name); any spill fails."""
+    ``wgmma`` or ``rows`` in its name: rows and dQ at HD 32, 64, 128 and
+    256, dK/dV at HD 32, 64 and 128, HD 256's split dK/dV); any spill
+    fails."""
     import re
 
     entry, seen = None, {}
@@ -1290,12 +1299,14 @@ def check_tensor_core_bwd_spills(log: str) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             seen.setdefault(entry, {})["registers"] = int(m.group(1))
-    if len(seen) != 9:  # three kernels at HD 32, 64 and 128
+    if len(seen) != 12:
         raise AssertionError(f"ptxas reported {len(seen)} tensor-core "
-                             "backward kernels, not 9")
+                             "backward kernels, not 12")
     for name, got in sorted(seen.items()):
-        short = re.sub(r"^.*?(flash_bwd_\w+?_kernel)ILi(\d+)E.*$",
-                       r"\1<\2>", name)
+        short = re.sub(r"^.*?(flash_bwd_\w+?_kernel)(?:ILi(\d+)E)?.*$",
+                       lambda m: m.group(1) + (f"<{m.group(2)}>"
+                                               if m.group(2) else ""),
+                       name)
         print(f"  flash_attention_bwd tensor-core kernel {short}: "
               f"{got['registers']} registers at launch, spill stores and "
               f"loads {got['spill']} bytes")
@@ -1446,9 +1457,9 @@ def check_flash_bwd_kernel(ops, ref):
 
 # phase 3g, windowed: recurrentgemma-2b's LOCAL layer at one training
 # microbatch (batch 1 × 4,096 tokens: 10 query heads of 256 on one KV head,
-# window 2,048, causal; the CUDA-core body) and a tensor-core case, beside
-# window 1 and windows past S (which must equal the causal result bit for
-# bit); bh, sq, skv, hd, causal, window, group, dtype
+# window 2,048, causal; the tensor cores, five splits of two heads) and a
+# case at HD 64, beside window 1 and windows past S (which must equal the
+# causal result bit for bit); bh, sq, skv, hd, causal, window, group, dtype
 LOCAL_BWD = (10, 4096, 4096, 256, True, 2048, 10, torch.bfloat16)
 WINDOWED_TC_BWD = (48, 2048, 2048, 64, True, 512, 1, torch.bfloat16)
 
@@ -1457,11 +1468,12 @@ def check_windowed_flash_bwd(ops, ref):
     """Phase 3g, windowed: ``flash_attention_bwd`` with a window against
     its plain version on the card, fed the forward's own windowed output
     and log-sum-exp (the lse held first against the plain one): the local
-    training shape (``LOCAL_BWD``, the CUDA-core body at HD 256), a
-    tensor-core case (``WINDOWED_TC_BWD``), window 1, a window of 100 at a
-    ragged group of 2, fp32, a window that is not causal (Sq < Skv), and
-    windows of S and past it, each of which must equal the causal
-    (window 0) result bit for bit.  At the two main shapes a second launch
+    training shape (``LOCAL_BWD``, the tensor cores at HD 256), a case at
+    HD 64 (``WINDOWED_TC_BWD``), window 1, a window of 100 at a ragged
+    group of 2, HD 256's group of 10 at a ragged Sq and a window below S,
+    fp32, a window that is not causal (Sq < Skv), and windows of S and past
+    it, each of which must equal the causal (window 0) result bit for
+    bit.  At the two main shapes a second launch
     must equal the first bit for bit.  Every case is timed beside its
     bound and beside the backward alone of autograd through
     ``scaled_dot_product_attention`` with a boolean window mask; the local
@@ -1474,6 +1486,7 @@ def check_windowed_flash_bwd(ops, ref):
     cases = [LOCAL_BWD, WINDOWED_TC_BWD,
              (8, 300, 300, 64, True, 1, 1, torch.bfloat16),
              (12, 577, 577, 128, True, 100, 2, torch.bfloat16),
+             (10, 1000, 1000, 256, True, 300, 10, torch.bfloat16),
              (8, 700, 700, 64, True, 200, 2, torch.float32),
              (6, 200, 257, 64, False, 50, 2, torch.bfloat16),
              (4, 300, 300, 128, True, 300, 2, torch.bfloat16),

@@ -36,17 +36,18 @@
 // musicgen-medium microbatch layer (q [48, 2048, 64]) 100.7 M pairs, 64.4
 // GFLOP, 0.065 ms.
 //
-// Two bodies, chosen by type and HD in the wrapper (its BODY table), which
-// passes the choice to flash_attention_bwd_launch:
+// Two bodies, chosen by type in the wrapper (its BODY table), which passes
+// the choice to flash_attention_bwd_launch:
 //
-// bf16 at HD 32, 64 and 128: the tensor cores.  Three launches:
+// bf16: the tensor cores.  Three launches at HD 32, 64 and 128, four at
+// HD 256:
 //  1. flash_bwd_rows_kernel: D and lse2 = lse * log2(e) (+inf where lse is
 //     -inf, so P = 0), one warp a row, into fp32 [BH, sq_pad] with Sq padded
 //     to 128 rows (padding: lse2 = +inf, D = 0), so that the kernels below
 //     read whole 64-row runs by bulk copy and never mask a ragged Sq.
-//  2. flash_bwd_dkdv_wgmma_kernel: one CTA of three warpgroups a (KV head,
-//     block of 128 keys); key block 0 sees the most rows under a causal
-//     mask, so the blocks start in their own order, heaviest first.
+//  2. flash_bwd_dkdv_wgmma_kernel (HD <= 128): one CTA of three warpgroups a
+//     (KV head, block of 128 keys); key block 0 sees the most rows under a
+//     causal mask, so the blocks start in their own order, heaviest first.
 //     Warpgroup 0 is the producer: one thread loads the block's k and v
 //     once by TMA, then for each query head of the group in head order and
 //     each 64-row query tile that sees the block (from tile k0 / 64 on when
@@ -64,10 +65,36 @@
 //     first key; only tiles on the causal diagonal apply the element mask
 //     (rows past Sq have P = 0 from their lse2, keys past Skv read as
 //     zeros and their rows are dropped at the store).
+//  2'. flash_bwd_dkdv_split_wgmma_kernel (HD 256): there dK and dV of 64
+//     keys are 2 x 128 fp32 registers a thread, over the 255 a thread may
+//     have, and k and v of 128 keys beside a ring of q and do fill more
+//     than the 227 KB a block may take.  So a CTA owns 64 keys, and its two
+//     consumer warpgroups split the accumulators, not the keys: warpgroup
+//     1 owns dV and forms S^T (SS) and P^T, hands P^T to warpgroup 2 through
+//     shared memory (fp32, two buffers, each behind a named barrier pair
+//     "ready" and "free"), and adds dV += P^T dO (RS, m64n256k16);
+//     warpgroup 2 owns dK, forms dP^T = V dO^T (SS), reads P^T, forms
+//     dS^T and adds dK += dS^T Q (RS).  Each issues 3 of the 6 products a
+//     pair (one SS and the two bf16 terms of one RS) and holds 128
+//     accumulators, 32 scores and 32 fragment registers (about 200 of
+//     its 240).  One KV head gives Skv / 64 CTAs (64 at recurrentgemma-2b's
+//     4,096 keys, on 132 SMs), so the group's query heads split into the
+//     fewest parts (a divisor of the group, passed by the wrapper, a
+//     function of the shape only) that launch at least 256 CTAs: at group
+//     10, five splits of two heads, 320 CTAs (the window leaves the last
+//     key blocks lighter, so two CTAs an SM balance better than one).  A
+//     split's CTA sums its heads in head order and writes its dK and dV as
+//     fp32 partials [splits, KV heads, Skv, 256] from its registers (keys
+//     past Skv dropped); then
+//  2''. flash_bwd_dkdv_sum_kernel adds each element's partials in split
+//     order, scales dK, and rounds each once to bf16.
 //  3. flash_bwd_dq_wgmma_kernel: one CTA a (query head, block of 128 rows),
 //     the heaviest (last) blocks first; the producer loads q and do once and
 //     streams 64-key k and v tiles from key 0 to the last key the block's
-//     last row sees; each consumer owns 64 rows:
+//     last row sees, each in a ring of its own (3 stages of each at HD <=
+//     128; at HD 256, 2 of k and 1 of v: a consumer releases v once dP has
+//     read it, so the next v loads while dS and dQ run); each consumer owns
+//     64 rows:
 //       S = Q K^T, dP = dO V^T (SS), P and dS in registers, dQ += dS K (RS,
 //       k MN-major).
 //     It recomputes S and dP (7 products in all against the function's 5)
@@ -75,22 +102,23 @@
 //     last tile, where keys past Skv read as zeros.
 //   Tiles are bf16, 64 (HD 32: 32) columns a box, 128-byte (64-byte) rows
 //   swizzled by TMA as wgmma reads them.  Shared memory a CTA (dK/dV, dQ):
-//   166,456 and 164,920 bytes at HD 128; 84,536 and 83,000 at HD 64;
-//   43,576 and 42,040 at HD 32; one CTA an SM.  setmaxnreg moves registers
-//   from the producer (24) to the consumers (240): at HD 128 a dK/dV
-//   consumer holds dK and dV (64 + 64 fp32), S^T and dP^T (32 + 32) and the
-//   A fragments.  Rounding: products of bf16 values are exact in fp32 and
-//   every sum is fp32; P and dS enter their products as two bf16 terms,
-//   hi = bf16(x) and lo = bf16(x - hi) (about 2^-17 of x; one bf16 term
-//   alone errs by up to 2^-9 of each weight, which parts from the fp32 plain
-//   version by more than its bf16 tolerance at the main shapes), so the
-//   RS products run twice: 10 products a pair are issued against the bound's
-//   5.  dK * scale, dV and dQ * scale are rounded once to bf16 in the
-//   epilogue and leave by TMA store.
+//   231,464 and 230,456 bytes at HD 256 (k and v 64 KB, a 2-stage ring of
+//   q and do 128 KB, their rows 1 KB and two P^T buffers 32 KB; q and do of
+//   128 rows 128 KB, the k and v rings 96 KB); 166,456 and 164,968 at HD
+//   128; 84,536 and 83,048 at HD 64; 43,576 and 42,088 at HD 32; one CTA an
+//   SM.  setmaxnreg moves registers from the producer (24) to the consumers
+//   (240): at HD 128 a dK/dV consumer holds dK and dV (64 + 64 fp32), S^T
+//   and dP^T (32 + 32) and the A fragments; a dQ consumer at HD 256 holds
+//   dQ (128), S and dP (32 + 32).  Rounding: products of bf16 values are
+//   exact in fp32 and every sum is fp32; P and dS enter their products as
+//   two bf16 terms, hi = bf16(x) and lo = bf16(x - hi) (about 2^-17 of x;
+//   one bf16 term alone errs by up to 2^-9 of each weight, which parts from
+//   the fp32 plain version by more than its bf16 tolerance at the main
+//   shapes), so the RS products run twice: 10 products a pair are issued
+//   against the bound's 5.  dK * scale, dV and dQ * scale are rounded once
+//   to bf16, in the epilogue (TMA store) or in the partial sum.
 //
-// fp32 at every HD, and bf16 at HD 256: the CUDA cores, fp32 in shared
-// memory whatever the input type (HD 256's dK and dV would not fit a
-// consumer's registers).  Three kernels, no atomics:
+// fp32: the CUDA cores, fp32 in shared memory.  Three kernels, no atomics:
 //  1. flash_bwd_delta_kernel: D, one warp a row.
 //  2. flash_bwd_dkdv_kernel: one CTA of 256 threads a (KV head, block of 64
 //     keys).  k and v stay in shared memory; the CTA loops over the group's
@@ -124,15 +152,6 @@ constexpr int kBlockK = 64;
 constexpr int kKeysPerThread = kBlockK / 16;  // 4
 constexpr int kLdP = kBlockK + 1;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
@@ -154,15 +173,15 @@ struct Geo {
 
 // rows [row0, row0 + n) of a [len, HD] matrix into shared memory as fp32,
 // rows past `len` as zeros
-template <int HD, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int64_t row0, int n, int64_t len) {
   constexpr int LD = Geo<HD>::LD;
   for (int idx = threadIdx.x; idx < n * HD; idx += kThreads) {
     const int r = idx / HD;
     const int c = idx % HD;
     const int64_t row = row0 + r;
-    dst[r * LD + c] = row < len ? to_f32(src[row * HD + c]) : 0.f;
+    dst[r * LD + c] = row < len ? src[row * HD + c] : 0.f;
   }
 }
 
@@ -246,9 +265,10 @@ __device__ __forceinline__ void scores(const float* s_q, const float* s_do,
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ out,
+                       const float* __restrict__ dout,
                        float* __restrict__ delta, int64_t rows) {
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
@@ -256,21 +276,23 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   const int lane = threadIdx.x % 32;
   float acc = 0.f;
   for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f32(out[row * HD + d]), to_f32(dout[row * HD + d]), acc);
+    acc = fmaf(out[row * HD + d], dout[row * HD + d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int64_t sq, int64_t skv, int group,
-                      int causal, int64_t window, float scale) {
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int64_t sq, int64_t skv,
+                      int group, int causal, int64_t window, float scale) {
   using G = Geo<HD>;
   constexpr int LD = G::LD;
   constexpr int BQ = G::BQ;
@@ -312,8 +334,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0) nqb = min64(nqb, (k0 + kBlockK + window - 2) / BQ + 1);
   for (int t = 0; t < group; ++t) {
     const int64_t bh = g * group + t;
-    const T* qh = q + bh * sq * HD;
-    const T* doh = dout + bh * sq * HD;
+    const float* qh = q + bh * sq * HD;
+    const float* doh = dout + bh * sq * HD;
     for (int64_t qb = qb0; qb < nqb; ++qb) {
       const int64_t q0 = qb * BQ;
       __syncthreads();  // the previous block's products have read smem
@@ -359,8 +381,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkh = dk + g * skv * HD;
-  T* dvh = dv + g * skv * HD;
+  float* dkh = dk + g * skv * HD;
+  float* dvh = dv + g * skv * HD;
 #pragma unroll
   for (int a = 0; a < kKeysPerThread; ++a) {
     const int64_t key = k0 + tr + 16 * a;
@@ -370,18 +392,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int64_t at = key * HD + VEC * tc + 16 * VEC * c + e;
-        store(&dkh[at], ak[a][c][e] * scale);
-        store(&dvh[at], av[a][c][e]);
+        dkh[at] = ak[a][c][e] * scale;
+        dvh[at] = av[a][c][e];
       }
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int64_t sq, int64_t skv, int group, int causal,
                     int64_t window, float scale) {
   using G = Geo<HD>;
@@ -408,8 +432,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t g = bh / group;
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
-  const T* kh = k + g * skv * HD;
-  const T* vh = v + g * skv * HD;
+  const float* kh = k + g * skv * HD;
+  const float* vh = v + g * skv * HD;
 
   stage<HD>(s_q, q + bh * sq * HD, q0, BQ, sq);
   stage<HD>(s_do, dout + bh * sq * HD, q0, BQ, sq);
@@ -464,7 +488,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqh = dq + bh * sq * HD;
+  float* dqh = dq + bh * sq * HD;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int64_t row = q0 + tr + 16 * i;
@@ -473,33 +497,34 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NV; ++c)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        store(&dqh[row * HD + VEC * tc + 16 * VEC * c + e],
-              acc[i][c][e] * scale);
+        dqh[row * HD + VEC * tc + 16 * VEC * c + e] =
+            acc[i][c][e] * scale;
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const float* lse, const void* dout,
                    float* delta, void* dq, void* dk, void* dv, int64_t bh,
                    int64_t sq, int64_t skv, int group, int causal,
                    int64_t window, cudaStream_t stream) {
   using G = Geo<HD>;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
+  const float* tout = static_cast<const float*>(out);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
 
   const int64_t rows = bh * sq;
-  flash_bwd_delta_kernel<HD, T>
+  flash_bwd_delta_kernel<HD>
       <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)),
-         kThreads, 0, stream>>>(static_cast<const T*>(out), tdo, delta, rows);
+         kThreads, 0, stream>>>(tout, tdo, delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   if (skv > 0) {
-    auto kdkdv = flash_bwd_dkdv_kernel<HD, T>;
+    auto kdkdv = flash_bwd_dkdv_kernel<HD>;
     err = cudaFuncSetAttribute(kdkdv,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(G::DKDV_SMEM));
@@ -507,26 +532,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const dim3 grid_kv(static_cast<unsigned>(bh / group),
                        static_cast<unsigned>((skv + kBlockK - 1) / kBlockK));
     kdkdv<<<grid_kv, kThreads, G::DKDV_SMEM, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        sq, skv, group, causal, window, scale);
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), sq, skv, group, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
 
-  auto kdq = flash_bwd_dq_kernel<HD, T>;
+  auto kdq = flash_bwd_dq_kernel<HD>;
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(G::DQ_SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid_q(static_cast<unsigned>(bh),
                     static_cast<unsigned>((sq + G::BQ - 1) / G::BQ));
   kdq<<<grid_q, kThreads, G::DQ_SMEM, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, skv, group,
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), sq, skv, group,
       causal, window, scale);
   return cudaGetLastError();
 }
 
 
-// ---- bf16 at HD 32, 64 and 128: the tensor cores ---------------------------
+// ---- bf16: the tensor cores ------------------------------------------------
 
 constexpr int kTcThreads = 384;  // a producer and two consumer warpgroups
 constexpr int kTcBlock = 128;    // keys of a dK/dV CTA, rows of a dQ CTA
@@ -545,14 +570,33 @@ struct Tc {
   static constexpr uint32_t BLOCK = 2 * TILE;            // 128 x HD
   static constexpr uint32_t ROWS = 2 * kTcTile * 4;      // lse2 and D, 64 rows
   static constexpr uint32_t BARS = 8 * (1 + 2 * kTcStages);
-  // 1024 bytes of slack to align the tiles; dK/dV: the k and v blocks, the
-  // ring's q and do tiles, its lse2 and D rows, the mbarriers
+  // 1024 bytes of slack to align the tiles; dK/dV (HD <= 128): the k and v
+  // blocks, the ring's q and do tiles, its lse2 and D rows, the mbarriers
   static constexpr size_t DKDV_SMEM =
       1024 + 2 * BLOCK + 2 * kTcStages * TILE + kTcStages * ROWS + BARS;
-  // dQ: the q and do blocks, the ring's k and v tiles, the mbarriers
+  // dQ's k and v rings: at HD 256 two k stages and one v stage, so that the
+  // q and do blocks fit beside them
+  static constexpr int KST = HD == 256 ? 2 : kTcStages;
+  static constexpr int VST = HD == 256 ? 1 : kTcStages;
+  // dQ: the q and do blocks, the k and v rings, their mbarriers
   static constexpr size_t DQ_SMEM =
-      1024 + 2 * BLOCK + 2 * kTcStages * TILE + BARS;
+      1024 + 2 * BLOCK + (KST + VST) * TILE + 8 * (1 + 2 * KST + 2 * VST);
 };
+
+// HD 256's dK/dV (flash_bwd_dkdv_split_wgmma_kernel): 64 keys, a ring of
+// two q and do stages, two fp32 P^T buffers [64 x 64] between the
+// consumers
+constexpr int kSplitStages = 2;
+constexpr uint32_t kPBytes = kTcTile * kTcTile * 4;
+struct Split {
+  using G = Tc<256>;
+  static constexpr size_t SMEM = 1024 + 2 * G::TILE +
+                                 2 * kSplitStages * G::TILE +
+                                 kSplitStages * G::ROWS + 2 * kPBytes +
+                                 8 * (1 + 2 * kSplitStages);
+};
+static_assert(Split::SMEM <= 232448 && Tc<256>::DQ_SMEM <= 232448,
+              "HD 256's kernels take at most 227 KB of shared memory");
 
 // Thread t of a warpgroup holds element e of a wgmma accumulator's 8-column
 // group j at row 16 (t / 32 % 4) + t % 32 / 4 + 8 (e / 2) and column
@@ -870,12 +914,299 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// Named barriers 1-4 of the split kernel: P^T's buffer b is "ready" once
+// warpgroup 1 has written it and "free" once warpgroup 2 has read it; each
+// pairs one warpgroup's bar.arrive with the other's bar.sync (256 threads)
+constexpr int kPReady = 1;
+constexpr int kPFree = 3;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// dK and dV (fp32 partials) of one KV head's block of 64 keys over one split
+// of its group's query heads, at HD 256.  Warpgroup 0 produces: one thread
+// loads the block's k and v once, then, for each query head of the split in
+// order and each 64-row query tile that sees the block, the q and do tiles
+// and their lse2 and D rows into a ring of kSplitStages.  Both consumers
+// take every tile:
+//   warpgroup 1: S^T = K Q^T (SS), P^T = exp2(S^T scale log2 e - lse2)
+//                (the mask on edge tiles only), P^T into buffer b, then
+//                dV += P^T dO (RS: P^T as bf16 hi + lo, do MN-major);
+//   warpgroup 2: dP^T = V dO^T (SS), P^T from buffer b, dS^T = P^T (dP^T -
+//                D), dK += dS^T Q (RS: dS^T as bf16 hi + lo, q MN-major);
+// then each writes its accumulator (dV, or dK unscaled) as this split's fp32
+// partial [kvh, skv, 256] from its registers, dropping keys past Skv.
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const float* __restrict__ lse2,
+                                  const float* __restrict__ delta,
+                                  float* __restrict__ dk_part,
+                                  float* __restrict__ dv_part, int64_t sq,
+                                  int64_t sq_pad, int64_t skv, int group,
+                                  int splits, int causal, int64_t window,
+                                  float scale_log2) {
+  constexpr int HD = 256;
+  using B = Box<HD>;
+  using G = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u;               // one tile
+  const uint32_t s_v = s_k + G::TILE;                       // one tile
+  const uint32_t s_q = s_v + G::TILE;                       // [kSplitStages]
+  const uint32_t s_do = s_q + kSplitStages * G::TILE;       // [kSplitStages]
+  const uint32_t s_p = s_do + kSplitStages * G::TILE;       // [2] P^T
+  const uint32_t s_rows = s_p + 2 * kPBytes;                // [kSplitStages]
+  const uint32_t bar_kv = s_rows + kSplitStages * G::ROWS;
+  const uint32_t bar_full = bar_kv + 8;                     // [kSplitStages]
+  const uint32_t bar_empty = bar_full + 8 * kSplitStages;   // [kSplitStages]
+
+  const int kvh = gridDim.x / splits;
+  const int g = blockIdx.x / splits;
+  const int split = blockIdx.x % splits;
+  const int heads = group / splits;           // query heads a split
+  // under a causal mask the first key blocks see the most rows: they start
+  // first as they are
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kTcTile;
+  // the query tiles with a row that sees a key of the block: from tile
+  // k0 / 64 on when causal, to the one holding its last key + window - 1
+  // when windowed
+  const int64_t qt0 = causal ? k0 / kTcTile : 0;
+  int64_t nqt = (sq + kTcTile - 1) / kTcTile;
+  if (window > 0) nqt = min64(nqt, (k0 + kTcTile + window - 2) / kTcTile + 1);
+  const int tiles = nqt > qt0 ? heads * static_cast<int>(nqt - qt0) : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kSplitStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && tiles > 0) {
+      mbar_expect_tx(bar_kv, 2 * G::TILE);
+      for (int cb = 0; cb < B::NCB; ++cb) {
+        tma_load(s_k + cb * B::BYTES, &tk, cb * B::C, static_cast<int>(k0), g,
+                 bar_kv);
+        tma_load(s_v + cb * B::BYTES, &tv, cb * B::C, static_cast<int>(k0), g,
+                 bar_kv);
+      }
+      int t = 0;
+      for (int hh = 0; hh < heads; ++hh) {
+        const int64_t bh =
+            static_cast<int64_t>(g) * group + split * heads + hh;
+        for (int64_t qt = qt0; qt < nqt; ++qt, ++t) {
+          const int st = t % kSplitStages;
+          const int round = t / kSplitStages;
+          // the consumers have released this stage's previous tile
+          if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
+          const uint32_t full = bar_full + 8 * st;
+          mbar_expect_tx(full, 2 * G::TILE + G::ROWS);
+          const int row = static_cast<int>(qt * kTcTile);
+          for (int cb = 0; cb < B::NCB; ++cb) {
+            const uint32_t off = st * G::TILE + cb * B::BYTES;
+            tma_load(s_q + off, &tq, cb * B::C, row, static_cast<int>(bh),
+                     full);
+            tma_load(s_do + off, &tdo, cb * B::C, row, static_cast<int>(bh),
+                     full);
+          }
+          const int64_t at = bh * sq_pad + qt * kTcTile;
+          bulk_load(s_rows + st * G::ROWS, lse2 + at, G::ROWS / 2, full);
+          bulk_load(s_rows + st * G::ROWS + G::ROWS / 2, delta + at,
+                    G::ROWS / 2, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 owns dV, warpgroup 2 dK ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const bool owns_dv = wg == 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    // a thread's keys lie 16 warp + lane / 4 (and + 8) past k0, its query
+    // columns col (and col + 1, + 8 j) past a tile's first row
+    const int col = 2 * (lane % 4);
+    const int diag = 16 * warp + lane / 4 - col;
+
+    float acc[HD / 2];  // dV or dK [64 keys x HD], the accumulator layout
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    if (tiles > 0) mbar_wait(bar_kv, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int st = t % kSplitStages;
+      const int b = t % 2;                  // P^T's buffer
+      const int64_t qt = qt0 + t % (nqt - qt0);
+      // the tile's first row less the block's first key
+      const int lag = static_cast<int>(qt * kTcTile - k0);
+      mbar_wait(bar_full + 8 * st, (t / kSplitStages) & 1);
+      const uint32_t qs = s_q + st * G::TILE;
+      const uint32_t dos = s_do + st * G::TILE;
+      const uint32_t rows = s_rows + st * G::ROWS + 4 * col;
+      const uint32_t pb = s_p + b * kPBytes + 16 * tid;
+
+      // S^T = K Q^T (dV's warpgroup) or dP^T = V dO^T (dK's) over HD in
+      // steps of 16: x[4 j + e] at key k0 + 16 warp + lane / 4 + 8 (e / 2),
+      // query row qt * 64 + 8 j + col + e % 2
+      float x[32];
+      const uint32_t a_tile = owns_dv ? s_k : s_v;
+      const uint32_t b_tile = owns_dv ? qs : dos;
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < B::NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < B::C / 16; ++kk)
+          wgmma_ss(x,
+                   desc(a_tile + cb * B::BYTES + 32 * kk, 16, 8 * B::SW,
+                        B::LAYOUT),
+                   desc(b_tile + cb * B::BYTES + 32 * kk, 16, 8 * B::SW,
+                        B::LAYOUT),
+                   cb + kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      if (owns_dv) {
+        // P^T; the mask on the causal and window edges only (rows past Sq
+        // have lse2 = +inf and keys past Skv are dropped at the store)
+        const bool edge = (causal && lag < kTcTile - 1) ||
+                          (window > 0 && lag + kTcTile - 1 >= window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = lds_f2(rows + 32 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p =
+                exp2f(fmaf(x[4 * j + e], scale_log2, -(e % 2 ? l.y : l.x)));
+            // key - row + lag: masked past the row (causal) and at window or
+            // more before it
+            const int rel = diag + 8 * (e / 2) - e % 2 - 8 * j;
+            if (edge && ((causal && rel > lag) ||
+                         (window > 0 && lag - rel >= window)))
+              p = 0.f;
+            x[4 * j + e] = p;
+          }
+        }
+        // buffer b once dK's warpgroup has read it two tiles ago; thread
+        // tid's 32 values in 8 runs of 16 bytes, 2 KB apart
+        if (t >= 2) named_sync(kPFree + b);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           pb + 2048 * j),
+                       "f"(x[4 * j]), "f"(x[4 * j + 1]), "f"(x[4 * j + 2]),
+                       "f"(x[4 * j + 3])
+                       : "memory");
+        named_arrive(kPReady + b);
+      } else {
+        // dS^T = P^T (dP^T - D), P^T written by the same thread index of
+        // dV's warpgroup (the two accumulator layouts are one)
+        named_sync(kPReady + b);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p[4];
+          asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(p[0]), "=f"(p[1]), "=f"(p[2]), "=f"(p[3])
+                       : "r"(pb + 2048 * j)
+                       : "memory");
+          const float2 d = lds_f2(rows + G::ROWS / 2 + 32 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[4 * j + e] = p[e] * (x[4 * j + e] - (e % 2 ? d.y : d.x));
+        }
+        named_arrive(kPFree + b);
+      }
+
+      // dV += P^T dO or dK += dS^T Q, the operand as bf16 hi + lo: the rows
+      // of do and q are the reduction, HD contiguous, so B is MN-major
+      uint32_t x_hi[4][4], x_lo[4][4];
+      split_bf16(x, x_hi, x_lo);
+      const uint32_t rhs = owns_dv ? dos : qs;
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        const uint64_t d = desc(rhs + kt * 16 * B::SW, B::BYTES, 8 * B::SW,
+                                B::LAYOUT);
+        wgmma_rs(acc, x_hi[kt], d);
+        wgmma_rs(acc, x_lo[kt], d);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(x_hi);
+      fence_regs(x_lo);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+    // dV's warpgroup takes the last arrivals on "free", so that every
+    // arrive meets its sync
+    if (owns_dv)
+      for (int t = tiles > 2 ? tiles - 2 : 0; t < tiles; ++t)
+        named_sync(kPFree + t % 2);
+
+    // this split's partial, fp32, straight from the accumulator: thread
+    // tid's keys k0 + 16 warp + lane / 4 (+ 8), columns 8 j + col (+ 1)
+    float* part = (owns_dv ? dv_part : dk_part) +
+                  ((static_cast<int64_t>(split) * kvh + g) * skv) * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t key = k0 + 16 * warp + lane / 4 + 8 * r;
+      if (key >= skv) continue;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(&part[key * HD + 8 * j + col]) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dk = scale * sum of the splits' partials and dv = their sum, added in
+// split order and rounded once to bf16; part is [2][splits][n] (dK's, then
+// dV's), n = kvh * skv * 256 elements of each, 4 a thread
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_sum_kernel(const float* __restrict__ part,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int64_t n,
+                          int splits, float scale) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  const int64_t at = is_v ? i - n : i;
+  const float* src = part + (is_v ? splits * n : 0) + at;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < splits; ++s) {
+    const float4 b = *reinterpret_cast<const float4*>(src + s * n);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  const float m = is_v ? 1.f : scale;
+  const uint2 out = make_uint2(pack_bf16(a.x * m, a.y * m),
+                               pack_bf16(a.z * m, a.w * m));
+  *reinterpret_cast<uint2*>((is_v ? dv : dk) + at) = out;
+}
+
 // dQ of one query head's block of 128 rows.  Warpgroup 0 produces: one
 // thread loads the q and do blocks once, then the 64-key k and v tiles from
-// key 0 to the last key the block's last row sees, into a ring of
-// kTcStages.  Warpgroup 1 + h owns rows q0 + 64 h ... + 63; per tile it
-// computes
-//   S  = Q K^T, dP = dO V^T   (SS),
+// key 0 to the last key the block's last row sees, each into its own ring
+// (KST and VST stages).  Warpgroup 1 + h owns rows q0 + 64 h ... + 63; per
+// tile it computes
+//   S  = Q K^T, dP = dO V^T   (SS; v's stage is released once dP is read),
 //   P  = exp2(S scale log2 e - lse2), dS = P (dP - D)  (in registers; the
 //        mask on the causal edge and the ragged last tile only),
 //   dQ += dS K                (RS: dS as bf16 hi + lo, k MN-major),
@@ -893,15 +1224,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           int64_t window, float scale_log2, float scale) {
   using B = Box<HD>;
   using G = Tc<HD>;
+  constexpr int KST = G::KST;
+  constexpr int VST = G::VST;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t s_q = (raw + 1023) & ~1023u;            // [2 halves] tiles
   const uint32_t s_do = s_q + G::BLOCK;                  // [2 halves] tiles
-  const uint32_t s_k = s_do + G::BLOCK;                  // [kTcStages] tiles
-  const uint32_t s_v = s_k + kTcStages * G::TILE;        // [kTcStages] tiles
-  const uint32_t bar_q = s_v + kTcStages * G::TILE;
-  const uint32_t bar_full = bar_q + 8;                   // [kTcStages]
-  const uint32_t bar_empty = bar_full + 8 * kTcStages;   // [kTcStages]
+  const uint32_t s_k = s_do + G::BLOCK;                  // [KST] tiles
+  const uint32_t s_v = s_k + KST * G::TILE;              // [VST] tiles
+  const uint32_t bar_q = s_v + VST * G::TILE;
+  const uint32_t full_k = bar_q + 8;                     // [KST]
+  const uint32_t empty_k = full_k + 8 * KST;             // [KST]
+  const uint32_t full_v = empty_k + 8 * KST;             // [VST]
+  const uint32_t empty_v = full_v + 8 * VST;             // [VST]
 
   const int bh = blockIdx.x;
   // the heaviest query blocks (last, under a causal mask) start first
@@ -919,9 +1254,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kTcStages; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    for (int s = 0; s < KST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 2 * 128);  // every consumer thread
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -941,17 +1280,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           tma_load(s_do + off, &tdo, cb * B::C, row, bh, bar_q);
         }
       for (int n = 0; n < n_tiles; ++n) {
-        const int st = n % kTcStages;
-        const int round = n / kTcStages;
-        if (round > 0) mbar_wait(bar_empty + 8 * st, (round - 1) & 1);
-        const uint32_t full = bar_full + 8 * st;
-        mbar_expect_tx(full, 2 * G::TILE);
         const int key = kTcTile * (t0 + n);
-        for (int cb = 0; cb < B::NCB; ++cb) {
-          const uint32_t off = st * G::TILE + cb * B::BYTES;
-          tma_load(s_k + off, &tk, cb * B::C, key, g, full);
-          tma_load(s_v + off, &tv, cb * B::C, key, g, full);
-        }
+        // each ring's stage once the consumers have released its last tile
+        const int sk = n % KST, sv = n % VST;
+        if (n >= KST) mbar_wait(empty_k + 8 * sk, (n / KST - 1) & 1);
+        mbar_expect_tx(full_k + 8 * sk, G::TILE);
+        for (int cb = 0; cb < B::NCB; ++cb)
+          tma_load(s_k + sk * G::TILE + cb * B::BYTES, &tk, cb * B::C, key, g,
+                   full_k + 8 * sk);
+        if (n >= VST) mbar_wait(empty_v + 8 * sv, (n / VST - 1) & 1);
+        mbar_expect_tx(full_v + 8 * sv, G::TILE);
+        for (int cb = 0; cb < B::NCB; ++cb)
+          tma_load(s_v + sv * G::TILE + cb * B::BYTES, &tv, cb * B::C, key, g,
+                   full_v + 8 * sv);
       }
     }
   } else {
@@ -976,16 +1317,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     if (n_tiles > 0) mbar_wait(bar_q, 0);
     for (int n = 0; n < n_tiles; ++n) {
-      const int st = n % kTcStages;
+      const int sk = n % KST, sv = n % VST;
       const int64_t k0 = static_cast<int64_t>(t0 + n) * kTcTile;
-      mbar_wait(bar_full + 8 * st, (n / kTcStages) & 1);
+      mbar_wait(full_k + 8 * sk, (n / KST) & 1);
       if ((causal && k0 > rows + kTcTile - 1) ||
           (window > 0 && rows - (k0 + kTcTile - 1) >= window)) {
-        mbar_arrive(bar_empty + 8 * st);  // no row here sees these keys
+        // no row here sees these keys: release both stages once loaded
+        mbar_wait(full_v + 8 * sv, (n / VST) & 1);
+        mbar_arrive(empty_v + 8 * sv);
+        mbar_arrive(empty_k + 8 * sk);
         continue;
       }
-      const uint32_t ks = s_k + st * G::TILE;
-      const uint32_t vs = s_v + st * G::TILE;
+      const uint32_t ks = s_k + sk * G::TILE;
+      const uint32_t vs = s_v + sv * G::TILE;
 
       // S = Q K^T and dP = dO V^T: s[4 j + e] at row + 8 (e / 2), key
       // k0 + 8 j + col + e % 2
@@ -1000,6 +1344,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    desc(ks + cb * B::BYTES + 32 * kk, 16, 8 * B::SW, B::LAYOUT),
                    cb + kk > 0);
       wgmma_commit();
+      mbar_wait(full_v + 8 * sv, (n / VST) & 1);
 #pragma unroll
       for (int cb = 0; cb < B::NCB; ++cb)
 #pragma unroll
@@ -1032,6 +1377,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       wgmma_wait<0>();
       fence_regs(dp);
+      mbar_arrive(empty_v + 8 * sv);  // dP has read v
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dd[(i / 2) % 2]);
 
@@ -1051,7 +1397,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(dq);
       fence_regs(ds_hi);
       fence_regs(ds_lo);
-      mbar_arrive(bar_empty + 8 * st);
+      mbar_arrive(empty_k + 8 * sk);
     }
 
     // dQ scale as bf16 over this half's (spent) q tile, then one TMA store
@@ -1072,9 +1418,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* out, const float* lse, const void* dout,
-                         float* scratch, void* dq, void* dk, void* dv,
-                         int64_t bh, int64_t sq, int64_t skv, int group,
-                         int causal, int64_t window, cudaStream_t stream) {
+                         float* scratch, float* partials, void* dq, void* dk,
+                         void* dv, int64_t bh, int64_t sq, int64_t skv,
+                         int group, int splits, int causal, int64_t window,
+                         cudaStream_t stream) {
   using G = Tc<HD>;
   if (skv == 0)  // no key: dq is 0, and dk and dv are empty
     return cudaMemsetAsync(dq, 0, static_cast<size_t>(bh * sq * HD) * 2,
@@ -1111,15 +1458,38 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   const float scale_log2 = scale * kLog2e;
 
-  auto kdkdv = flash_bwd_dkdv_wgmma_kernel<HD>;
-  err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(G::DKDV_SMEM));
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv(static_cast<unsigned>(kvh),
-                     static_cast<unsigned>((skv + kTcBlock - 1) / kTcBlock));
-  kdkdv<<<grid_kv, kTcThreads, G::DKDV_SMEM, stream>>>(
-      tq, tk, tv, tdo, tdk, tdv, lse2, delta, sq, sq_pad, group, causal,
-      window, scale_log2, scale);
+  if constexpr (HD == 256) {
+    // dK and dV as `splits` fp32 partials, then their sum
+    auto ksplit = flash_bwd_dkdv_split_wgmma_kernel;
+    err = cudaFuncSetAttribute(ksplit,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Split::SMEM));
+    if (err != cudaSuccess) return err;
+    const dim3 grid_kv(static_cast<unsigned>(kvh * splits),
+                       static_cast<unsigned>((skv + kTcTile - 1) / kTcTile));
+    const int64_t n = kvh * skv * HD;
+    ksplit<<<grid_kv, kTcThreads, Split::SMEM, stream>>>(
+        tq, tk, tv, tdo, lse2, delta, partials, partials + splits * n, sq,
+        sq_pad, skv, group, splits, causal, window, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkdv_sum_kernel<<<static_cast<unsigned>(
+                                    (2 * n / 4 + kThreads - 1) / kThreads),
+                                kThreads, 0, stream>>>(
+        partials, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), n, splits, scale);
+  } else {
+    auto kdkdv = flash_bwd_dkdv_wgmma_kernel<HD>;
+    err = cudaFuncSetAttribute(kdkdv,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(G::DKDV_SMEM));
+    if (err != cudaSuccess) return err;
+    const dim3 grid_kv(static_cast<unsigned>(kvh),
+                       static_cast<unsigned>((skv + kTcBlock - 1) / kTcBlock));
+    kdkdv<<<grid_kv, kTcThreads, G::DKDV_SMEM, stream>>>(
+        tq, tk, tv, tdo, tdk, tdv, lse2, delta, sq, sq_pad, group, causal,
+        window, scale_log2, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1136,22 +1506,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }
 
 template <int HD>
-cudaError_t launch_hd(bool bf16, bool tensor_cores, const void* q,
-                      const void* k, const void* v, const void* out,
-                      const float* lse, const void* dout,
-                      float* scratch, void* dq, void* dk, void* dv,
-                      int64_t bh, int64_t sq, int64_t skv, int group,
-                      int causal, int64_t window, cudaStream_t s) {
-  if constexpr (HD != 256) {
-    if (tensor_cores)
-      return launch_wgmma<HD>(q, k, v, out, lse, dout, scratch, dq, dk, dv,
-                              bh, sq, skv, group, causal, window, s);
-  }
-  return bf16 ? launch<HD, __nv_bfloat16>(q, k, v, out, lse, dout, scratch,
-                                          dq, dk, dv, bh, sq, skv, group,
-                                          causal, window, s)
-              : launch<HD, float>(q, k, v, out, lse, dout, scratch, dq, dk,
-                                  dv, bh, sq, skv, group, causal, window, s);
+cudaError_t launch_hd(bool tensor_cores, const void* q, const void* k,
+                      const void* v, const void* out, const float* lse,
+                      const void* dout, float* scratch, float* partials,
+                      void* dq, void* dk, void* dv, int64_t bh, int64_t sq,
+                      int64_t skv, int group, int splits, int causal,
+                      int64_t window, cudaStream_t s) {
+  if (tensor_cores)
+    return launch_wgmma<HD>(q, k, v, out, lse, dout, scratch, partials, dq,
+                            dk, dv, bh, sq, skv, group, splits, causal,
+                            window, s);
+  return launch<HD>(q, k, v, out, lse, dout, scratch, dq, dk, dv, bh, sq, skv,
+                    group, causal, window, s);
 }
 
 }  // namespace
@@ -1170,24 +1536,33 @@ extern "C" int64_t flash_attention_bwd_scratch_floats(int64_t bh,
 // fp32 lse [bh, sq], and fp32 scratch the kernels write, of
 // flash_attention_bwd_scratch_floats(bh, sq) floats; the caller has
 // checked shapes, types and contiguity.  `tensor_cores` picks the body: the
-// tensor cores (bf16 at HD 32, 64 and 128 only) or the CUDA cores.  Returns
-// cudaGetLastError() after the last launch, cudaErrorInvalidValue for a
-// shape the kernels do not take or the tensor cores asked for another type
-// or HD, or cudaErrorMisalignedAddress for a pointer of the tensor-core
-// body off 16 bytes (TMA).
+// tensor cores (bf16) or the CUDA cores (fp32).  At HD 256 the tensor cores
+// split each KV head's query heads into `splits` parts (a divisor of
+// group) and write fp32 partials of dK and dV into `partials`, [2, splits,
+// bh / group, skv, 256] floats; elsewhere `splits` and `partials` are not
+// read.  Returns cudaGetLastError() after the last launch,
+// cudaErrorInvalidValue for a shape the kernels do not take or a body asked
+// for another type, or cudaErrorMisalignedAddress for a pointer of the
+// tensor-core body off 16 bytes (TMA).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* lse, const void* dout, void* scratch, void* dq, void* dk,
-    void* dv, int64_t bh, int64_t sq, int64_t skv, int64_t hd, int64_t group,
-    int causal, int64_t window, int bf16, int tensor_cores, void* stream) {
+    const void* lse, const void* dout, void* scratch, void* partials,
+    void* dq, void* dk, void* dv, int64_t bh, int64_t sq, int64_t skv,
+    int64_t hd, int64_t group, int splits, int causal, int64_t window,
+    int bf16, int tensor_cores, void* stream) {
   const int64_t sq_pad = (sq + kTcBlock - 1) / kTcBlock * kTcBlock;
-  if ((tensor_cores && !(bf16 && (hd == 32 || hd == 64 || hd == 128))) ||
+  if ((tensor_cores != 0) != (bf16 != 0) ||
       bh < 0 || sq < 0 || skv < 0 || window < 0 || group < 1 ||
       group > 0x7fffffff ||
       bh % group != 0 || bh > 0x7fffffff || skv > 0x7fffffff ||
       sq > 0x7fffffff || (sq + 31) / 32 > 65535 ||
       (skv + kBlockK - 1) / kBlockK > 65535 ||
-      (bh * sq_pad + kThreads / 32 - 1) / (kThreads / 32) > 0x7fffffff) {
+      (bh * sq_pad + kThreads / 32 - 1) / (kThreads / 32) > 0x7fffffff ||
+      // the split dK/dV's grid and its partial sum's
+      (tensor_cores && hd == 256 &&
+       (splits < 1 || group % splits != 0 || partials == nullptr ||
+        (bh / group) * splits > 0x7fffffff ||
+        (bh / group) * skv * hd / 2 > 0x7fffffffLL * kThreads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bh == 0 || sq == 0) return static_cast<int>(cudaSuccess);
@@ -1195,24 +1570,25 @@ extern "C" int flash_attention_bwd_launch(
   const int g = static_cast<int>(group);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(scratch);
-  const bool b = bf16 != 0, tc = tensor_cores != 0;
+  float* part = static_cast<float*>(partials);
+  const bool tc = tensor_cores != 0;
   switch (hd) {
     case 32:
-      return static_cast<int>(launch_hd<32>(b, tc, q, k, v, out, l, dout, w,
-                                            dq, dk, dv, bh, sq, skv, g,
-                                            causal, window, s));
+      return static_cast<int>(launch_hd<32>(tc, q, k, v, out, l, dout, w,
+                                            part, dq, dk, dv, bh, sq, skv, g,
+                                            splits, causal, window, s));
     case 64:
-      return static_cast<int>(launch_hd<64>(b, tc, q, k, v, out, l, dout, w,
-                                            dq, dk, dv, bh, sq, skv, g,
-                                            causal, window, s));
+      return static_cast<int>(launch_hd<64>(tc, q, k, v, out, l, dout, w,
+                                            part, dq, dk, dv, bh, sq, skv, g,
+                                            splits, causal, window, s));
     case 128:
-      return static_cast<int>(launch_hd<128>(b, tc, q, k, v, out, l, dout,
-                                             w, dq, dk, dv, bh, sq, skv, g,
-                                             causal, window, s));
+      return static_cast<int>(launch_hd<128>(tc, q, k, v, out, l, dout, w,
+                                             part, dq, dk, dv, bh, sq, skv,
+                                             g, splits, causal, window, s));
     case 256:
-      return static_cast<int>(launch_hd<256>(b, tc, q, k, v, out, l, dout,
-                                             w, dq, dk, dv, bh, sq, skv, g,
-                                             causal, window, s));
+      return static_cast<int>(launch_hd<256>(tc, q, k, v, out, l, dout, w,
+                                             part, dq, dk, dv, bh, sq, skv,
+                                             g, splits, causal, window, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

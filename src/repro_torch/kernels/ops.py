@@ -769,9 +769,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` and log-sum-exp ``lse [BH, Sq]`` fp32, and the output's
     gradient ``dout`` (``out``'s shape and type) → ``(dq, dk, dv)`` in the
     inputs' type, under the forward's mask (``causal``, ``window``).  On
-    the card one call launches the three kernels of
-    ``csrc/flash_attention_bwd.cu`` and counts once as
-    ``flash_attention_bwd``; on the CPU it runs
+    the card one call launches the kernels of
+    ``csrc/flash_attention_bwd.cu`` (three, four at bf16 HD 256) and
+    counts once as ``flash_attention_bwd``; on the CPU it runs
     :func:`kernels.ref.flash_attention_bwd_ref`."""
     _check_flash(q, k, v, causal, window, group)
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(

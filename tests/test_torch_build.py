@@ -75,20 +75,29 @@ def test_attention_sources_follow_their_shared_header(tmp_path, source):
 
 
 def _ptxas_log(spill: int = 0, drop: int = 0) -> str:
-    """ptxas' lines for the backward's nine tensor-core kernels: ``spill``
-    bytes of spill stores for the first, the last ``drop`` left out."""
-    lines, n = [], 0
-    for hd in (128, 64, 32):
-        for kernel in ("flash_bwd_dq_wgmma_kernel",
-                       "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_rows_kernel"):
-            lines += [
-                "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
-                f"{len(kernel)}{kernel}ILi{hd}EEEv' for 'sm_90a'",
-                f"    0 bytes stack frame, {spill if n == 0 else 0} bytes "
-                "spill stores, 0 bytes spill loads",
-                "ptxas info    : Used 168 registers, used 16 barriers"]
-            n += 1
-    return "\n".join(lines[:3 * (9 - drop)]) + "\n"
+    """ptxas' lines for the backward's twelve tensor-core kernels (rows and
+    dQ at HD 32 to 256, dK/dV at HD 32 to 128, HD 256's split dK/dV, which
+    is no template) and its partial sum, which the check leaves out:
+    ``spill`` bytes of spill stores for the first, the last ``drop`` of the
+    twelve left out."""
+    entries = [f"{len(kernel)}{kernel}ILi{hd}EEEv"
+               for hd in (256, 128, 64, 32)
+               for kernel in ("flash_bwd_dq_wgmma_kernel",
+                              "flash_bwd_dkdv_wgmma_kernel",
+                              "flash_bwd_rows_kernel")
+               if not (hd == 256 and "dkdv" in kernel)]
+    entries.append("33flash_bwd_dkdv_split_wgmma_kernelE14CUtensorMap_stS0_")
+    entries = entries[:len(entries) - drop]
+    entries.append("25flash_bwd_dkdv_sum_kernelEPKfP13__nv_bfloat16S3_lif")
+    lines = []
+    for n, entry in enumerate(entries):
+        lines += [
+            "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+            f"{entry}' for 'sm_90a'",
+            f"    0 bytes stack frame, {spill if n == 0 else 0} bytes "
+            "spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 168 registers, used 16 barriers"]
+    return "\n".join(lines) + "\n"
 
 
 @pytest.fixture
@@ -142,9 +151,9 @@ def test_library_without_its_log_is_built_again(tree, fake_nvcc):
 
 @pytest.mark.parametrize("log,error", [
     (_ptxas_log(spill=4), "spills"),
-    (_ptxas_log(drop=1), "not 9"),
+    (_ptxas_log(drop=1), "not 12"),
     ("", "reported 0"),
-])
+], ids=["spill", "one-missing", "empty"])
 def test_tensor_core_bwd_spill_check_fails(log, error):
     import chip_smoke
 

@@ -1455,6 +1455,11 @@ FA_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
     (4, 100, 40, 64, True, 1, torch.bfloat16),        # Skv < 64, causal
     (4, 130, 130, 64, True, 2, torch.bfloat16),       # a row past 128
     (6, 500, 300, 32, True, 2, torch.bfloat16),       # HD 32 on that body
+    # bf16 at HD 256: the split dK/dV and its partial sum
+    (4, 129, 129, 256, True, 2, torch.bfloat16),      # a row past 128
+    (10, 1000, 1000, 256, True, 10, torch.bfloat16),  # group 10, ragged
+    (6, 200, 77, 256, False, 3, torch.bfloat16),      # Skv < 128, Sq > Skv
+    (4, 300, 300, 256, True, 1, torch.float32),       # fp32 stays on cores
 ])
 def test_flash_bwd_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
                                                 group, dtype):
@@ -1480,17 +1485,22 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, bh, sq, skv, hd, causal,
 
 @pytest.mark.cuda
 def test_flash_bwd_body_sends_bf16_to_the_tensor_cores(cuda):
-    """``BODY`` sends bf16 at HD 32, 64 and 128 to ``wgmma``, fp32 and HD
-    256 to the CUDA cores, and a launch runs the kernels of the body it
-    names (by the names the profiler records)."""
+    """``BODY`` sends bf16 to ``wgmma`` and fp32 to the CUDA cores, and a
+    launch runs the kernels of the body it names (by the names the
+    profiler records): at HD 256 on the tensor cores the split dK/dV and
+    its partial sum."""
     from torch.profiler import ProfilerActivity, profile
 
     assert fab.BODY[(torch.bfloat16, 64)] == "wgmma"
     assert fab.BODY[(torch.bfloat16, 128)] == "wgmma"
-    assert fab.BODY[(torch.bfloat16, 256)] == "cuda_cores"
+    assert fab.BODY[(torch.bfloat16, 256)] == "wgmma"
     assert fab.BODY[(torch.float32, 128)] == "cuda_cores"
     kernels = {"wgmma": {"flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
                          "flash_bwd_dq_wgmma_kernel"},
+               "wgmma256": {"flash_bwd_rows_kernel",
+                            "flash_bwd_dkdv_split_wgmma_kernel",
+                            "flash_bwd_dkdv_sum_kernel",
+                            "flash_bwd_dq_wgmma_kernel"},
                "cuda_cores": {"flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                               "flash_bwd_dq_kernel"}}
     for (dtype, hd), body in sorted(fab.BODY.items(), key=str):
@@ -1508,7 +1518,8 @@ def test_flash_bwd_body_sends_bf16_to_the_tensor_cores(cuda):
                  if e.device_type == torch.autograd.DeviceType.CUDA}
         ran = {kernel for kernel in set().union(*kernels.values())
                if any(kernel in name for name in names)}
-        assert ran == kernels[body], (dtype, hd, names)
+        want = "wgmma256" if body == "wgmma" and hd == 256 else body
+        assert ran == kernels[want], (dtype, hd, names)
 
 
 @pytest.mark.cuda
@@ -1762,6 +1773,9 @@ def test_rglru_function_backward_launches_the_kernel(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,sq,skv,hd,causal,window,group,dtype", [
     (10, 600, 600, 256, True, 128, 10, torch.bfloat16),   # the local layer
+    (20, 2048, 2048, 256, True, 512, 10, torch.bfloat16),  # splits of 2 heads
+    (10, 1000, 1000, 256, True, 300, 10, torch.bfloat16),  # ragged Sq
+    (4, 300, 500, 256, False, 100, 2, torch.bfloat16),    # not causal
     (8, 700, 700, 64, True, 128, 1, torch.bfloat16),      # tensor cores
     (12, 577, 577, 128, True, 100, 2, torch.bfloat16),    # ragged, group 2
     (4, 300, 300, 64, True, 1, 1, torch.bfloat16),        # window 1

@@ -1,11 +1,15 @@
 """The rounding points of ``flash_attention_bwd``'s tensor-core body, on the
 CPU.
 
-``csrc/flash_attention_bwd.cu`` runs the bf16 backward at HD 32, 64 and 128
-on ``wgmma``: products of bf16 operands summed in fp32, P and dS rounded to
-bf16 where they enter the dV, dK and dQ products, one fp32 sum a 64-row
-(dK, dV) or 64-key (dQ) tile in the kernel's loop order, a KV head's dK
-and dV summed over its group in head order, one final rounding to bf16.
+``csrc/flash_attention_bwd.cu`` runs the bf16 backward on ``wgmma``:
+products of bf16 operands summed in fp32, P and dS rounded to bf16 where
+they enter the dV, dK and dQ products, one fp32 sum a 64-row (dK, dV) or
+64-key (dQ) tile in the kernel's loop order, a KV head's dK and dV summed
+over its group in head order, one final rounding to bf16.  At HD 256 the
+group's query heads split into ``fab.dkdv_splits`` parts: each split sums
+its heads in head order into fp32 partials, and a second launch adds the
+partials in split order before the one rounding (P^T passes between the
+two consumer warpgroups in fp32, which changes no value).
 ``_emulate`` repeats that arithmetic with torch ops, P and dS entering as
 one bf16 term or as two (``hi = bf16(x)``, ``lo = bf16(x - hi)``), and
 the tests hold it against the plain version ``ref.flash_attention_bwd_ref``
@@ -22,7 +26,9 @@ Shapes: the main paths' lengths at a few heads (2 heads of 2,048 at HD 64,
 a ``musicgen-medium`` layer's; 1 head of 4,064 at HD 128, ``deepseek-7b``'s)
 and ``internlm2-20b``'s group of 6 at a ragged Sq = Skv = 577; windowed,
 the card's tensor-core case (2,048 at HD 64, window 512) and a ragged
-group of 2 at window 100.
+group of 2 at window 100; at HD 256, ``recurrentgemma-2b``'s local layer
+(10 query heads on one KV head) at 1,024 tokens and window 256, and a
+ragged group of 2 at window 100.
 """
 
 import math
@@ -48,6 +54,9 @@ CASES = [  # bh, sq, skv, hd, causal, group, window
     # windowed: the card's tensor-core case (window 512) and a ragged one
     (2, 2048, 2048, 64, True, 1, 512),
     (4, 600, 600, 128, True, 2, 100),
+    # HD 256: recurrentgemma-2b's local layer, and a ragged group of 2
+    (10, 1024, 1024, 256, True, 10, 256),
+    (4, 600, 600, 256, True, 2, 100),
 ]
 
 
@@ -81,8 +90,11 @@ def _terms(x: torch.Tensor, terms: int) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def _emulate(q, k, v, out, lse, dout, *, causal, group, window, terms):
-    """The tensor-core body's arithmetic: ``(dq, dk, dv)`` in bf16."""
+def _emulate(q, k, v, out, lse, dout, *, causal, group, window, terms,
+             splits=None):
+    """The tensor-core body's arithmetic: ``(dq, dk, dv)`` in bf16.  At HD
+    256 dK and dV sum ``splits`` partials (by default the kernel's,
+    ``fab.dkdv_splits``) in split order."""
     bh, sq, hd = q.shape
     skv = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
@@ -101,15 +113,26 @@ def _emulate(q, k, v, out, lse, dout, *, causal, group, window, terms):
     ds = p * (dp - delta[..., None])
     p, ds = _terms(p, terms), _terms(ds, terms)
     # dK and dV: a KV head's accumulators take its query heads in order,
-    # each head's 64-row tiles in order
+    # each head's 64-row tiles in order; at HD 256 one accumulator a split
+    # of the heads, the splits' partials then added in split order
+    if hd != 256:
+        splits = 1
+    elif splits is None:
+        splits = fab.dkdv_splits(bh // group, skv, group)
     dk = torch.zeros((bh // group, skv, hd))
     dv = torch.zeros_like(dk)
-    for h in range(group):
-        heads = slice(h, bh, group)
-        for r0 in range(0, sq, 64):
-            rows = slice(r0, r0 + 64)
-            dv += torch.einsum("bij,bid->bjd", p[heads, rows], dof[heads, rows])
-            dk += torch.einsum("bij,bid->bjd", ds[heads, rows], qf[heads, rows])
+    for part in range(splits):
+        pk, pv = torch.zeros_like(dk), torch.zeros_like(dv)
+        for h in range(part * group // splits, (part + 1) * group // splits):
+            heads = slice(h, bh, group)
+            for r0 in range(0, sq, 64):
+                rows = slice(r0, r0 + 64)
+                pv += torch.einsum("bij,bid->bjd", p[heads, rows],
+                                   dof[heads, rows])
+                pk += torch.einsum("bij,bid->bjd", ds[heads, rows],
+                                   qf[heads, rows])
+        dk += pk
+        dv += pv
     # dQ: a row block's accumulator takes the 64-key tiles in order
     dq = torch.zeros((bh, sq, hd))
     for k0 in range(0, skv, 64):
@@ -201,12 +224,47 @@ def test_two_bf16_terms_hold_jax_grad_of_attend_block(case):
                                    msg=lambda m: f"{name} at {case}: {m}")
 
 
+@pytest.mark.parametrize("splits", [1, 2, 5, 10])
+def test_any_head_split_holds_the_plain_version(splits):
+    """At HD 256 the kernel adds a split's heads in head order and the
+    splits' fp32 partials in split order; the split count follows the
+    shape (``fab.dkdv_splits``: five of two heads at ``recurrentgemma-2b``'s
+    4,096 keys, ten of one at 1,024).  Every split of a group of 10 holds
+    the plain version, so the count may follow the card's fill."""
+    bh, sq, skv, hd, causal, group, window = 10, 1024, 1024, 256, True, 10, 256
+    q, k, v, dout = _inputs(bh, sq, skv, hd, group, seed=3)
+    out, lse = _forward(q, k, v, causal, group, window)
+    got = _emulate(q, k, v, out, lse, dout, causal=causal, group=group,
+                   window=window, terms=2, splits=splits)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       group=group)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{name}, {splits}: {m}")
+
+
+@pytest.mark.parametrize("kv_heads,skv,group,splits", [
+    (1, 4096, 10, 5),     # recurrentgemma-2b's local layer: 320 CTAs
+    (1, 1024, 10, 10),    # too few keys for 256 CTAs: every head its own
+    (2, 600, 2, 2),
+    (4, 4096, 10, 1),     # four KV heads of 64 blocks fill it alone
+    (1, 8192, 10, 2),
+    (3, 100, 7, 7),
+])
+def test_dkdv_splits_follow_the_shape(kv_heads, skv, group, splits):
+    got = fab.dkdv_splits(kv_heads, skv, group)
+    assert got == splits and group % got == 0
+    blocks = kv_heads * -(-skv // 64)
+    assert blocks * got >= fab.SPLIT_CTAS or got == group
+
+
 # -- the dispatch and the kernels' names, without a card ---------------------
 
 
 @pytest.mark.parametrize("dtype,hd,body", [
     (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "cuda_cores"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
 ])
 def test_body_is_chosen_by_type_and_head_size(dtype, hd, body):
@@ -221,6 +279,7 @@ def test_kernel_names_keep_the_profilers_split():
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                        r"(\w+)\s*\(", fab.SOURCE.read_text())
     assert {"flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
+            "flash_bwd_dkdv_split_wgmma_kernel", "flash_bwd_dkdv_sum_kernel",
             "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel",
             "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"} == set(names)
     assert all("flash_bwd" in n and "flash_attention" not in n
