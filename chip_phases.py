@@ -7,12 +7,18 @@ timed in turns in one call:
 PHASE is ``3g`` (``flash_attention_bwd``'s windowed cases: each against
 its plain version, ``LOCAL_BWD`` timed, split by kernel and set beside
 SDPA's masked backward), ``3g-causal`` (its causal cases, the
-``musicgen-medium`` and ``deepseek-7b`` shapes timed and split) or ``16a``
-(``recurrentgemma-2b`` trained whole: step seconds, launches, device time
-by kind).  Each phase runs the function
-of DIR's own ``chip_smoke.py`` (default: this checkout) on DIR's own
-``src``, whose kernels build into DIR's ``build/``.  Exits non-zero without
-a card.
+``musicgen-medium`` and ``deepseek-7b`` shapes timed and split), ``3h``
+(``rwkv6_chunked_bwd``'s cases against its plain version, ``RW_BWD_MAIN``
+timed and split by pass), ``16a`` (``recurrentgemma-2b`` trained whole:
+step seconds, launches, device time by kind), ``16b`` (``rwkv6-7b`` at 8
+layers, the same), ``16c`` (both recurrent models, one fp32 step on the
+card against the CPU) or ``16c-rwkv`` (``rwkv6-7b``'s 16c gradients with
+the kernels on the card, their plain versions on the card and on the
+CPU, each pair's worst leaves).  Each phase runs the function of DIR's own
+``chip_smoke.py`` (default: this checkout) on DIR's own ``src``, whose
+kernels build into DIR's ``build/``; where DIR's phase 3h does not split
+its kernel by pass, this checkout's split does, on DIR's kernel.  Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
@@ -24,11 +30,38 @@ import os
 import sys
 import time
 
+
+
+def _here():
+    """This checkout's ``chip_smoke.py`` (its helpers need no ``src``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rwkv6_bwd(cs, ops, ref):
+    from repro_torch.kernels import rwkv6_scan
+
+    out = cs.check_rwkv6_bwd_kernel(ops, ref, rwkv6_scan)
+    if "split_ms" not in out:
+        out["split_ms"] = _here().rwkv6_bwd_split(ops, rwkv6_scan)
+        print(f"split by pass: {json.dumps(out['split_ms'])}", flush=True)
+    return out
+
+
 PHASES = {
     "3g": lambda cs, ops, ref: cs.check_windowed_flash_bwd(ops, ref),
     "3g-causal": lambda cs, ops, ref: cs.check_flash_bwd_kernel(ops, ref),
+    "3h": _rwkv6_bwd,
     "16a": lambda cs, ops, ref: cs.train_recurrent_whole(
         ops, "16a", "recurrentgemma-2b", 26),
+    "16b": lambda cs, ops, ref: cs.train_recurrent_whole(
+        ops, "16b", "rwkv6-7b", 8),
+    "16c": lambda cs, ops, ref: cs.recurrent_card_against_cpu(),
+    "16c-rwkv": lambda cs, ops, ref: cs.rwkv_gradients_three_ways(ops, ref),
 }
 
 

@@ -65,10 +65,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    fed the forward kernel's own chunk states and a non-zero state0 and
    dstate_out, at ``rwkv6-7b``'s training shape ([1, 64, 4096, 64] bf16,
    fp32 logw, C = 64), at extreme decays, C = 16 with hd = 32, fp32 and
-   one short chunk; phase 3i holds both forms of ``rglru_scan_bwd``
-   (read form bit for bit; gated form du and dh0 bit for bit, the gate
-   vectors' sums within 1e-4) at ``recurrentgemma-2b``'s ([1, 4096,
-   2560] bf16), S = 1 and widths off the channel block.  Each new kernel
+   one short chunk and C = 40, the time split by pass; phase 3i holds
+   both forms of ``rglru_scan_bwd`` (read form bit for bit; gated form du
+   and dh0 bit for bit, the gate vectors' sums within 1e-4) at
+   ``recurrentgemma-2b``'s ([1, 4096, 2560] bf16), S = 1 and widths off
+   the channel block.  Each new kernel
    repeats bit for bit and is timed beside its bound and plain version.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
@@ -259,8 +260,7 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    the card against the CPU, fp32 with TF32 off, batch 2 × 256, for
    ``rwkv6-7b`` at 2 layers and ``recurrentgemma-2b`` at 3 (one RG-LRU,
    RG-LRU, local pattern): the loss within 1e-4, gradients and parameters
-   within 14b's bounds (``rwkv6-7b``'s gradients within 1e-3: the CPU
-   sums its log decays in double, the card in fp32;
+   within 14b's bounds (``rwkv6-7b``'s gradients within 1e-3,
    ``RWKV_CARD_CPU_TOL``).
 
 The line before the last is the kernel table as JSON; the last line is
@@ -1242,11 +1242,13 @@ def _off_16_bytes(t):
     return shifted
 
 
-def _flash_bwd_split(fn, reps: int = 3):
-    """Device ms a call of ``fn`` by the backward's kernels (D, dK/dV, dQ),
-    summed by ``torch.profiler`` over ``reps`` calls; where the HD-256
-    tensor-core body adds dK's and dV's partials, that launch is part of
-    dK/dV and is also shown alone ("dK/dV partial sum")."""
+def _device_split(fn, part_of, parts, reps: int):
+    """Device ms a call of ``fn`` by part, under ``torch.profiler`` over
+    ``reps`` calls after a warm-up call: each CUDA kernel (launched once a
+    call) by its mean over the launches the profiler caught, which need
+    not be all of them in a process that profiled before; ``part_of(kernel
+    name)`` names the parts it counts in (none: not counted); every part
+    of ``parts`` must have run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1255,24 +1257,62 @@ def _flash_bwd_split(fn, reps: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {"D": 0.0, "dK/dV": 0.0, "dQ": 0.0}
+    caught = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            caught.setdefault(e.name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    split = dict.fromkeys(parts, 0.0)
+    for name, ms in caught.items():
+        for part in part_of(name):
+            split[part] = split.get(part, 0.0) + sum(ms) / len(ms)
+    if not all(split[p] for p in parts):
+        raise AssertionError(f"the profiler missed a kernel: {split}")
+    return split
+
+
+def _flash_bwd_split(fn, reps: int = 3):
+    """Device ms a call of ``fn`` by the backward's kernels (D, dK/dV, dQ);
+    where the HD-256 tensor-core body adds dK's and dV's partials, that
+    launch is part of dK/dV and is also shown alone ("dK/dV partial
+    sum")."""
+    def part_of(name):
+        if "flash_bwd_dkdv_sum" in name:
+            return ("dK/dV", "dK/dV partial sum")
+        if "flash_bwd_dkdv" in name:
+            return ("dK/dV",)
+        if "flash_bwd_dq" in name:
+            return ("dQ",)
+        if "flash_bwd_rows" in name or "flash_bwd_delta" in name:
+            return ("D",)
+        return ()
+
+    return _device_split(fn, part_of, ("D", "dK/dV", "dQ"), reps)
+
+
+def _ptxas_entries(log: str, keep) -> dict:
+    """``{entry: {"spill": (store bytes, load bytes), "registers": n}}``
+    from ptxas' lines, for each entry function whose mangled name
+    ``keep`` accepts."""
+    import re
+
+    entry, seen = None, {}
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
             continue
-        part = ("dK/dV" if "flash_bwd_dkdv" in e.name else
-                "dQ" if "flash_bwd_dq" in e.name else
-                "D" if ("flash_bwd_rows" in e.name
-                        or "flash_bwd_delta" in e.name) else None)
-        if part is None:
+        if entry is None or not keep(entry):
             continue
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        split[part] += ms
-        if "flash_bwd_dkdv_sum" in e.name:
-            split["dK/dV partial sum"] = split.get("dK/dV partial sum",
-                                                   0.0) + ms
-    if not all(split.values()):
-        raise AssertionError(f"the profiler missed a backward kernel: {split}")
-    return {k: v / reps for k, v in split.items()}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            seen.setdefault(entry, {})["spill"] = (int(m.group(1)),
+                                                   int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            seen.setdefault(entry, {})["registers"] = int(m.group(1))
+    return seen
 
 
 def check_tensor_core_bwd_spills(log: str) -> None:
@@ -1283,22 +1323,7 @@ def check_tensor_core_bwd_spills(log: str) -> None:
     fails."""
     import re
 
-    entry, seen = None, {}
-    for line in log.splitlines():
-        m = re.search(r"entry function '([^']+)'", line)
-        if m:
-            entry = m.group(1)
-            continue
-        if entry is None or not ("wgmma" in entry or "rows" in entry):
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            seen.setdefault(entry, {})["spill"] = (int(m.group(1)),
-                                                   int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            seen.setdefault(entry, {})["registers"] = int(m.group(1))
+    seen = _ptxas_entries(log, lambda e: "wgmma" in e or "rows" in e)
     if len(seen) != 12:
         raise AssertionError(f"ptxas reported {len(seen)} tensor-core "
                              "backward kernels, not 12")
@@ -1310,6 +1335,34 @@ def check_tensor_core_bwd_spills(log: str) -> None:
         print(f"  flash_attention_bwd tensor-core kernel {short}: "
               f"{got['registers']} registers at launch, spill stores and "
               f"loads {got['spill']} bytes")
+        if got["spill"] != (0, 0):
+            raise AssertionError(f"{short} spills {got['spill']} bytes")
+
+
+# rwkv6_scan_bwd.cu's entry functions: pass A at hd 64 and 32 with 32 and 16
+# rows a CTA and pass B at hd 64 and 32, each for the four pairs of r/k/v/u
+# and logw types; pass C at hd 64 and 32 for the two types of du
+RW_BWD_ENTRIES = (2 + 2 + 2) * 4 + 2 * 2
+
+
+def check_rwkv6_bwd_spills(log: str) -> None:
+    """Phase 2: the registers and spills ptxas reports for every entry
+    function of ``rwkv6_scan_bwd.cu`` (``rwkv6_bwd_*``); any spill
+    fails."""
+    import re
+
+    seen = _ptxas_entries(log, lambda e: "rwkv6_bwd" in e)
+    if len(seen) != RW_BWD_ENTRIES:
+        raise AssertionError(f"ptxas reported {len(seen)} rwkv6_scan_bwd.cu "
+                             f"entry functions, not {RW_BWD_ENTRIES}")
+    for name, got in sorted(seen.items()):
+        m = re.search(r"(rwkv6_bwd_\w+?_kernel)I(.*?)EEv", name)
+        short = name if m is None else (
+            m.group(1) + "<" + m.group(2).replace("13__nv_bfloat16", "bf16,")
+            .replace("S1_", "bf16,").replace("Li", "").replace("E", ",")
+            .rstrip(",") + ">")
+        print(f"  rwkv6_scan_bwd.cu {short}: {got['registers']} registers "
+              f"at launch, spill stores and loads {got['spill']} bytes")
         if got["spill"] != (0, 0):
             raise AssertionError(f"{short} spills {got['spill']} bytes")
 
@@ -1623,16 +1676,48 @@ def _rwkv6_bwd_bound(r, logw, chunk):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _rwkv6_bwd_args(rw, gen, b, h, s, hd, chunk, dtype, span):
+    """The backward's inputs on the card: the forward kernel's own chunk
+    states from ``_rwkv6_inputs``, a random dout and a non-zero
+    dstate_out."""
+    x = _rwkv6_inputs(b, h, s, hd, gen, dtype=dtype, span=span)
+    _, state_out, states = rw.rwkv6_chunked(*x, chunk, with_states=True)
+    dout = torch.randn((b, h, s, hd), generator=gen, device="cuda")
+    dstate = 0.5 * torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+    return (*x, states, state_out, dout, dstate)
+
+
+def _rwkv6_bwd_split(fn, reps: int = 5):
+    """Device ms a call of ``fn`` by ``rwkv6_chunked_bwd``'s passes: A the
+    reverse state pass, B the chunk pass, C du's sum."""
+    def part_of(name):
+        return (("pass A",) if "rwkv6_bwd_state" in name else
+                ("pass B",) if "rwkv6_bwd_chunk" in name else
+                ("pass C",) if "rwkv6_bwd_du" in name else ())
+
+    return _device_split(fn, part_of, ("pass A", "pass B", "pass C"), reps)
+
+
+def rwkv6_bwd_split(ops, rw):
+    """``rwkv6_chunked_bwd`` at ``RW_BWD_MAIN`` split by pass (what phase 3h
+    prints), for ``chip_phases.py`` to split a checkout whose phase 3h
+    does not."""
+    b, h, s, hd, chunk, dtype, span = RW_BWD_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    args = _rwkv6_bwd_args(rw, gen, b, h, s, hd, chunk, dtype, span)
+    return _rwkv6_bwd_split(lambda: ops.rwkv6_chunked_bwd(*args, chunk=chunk))
+
+
 def check_rwkv6_bwd_kernel(ops, ref, rw):
     """Phase 3h: ``rwkv6_chunked_bwd`` against its plain version
     (``ref.rwkv6_chunked_bwd_ref``) on the card, both fed the forward
     kernel's own states and a non-zero state0 and dstate_out: at the
     training path's shape (``RW_BWD_MAIN``), at extreme decays (logw down
     to -40 a token, as phase 3b drives the forward), at C = 16 and hd =
-    32, in fp32 and at one short chunk.  At the main shape a second launch
-    must equal the first bit for bit, and the kernel is timed beside its
-    bound and its plain version (no PyTorch call computes this
-    function)."""
+    32, in fp32, at one short chunk and at a chunk that 16 does not divide.
+    At the main shape a second launch must equal the first bit for bit,
+    and the kernel is timed beside its bound and its plain version (no
+    PyTorch call computes this function) and split by pass."""
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card_line()
     gen = torch.Generator(device="cuda").manual_seed(31)
@@ -1640,15 +1725,11 @@ def check_rwkv6_bwd_kernel(ops, ref, rw):
              (1, 16, 512, 64, 64, torch.bfloat16, 39.95),
              (2, 8, 256, 32, 16, torch.bfloat16, 2.45),
              (2, 8, 256, 64, 64, torch.float32, 2.45),
-             (2, 4, 13, 64, 13, torch.float32, 39.95)]
+             (2, 4, 13, 64, 13, torch.float32, 39.95),
+             (2, 8, 160, 64, 40, torch.bfloat16, 2.45)]
     worst = 0.0
     for b, h, s, hd, chunk, dtype, span in cases:
-        x = _rwkv6_inputs(b, h, s, hd, gen, dtype=dtype, span=span)
-        _, state_out, states = rw.rwkv6_chunked(*x, chunk, with_states=True)
-        dout = torch.randn((b, h, s, hd), generator=gen, device="cuda")
-        dstate = 0.5 * torch.randn((b, h, hd, hd), generator=gen,
-                                   device="cuda")
-        args = (*x, states, state_out, dout, dstate)
+        args = _rwkv6_bwd_args(rw, gen, b, h, s, hd, chunk, dtype, span)
         ops.reset_launch_count()
         got = ops.rwkv6_chunked_bwd(*args, chunk=chunk)
         torch.cuda.synchronize()
@@ -1678,19 +1759,23 @@ def check_rwkv6_bwd_kernel(ops, ref, rw):
             del again
             ms = _time_ms(lambda: ops.rwkv6_chunked_bwd(*args, chunk=chunk),
                           reps=10)
+            split = _rwkv6_bwd_split(
+                lambda: ops.rwkv6_chunked_bwd(*args, chunk=chunk))
             plain_ms = _time_ms(lambda: ref.rwkv6_chunked_bwd_ref(*args,
                                                                   chunk),
                                 reps=2)
-            bound_ms, bound_by = _rwkv6_bwd_bound(x[0], x[3], chunk)
+            bound_ms, bound_by = _rwkv6_bwd_bound(args[0], args[3], chunk)
             print(f"rwkv6_chunked_bwd at [1, 64, 4096, 64] bf16 r/k/v/u, "
-                  f"fp32 logw, C=64: kernel {ms!r} ms, plain {plain_ms!r} "
-                  f"ms, bound {bound_ms!r} ms ({bound_by}), {bound_ms / ms!r}"
-                  f" of its bound; two launches equal bit for bit; no PyTorch"
-                  f" call computes this function, so library_ms is null "
+                  f"fp32 logw, C=64: kernel {ms!r} ms (by pass under the "
+                  f"profiler: {json.dumps(split)}), plain {plain_ms!r} ms, "
+                  f"bound {bound_ms!r} ms ({bound_by}), {bound_ms / ms!r} of "
+                  f"its bound; two launches equal bit for bit; no PyTorch "
+                  f"call computes this function, so library_ms is null "
                   f"({card})")
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        del x, states, state_out, dout, dstate, args, got, want
+                      "bound_by": bound_by, "bound_share": bound_ms / ms,
+                      "split_ms": split}
+        del args, got, want
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, **timing}
 
@@ -5143,14 +5228,12 @@ def moe_and_patch_on_the_card(ops, ref):
 RECURRENT_LR = 1e-2
 RECURRENT_TRAIN = (("16a", "recurrentgemma-2b", 26),
                    ("16b", "rwkv6-7b", 8))
-# 16c's gradient bound for rwkv6-7b: its log decays (about -1 a token at
-# these weights) sum to some -64 over a chunk, and the CPU's torch.cumsum
-# accumulates them in double where the card (the kernels, and torch's own
-# cumsum there) adds them in fp32 in row order.  That rounding alone moves
-# the gradients by up to 4.0e-4 of a leaf's largest entry (the plain
-# version on the CPU at 1 layer with an fp32 row-order cumsum against its
-# own); the card against the CPU read 1.2e-4 at 1 layer and 1.6e-4 at 2.
-# recurrentgemma-2b is held to TRAIN_TOL, as 14b
+# 16c's gradient bound for rwkv6-7b.  The CPU's plain versions sum the log
+# decays in row order in fp32 (kernels/ref.py log_decay_sums), as the card's
+# kernels do, yet the card reads 1.8e-4 of a leaf's largest entry at 2
+# layers (blocks/0/mix/wr and wk; 1.2e-4 at 1 layer and 1.6e-4 at 2 while
+# the CPU summed in double), so the sums' order is not what parts them
+# (ROADMAP Queue 3).  recurrentgemma-2b is held to TRAIN_TOL, as 14b
 RWKV_CARD_CPU_TOL = 1e-3
 
 
@@ -5257,19 +5340,14 @@ def train_recurrent_whole(ops, label, arch, layers, batch=4, seq=4096,
             "params": cfg.param_count(), "microbatches": n_mb}
 
 
-def train_recurrent_on_the_card(ops):
-    """Phase 16: 16a, 16b, then 16c (both recurrent models, card against
-    CPU)."""
+def recurrent_card_against_cpu():
+    """16c: both recurrent models cut in depth, fp32, one step on the card
+    against the CPU (``train_card_against_cpu``)."""
     import dataclasses as dc
 
     from repro_torch.config import get_config
 
     out = {}
-    for label, arch, layers in RECURRENT_TRAIN:
-        t0 = time.perf_counter()
-        out[arch] = train_recurrent_whole(ops, label, arch, layers)
-        torch.cuda.empty_cache()
-        print(f"{label}: {time.perf_counter() - t0!r} s")
     for arch, layers, tol in (("rwkv6-7b", 2, RWKV_CARD_CPU_TOL),
                               ("recurrentgemma-2b", 3, TRAIN_TOL)):
         t0 = time.perf_counter()
@@ -5279,6 +5357,75 @@ def train_recurrent_on_the_card(ops):
                                                                  tol)
         torch.cuda.empty_cache()
         print(f"16c {arch}: {time.perf_counter() - t0!r} s")
+    return out
+
+
+def rwkv_gradients_three_ways(ops, ref):
+    """Where 16c's ``rwkv6-7b`` gradients part: one batch's gradients (16c's
+    cut, fp32, TF32 off) with the kernels on the card, with the kernels'
+    plain versions on the card in their place, and with the plain versions
+    on the CPU; each pair's worst leaves (max |a − b| over b's largest
+    entry)."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+    from repro_torch.kernels import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.models import Model
+    from repro_torch.train import loop, microbatch
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dc.replace(get_config("rwkv6-7b"), num_layers=2, dtype="float32")
+    run = _train_run(cfg, 2, 256, learning_rate=1e-2, warmup_steps=1,
+                     total_steps=5)
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg)
+    params = loop.init_state(cpu_model, run).params
+    card_params = tree_map(lambda t: t.to("cuda"), params)
+    host = next(_train_batches(cfg, 2, 256, seed=2))
+
+    def grads(model, p, where):
+        _, _, g = microbatch.accumulate_gradients(
+            model.loss, p, loop.to_device(host, where), run.microbatches())
+        return tree_map(lambda t: t.detach().cpu(), g)
+
+    kernels = grads(card_model, card_params, "cuda")
+    saved = rwkv6_scan.rwkv6_chunked, rwkv6_scan_bwd.rwkv6_chunked_bwd
+    rwkv6_scan.rwkv6_chunked = (
+        lambda r, k, v, logw, u, st, chunk, with_states=False:
+        ref.rwkv6_chunk_form_ref(r, k, v, logw, u, st, chunk,
+                                 with_states=with_states))
+    rwkv6_scan_bwd.rwkv6_chunked_bwd = ref.rwkv6_chunked_bwd_ref
+    try:
+        plain_card = grads(card_model, card_params, "cuda")
+    finally:
+        rwkv6_scan.rwkv6_chunked, rwkv6_scan_bwd.rwkv6_chunked_bwd = saved
+    plain_cpu = grads(cpu_model, params, "cpu")
+    out = {}
+    for what, a, b in (("kernels (card) vs plain (cpu)", kernels, plain_cpu),
+                       ("kernels vs plain, both on the card", kernels,
+                        plain_card),
+                       ("plain (card) vs plain (cpu)", plain_card,
+                        plain_cpu)):
+        per = {"/".join(map(str, p)): float(
+            (x.double() - y.double()).abs().max() / y.double().abs().max())
+            for (p, x), (_, y) in zip(tree_leaves_with_path(a),
+                                      tree_leaves_with_path(b))}
+        out[what] = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+        print(f"16c rwkv6-7b gradients, {what}: worst {out[what]} "
+              f"({_card_line()})")
+    return out
+
+
+def train_recurrent_on_the_card(ops):
+    """Phase 16: 16a, 16b, then 16c (both recurrent models, card against
+    CPU)."""
+    out = {}
+    for label, arch, layers in RECURRENT_TRAIN:
+        t0 = time.perf_counter()
+        out[arch] = train_recurrent_whole(ops, label, arch, layers)
+        torch.cuda.empty_cache()
+        print(f"{label}: {time.perf_counter() - t0!r} s")
+    out.update(recurrent_card_against_cpu())
     return out
 
 
@@ -5320,6 +5467,7 @@ def main() -> None:
                                        "spill")):
                 print("    ptxas:", line.strip())
     check_tensor_core_bwd_spills(flash_attention_bwd.LIBRARY.info["log"])
+    check_rwkv6_bwd_spills(rwkv6_scan_bwd.LIBRARY.info["log"])
 
     # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng, subsample_gather)

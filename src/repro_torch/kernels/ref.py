@@ -175,6 +175,22 @@ def rwkv6_chunked_ref(r, k, v, logw, u) -> torch.Tensor:
     return torch.stack(outs, dim=2)
 
 
+def log_decay_sums(lw: torch.Tensor, dim: int):
+    """A chunk's log-decay sums along ``dim``, formed as the kernels form
+    them: a running sum in row order in ``lw``'s own precision (fp32 in
+    fp32, float64 in float64), ``logP_i = run_i − logw_i`` and
+    ``logP_{i+1} = logP_i + logw_i``.  Returns ``(logP_i, logP_{i+1})``.
+    (``torch.cumsum`` on the CPU accumulates fp32 in double, which parts
+    from the card's fp32 sums at large decays.)"""
+    run = torch.zeros_like(lw.select(dim, 0))
+    sums = []
+    for i in range(lw.shape[dim]):
+        run = run + lw.select(dim, i)
+        sums.append(run)
+    lp = torch.stack(sums, dim=dim) - lw
+    return lp, lp + lw
+
+
 def chunk_body(r, k, v, logw, u, state):
     """One chunk of the RWKV6 recurrence in closed form: the reference's
     ``models/rwkv6.py::chunk_body``.  All inputs ``[B, H, C, hd]`` except
@@ -184,15 +200,14 @@ def chunk_body(r, k, v, logw, u, state):
     ``j ≥ i`` are masked to ``-inf`` before the exponential."""
     rf, kf, vf, lw = (t.float() for t in (r, k, v, logw))
     c = r.shape[2]
-    # logP[i] = sum_{m<i} logw[m]  (exclusive cumsum)
-    logp = torch.cumsum(lw, dim=2) - lw                           # [B,H,C,hd]
-    logp_total = logp[:, :, -1, :] + lw[:, :, -1, :]              # [B,H,hd]
+    # logP[i] = sum_{m<i} logw[m]  (exclusive cumsum, in row order)
+    logp, logp_j1 = log_decay_sums(lw, 2)                         # [B,H,C,hd]
+    logp_total = logp_j1[:, :, -1, :]                             # [B,H,hd]
 
     # inter-chunk: r_i ⊙ exp(logP_i) read the carried state
     inter = torch.einsum("bhid,bhde->bhie", rf * torch.exp(logp), state)
 
     # intra-chunk: A_ij = Σ_d r_i[d] k_j[d] exp(logP_i[d] − logP_{j+1}[d]), j<i
-    logp_j1 = logp + lw                                           # logP_{j+1}
     dmat = logp[:, :, :, None, :] - logp_j1[:, :, None, :, :]     # [B,H,C,C,hd]
     idx = torch.arange(c, device=r.device)
     lower = idx[:, None] > idx[None, :]                           # strict
@@ -263,8 +278,7 @@ def rwkv6_two_pass_ref(r, k, v, logw, u, state, chunk: int, sub: int = 16):
     rf, kf, vf, lw = (t.float().reshape(b, h, n, chunk, hd)
                       for t in (r, k, v, logw))
     uf = u.float()
-    lp = torch.cumsum(lw, dim=3) - lw                 # logP_i
-    lq = lp + lw                                      # logP_{j+1}
+    lp, lq = log_decay_sums(lw, 3)                    # logP_i, logP_{j+1}
     total = lq[..., -1, :]                            # logP_C
 
     # 1. the state pass
@@ -359,8 +373,7 @@ def rwkv6_chunked_bwd_ref(r, k, v, logw, u, state0, states, state_out, dout,
     rf, kf, vf, lw, do = (t.to(wide).reshape(b, h, n, chunk, hd)
                           for t in (r, k, v, logw, dout))
     uf = u.to(wide)
-    lp = torch.cumsum(lw, dim=3) - lw                 # logP_i
-    lq = lp + lw                                      # logP_{j+1}
+    lp, lq = log_decay_sums(lw, 3)                    # logP_i, logP_{j+1}
     total = lq[..., -1, :]                            # logP_C
     entering = torch.cat([state0.to(wide)[:, :, None], states.to(wide)],
                          dim=2)
@@ -415,6 +428,138 @@ def rwkv6_chunked_bwd_ref(r, k, v, logw, u, state0, states, state_out, dout,
     from_y = torch.flip(torch.cumsum(torch.flip(y, [3]), dim=3), [3])
     tail = (dl * leaving).sum(dim=-1)                  # Σ_e dS'_c ⊙ S'_c
     dlogw = tail[..., None, :] + after_x - from_y
+
+    def back(t, like):
+        return t.reshape(b, h, s, hd).to(like.dtype)
+
+    return (back(dr, r), back(dk, k), back(dv, v), back(dlogw, logw),
+            du.to(u.dtype), dstate0)
+
+
+def rwkv6_chunked_bwd_factored_ref(r, k, v, logw, u, state0, states,
+                                   state_out, dout, dstate_out, chunk: int,
+                                   sub: int = 16, product=torch.matmul):
+    """The arithmetic of the ``rwkv6_chunked_bwd`` CUDA kernel: the
+    function of :func:`rwkv6_chunked_bwd_ref` (same arguments, same
+    result), with every pairwise decay outside the diagonal blocks
+    factored so that the sums become matrix products.  The tests hold it
+    against the plain backward and the reference; no path of the port
+    calls it.  ``product(a, b)`` is ``a @ b`` over the last two dimensions
+    (a test may round its operands as the tensor cores do).
+
+    The chunk is cut into blocks of ``sub`` rows.  For block I with
+    ``ref_I = logP`` at its first row and ``ref'_I = logP_{j+1}`` at its
+    last row, every exponent below is ``later − earlier`` ≤ 0:
+
+    * ``dr'_I = e^{logP_I − ref_I} ⊙ [dout_I (S_c ⊙_rows e^{ref_I})ᵀ +
+      DP_{I,<I} (k_{<I} ⊙ e^{ref_I − logP_{<I,j+1}})]``;
+    * ``dk'_I = e^{ref'_I − logP_{I,j+1}} ⊙ [v_I (dS'_c ⊙_rows e^{logP_C −
+      ref'_I})ᵀ + DP_{>I,I}ᵀ R'_{>I}]`` with ``R'_i = r_i ⊙ e^{logP_i −
+      ref'_I}``;
+    * ``A_{>I,I} = R'_{>I} K'_Iᵀ`` with ``K'_I = k_I ⊙ e^{ref'_I −
+      logP_{I,j+1}}``, and dv's state term from ``k̃_I = K'_I ⊙
+      e^{logP_C − ref'_I}``;
+    * the diagonal block is cut at its middle row m: its lower-left part
+      is factored at ``ref8 = logP_m`` (``r ⊙ e^{logP_i − ref8}``, ``k ⊙
+      e^{ref8 − logP_{j+1}}``) for A, dr' and dk' alike; its two diagonal
+      halves keep the pairwise ``e^{logP_i − logP_{j+1}}`` (j < i), the
+      bonus on A's diagonal.
+
+    The reverse state pass is the plain version's, its product through
+    ``product``.  dlogw is summed as the kernel sums it: from the chunk's
+    last row up, ``run = tail``, then ``run −= y_m``, ``dlogw_m = run``,
+    ``run += x_m``."""
+    b, h, s, hd = r.shape
+    n = s // chunk
+    wide = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, lw, do = (t.to(wide).reshape(b, h, n, chunk, hd)
+                          for t in (r, k, v, logw, dout))
+    uf = u.to(wide)
+    lp, lq = log_decay_sums(lw, 3)                    # logP_i, logP_{j+1}
+    total = lq[..., -1:, :]                           # logP_C [.., 1, hd]
+    entering = torch.cat([state0.to(wide)[:, :, None], states.to(wide)],
+                         dim=2)
+    leaving = torch.cat([states.to(wide), state_out.to(wide)[:, :, None]],
+                        dim=2)
+    ex = torch.exp
+
+    def tr(t):
+        return t.transpose(-1, -2)
+
+    # 1. the reverse state pass: dS_c = e^{logP_C} ⊙_rows dS'_c + r̃ᵀ dout
+    inc = product(tr(rf * ex(lp)), do)
+    decay = tr(ex(total))                             # [.., hd, 1]
+    dleaving = [None] * n
+    ds = dstate_out.to(wide)
+    for c in range(n - 1, -1, -1):
+        dleaving[c] = ds
+        ds = decay[:, :, c] * ds + inc[:, :, c]
+    dstate0 = ds
+    dl = torch.stack(dleaving, dim=2)                 # dS'_c
+
+    # 2. every chunk, block by block
+    dp = product(do, tr(vf))                          # DP_ij
+    drp, dkp, kdec = (torch.zeros_like(rf) for _ in range(3))
+    amat = torch.zeros((b, h, n, chunk, chunk), dtype=wide, device=r.device)
+    for i0 in range(0, chunk, sub):
+        i1 = min(i0 + sub, chunk)
+        mid = min(i0 + sub // 2, i1)
+        ref, refp = lp[..., i0:i0 + 1, :], lq[..., i1 - 1:i1, :]
+        acc = product(do[..., i0:i1, :], tr(entering * tr(ex(ref))))
+        if i0:
+            khat = kf[..., :i0, :] * ex(ref - lq[..., :i0, :])
+            acc = acc + product(dp[..., i0:i1, :i0], khat)
+        drp[..., i0:i1, :] = ex(lp[..., i0:i1, :] - ref) * acc
+        acc = product(vf[..., i0:i1, :], tr(dl * tr(ex(total - refp))))
+        kt = kf[..., i0:i1, :] * ex(refp - lq[..., i0:i1, :])
+        if i1 < chunk:
+            rt = rf[..., i1:, :] * ex(lp[..., i1:, :] - refp)
+            acc = acc + product(tr(dp[..., i1:, i0:i1]), rt)
+            amat[..., i1:, i0:i1] = product(rt, tr(kt))
+        dkp[..., i0:i1, :] = ex(refp - lq[..., i0:i1, :]) * acc
+        kdec[..., i0:i1, :] = kt * ex(total - refp)
+        # the diagonal block: its lower-left part factored at ref8
+        if mid < i1:
+            ref8 = lp[..., mid:mid + 1, :]
+            e8 = ex(lp[..., mid:i1, :] - ref8)
+            q8 = ex(ref8 - lq[..., i0:mid, :])
+            r8, k8 = rf[..., mid:i1, :] * e8, kf[..., i0:mid, :] * q8
+            f = dp[..., mid:i1, i0:mid]
+            drp[..., mid:i1, :] += e8 * product(f, k8)
+            dkp[..., i0:mid, :] += q8 * product(tr(f), r8)
+            amat[..., mid:i1, i0:mid] = product(r8, tr(k8))
+        # its two diagonal halves, pairwise
+        for p0, p1 in ((i0, mid), (mid, i1)):
+            if p0 == p1:
+                continue
+            dm = lp[..., p0:p1, None, :] - lq[..., None, p0:p1, :]
+            idx = torch.arange(p1 - p0, device=r.device)
+            lower = (idx[:, None] > idx[None, :])[..., None]
+            e = ex(torch.where(lower, dm, torch.full_like(dm, -math.inf)))
+            blk = dp[..., p0:p1, p0:p1]
+            drp[..., p0:p1, :] += torch.einsum("bhnij,bhnjd,bhnijd->bhnid",
+                                               blk, kf[..., p0:p1, :], e)
+            dkp[..., p0:p1, :] += torch.einsum("bhnij,bhnid,bhnijd->bhnjd",
+                                               blk, rf[..., p0:p1, :], e)
+            amat[..., p0:p1, p0:p1] = torch.einsum(
+                "bhnid,bhnjd,bhnijd->bhnij", rf[..., p0:p1, :],
+                kf[..., p0:p1, :], e)
+    diag = torch.diagonal(dp, dim1=3, dim2=4)          # DP_ii
+    bonus = torch.einsum("bhnid,hd,bhnid->bhni", rf, uf, kf)
+    amat = amat + torch.diag_embed(bonus)
+    dr = drp + uf[None, :, None, None] * kf * diag[..., None]
+    dk = dkp + uf[None, :, None, None] * rf * diag[..., None]
+    dv = product(tr(amat), do) + product(kdec, dl)
+    du = torch.einsum("bhnid,bhnid,bhni->hd", rf, kf, diag)
+
+    # 3. the log decays, within each chunk, from its last row up
+    x, y = rf * drp, kf * dkp
+    run = (dl * leaving).sum(dim=-1)                   # Σ_e dS'_c ⊙ S'_c
+    dlogw = torch.empty_like(x)
+    for m in range(chunk - 1, -1, -1):
+        run = run - y[..., m, :]
+        dlogw[..., m, :] = run
+        run = run + x[..., m, :]
 
     def back(t, like):
         return t.reshape(b, h, s, hd).to(like.dtype)

@@ -2,9 +2,12 @@
 
 The kernel is CUDA C++ in ``csrc/rwkv6_scan_bwd.cu`` (its header says
 what it computes, what bounds it and how it is laid out): three passes an
-op call, the reverse state pass (the gradient leaving every chunk), the
-chunk pass (every chunk's dr, dk, dv, dlogw and partial du at once) and
-the sum of du over the batch and the chunks.  ``kernels._build`` compiles
+op call, the reverse state pass (the gradient leaving every chunk, on the
+tensor cores, a head's rows of dS split over CTAs to fill the card), the
+chunk pass (every chunk's dr, dk, dv, dlogw and partial du at once, its
+products on the tensor cores) and the sum of du over the batch and the
+chunks.  Inputs that do not start on 16 bytes are copied first (the
+kernel stages them by ``cp.async``).  ``kernels._build`` compiles
 it with ``nvcc`` at first use; this module declares its C interface,
 allocates the gradients and the scratch, and launches it on PyTorch's
 current stream.
@@ -18,6 +21,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._tensors import aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan_bwd.cu"
 
@@ -46,6 +50,9 @@ def rwkv6_chunked_bwd(r, k, v, logw, u, state0, states, state_out, dout,
     chunk, ``[B, H, S / chunk, hd]``), on PyTorch's current stream,
     without synchronising."""
     lib = library()
+    r, k, v, logw, state0, states, state_out, dout, dstate_out = (
+        aligned(t) for t in (r, k, v, logw, state0, states, state_out, dout,
+                             dstate_out))
     b, h, s, hd = r.shape
     n = s // chunk
     dr, dk, dv, dlogw = (torch.empty_like(t) for t in (r, k, v, logw))

@@ -161,6 +161,52 @@ def test_tensor_core_bwd_spill_check_fails(log, error):
         chip_smoke.check_tensor_core_bwd_spills(log)
 
 
+def _rwkv6_bwd_log(spill: int = 0, drop: int = 0) -> str:
+    """ptxas' lines for ``rwkv6_scan_bwd.cu``'s entry functions (pass A at
+    four (hd, rows) pairs, passes B and C at two hds, each for its types),
+    ``spill`` bytes of spill stores for the first, the last ``drop`` left
+    out."""
+    types = ["ff", "f13__nv_bfloat16", "13__nv_bfloat16f",
+             "13__nv_bfloat16S1_"]
+    entries = [f"22rwkv6_bwd_state_kernelILi{hd}ELi{rows}E{ty}EEvPKT1_"
+               for hd, rows in ((64, 32), (64, 16), (32, 32), (32, 16))
+               for ty in types]
+    entries += [f"22rwkv6_bwd_chunk_kernelILi{hd}E{ty}EEvPKT0_"
+                for hd in (64, 32) for ty in types]
+    entries += [f"19rwkv6_bwd_du_kernelILi{hd}E{ty}EEvPKfPT0_lii"
+                for hd in (64, 32) for ty in ("f", "13__nv_bfloat16")]
+    lines = []
+    for n, entry in enumerate(entries[:len(entries) - drop]):
+        lines += [
+            "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__"
+            f"b426c5de_17_rwkv6_scan_bwd_cu_58d132f8{entry}' for 'sm_90a'",
+            f"    0 bytes stack frame, {spill if n == 0 else 0} bytes "
+            "spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 128 registers, used 16 barriers"]
+    return "\n".join(lines) + "\n"
+
+
+def test_rwkv6_bwd_spill_check_passes_a_clean_log(capsys):
+    import chip_smoke
+
+    chip_smoke.check_rwkv6_bwd_spills(_rwkv6_bwd_log())
+    out = capsys.readouterr().out
+    assert out.count("rwkv6_scan_bwd.cu") == chip_smoke.RW_BWD_ENTRIES == 28
+    assert "rwkv6_bwd_chunk_kernel<64,bf16,bf16>" in out
+
+
+@pytest.mark.parametrize("log,error", [
+    (_rwkv6_bwd_log(spill=80), "spills"),
+    (_rwkv6_bwd_log(drop=1), "not 28"),
+    ("", "reported 0"),
+], ids=["spill", "one-missing", "empty"])
+def test_rwkv6_bwd_spill_check_fails(log, error):
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match=error):
+        chip_smoke.check_rwkv6_bwd_spills(log)
+
+
 # -- each wrapper's ctypes declarations against its source's C interface -----
 
 _C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,

@@ -1660,6 +1660,10 @@ def _held(got, want, tol):
     (1, 2, 40, 64, 8, torch.float32, torch.bfloat16, 2.45),    # bf16 decays
     (3, 1, 21, 32, 7, torch.bfloat16, torch.bfloat16, 2.45),   # odd chunk
     (1, 3, 13, 64, 13, torch.float32, torch.float32, 2.45),    # one chunk
+    (1, 8, 160, 64, 40, torch.bfloat16, torch.float32, 2.45),  # C not of 16
+    # B·H = 67: pass A's 134 CTAs (two of 32 rows a head) pass an H100's
+    # 132 SMs, where the training shape's 128 fit
+    (1, 67, 128, 64, 64, torch.bfloat16, torch.float32, 2.45),
 ])
 def test_rwkv6_bwd_kernel_matches_plain_version(cuda, b, h, s, hd, chunk,
                                                 dtype, logw_dtype, span):
