@@ -9,7 +9,10 @@ its plain version, ``LOCAL_BWD`` timed, split by kernel and set beside
 SDPA's masked backward), ``3g-causal`` (its causal cases, the
 ``musicgen-medium`` and ``deepseek-7b`` shapes timed and split), ``3h``
 (``rwkv6_chunked_bwd``'s cases against its plain version, ``RW_BWD_MAIN``
-timed and split by pass), ``16a`` (``recurrentgemma-2b`` trained whole:
+timed and split by pass), ``3i`` (``rglru_scan_bwd``'s cases against its
+plain version, both forms timed at their main shapes, the gated entries'
+instructions an element counted from the build's SASS), ``16a``
+(``recurrentgemma-2b`` trained whole:
 step seconds, launches, device time by kind), ``16b`` (``rwkv6-7b`` at 8
 layers, the same), ``16c`` (both recurrent models, one fp32 step on the
 card against the CPU) or ``16c-rwkv`` (``rwkv6-7b``'s 16c gradients with
@@ -17,8 +20,9 @@ the kernels on the card, their plain versions on the card and on the
 CPU, each pair's worst leaves).  Each phase runs the function of DIR's own
 ``chip_smoke.py`` (default: this checkout) on DIR's own ``src``, whose
 kernels build into DIR's ``build/``; where DIR's phase 3h does not split
-its kernel by pass, this checkout's split does, on DIR's kernel.  Exits
-non-zero without a card.
+its kernel by pass, this checkout's split does, on DIR's kernel, and where
+DIR's phase 3i counts no SASS, this checkout's count reads DIR's build.
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -52,10 +56,26 @@ def _rwkv6_bwd(cs, ops, ref):
     return out
 
 
+def _rglru_bwd(cs, ops, ref):
+    from repro_torch.kernels import rglru_scan_bwd
+
+    out = cs.check_rglru_bwd_kernel(ops, ref)
+    if "sass" not in out:
+        here = _here()
+        out["sass"] = here.rglru_bwd_sass(rglru_scan_bwd.LIBRARY.info["path"])
+        b, s, w = here.RG_BWD_MAIN
+        for entry, got in sorted(out["sass"].items()):
+            got["floor_ms"] = here._instr_floor_ms(b * s * w,
+                                                   got["per_element"])
+            print(f"  {entry}: {json.dumps(got)}", flush=True)
+    return out
+
+
 PHASES = {
     "3g": lambda cs, ops, ref: cs.check_windowed_flash_bwd(ops, ref),
     "3g-causal": lambda cs, ops, ref: cs.check_flash_bwd_kernel(ops, ref),
     "3h": _rwkv6_bwd,
+    "3i": _rglru_bwd,
     "16a": lambda cs, ops, ref: cs.train_recurrent_whole(
         ops, "16a", "recurrentgemma-2b", 26),
     "16b": lambda cs, ops, ref: cs.train_recurrent_whole(

@@ -12,7 +12,8 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    ``flash_attention_bwd``, ``rwkv6_chunked_bwd`` and ``rglru_scan_bwd``),
    one nvcc each, started together, and prints
    ptxas' registers, shared memory and spills; any spill in
-   ``flash_attention_bwd``'s tensor-core kernels fails.
+   ``flash_attention_bwd``'s tensor-core kernels, ``rwkv6_scan_bwd.cu``
+   or ``rglru_scan_bwd.cu`` fails.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its main path gives it and at shapes that take its other
    branches, and times kernel, plain version, the bound and, where one
@@ -67,9 +68,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    fp32 logw, C = 64), at extreme decays, C = 16 with hd = 32, fp32 and
    one short chunk and C = 40, the time split by pass; phase 3i holds
    both forms of ``rglru_scan_bwd`` (read form bit for bit; gated form du
-   and dh0 bit for bit, the gate vectors' sums within 1e-4) at
-   ``recurrentgemma-2b``'s ([1, 4096, 2560] bf16), S = 1 and widths off
-   the channel block.  Each new kernel
+   and dh0 bit for bit, the gate vectors' sums bit for bit in the kernel's
+   order and within 1e-4 of the plain sums) at ``recurrentgemma-2b``'s
+   ([1, 4096, 2560] bf16), S = 1, S = 70 and widths off both channel
+   blocks, each case at both layouts of its form, and counts the gated
+   entries' instructions an element from the build's SASS.  Each new kernel
    repeats bit for bit and is timed beside its bound and plain version.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
@@ -289,6 +292,9 @@ INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
                                # 132 SMs x 1.98 GHz (the clock behind the
                                # 67 TFLOP/s fp32 peak); no data-sheet rate
 THREEFRY_OPS = 75              # 32-bit integer operations of one hash
+WARP_INSTR_PER_S = 4 * 132 * 1.98e9  # derived: 4 warp schedulers an SM,
+                               # one instruction a clock each, x 132 SMs x
+                               # 1.98 GHz
 RTOL, ATOL = 1e-5, 1e-4        # kernel vs plain: same rows, fp32 sums
 # rwkv6_chunked vs its plain version: the same fp32 chunk form from the
 # same inputs, with the same log-decay sums (a cumulative sum in row order,
@@ -1367,6 +1373,50 @@ def check_rwkv6_bwd_spills(log: str) -> None:
             raise AssertionError(f"{short} spills {got['spill']} bytes")
 
 
+# rglru_scan_bwd.cu's entry functions: the read form with 16- and 4-byte
+# copies, the gated form the same for fp32 and bf16 u, and the sum over B
+# for fp32 and bf16 gate vectors
+RG_BWD_ENTRIES = 2 + 2 * 2 + 2
+
+
+def _rglru_bwd_short(name: str) -> str:
+    import re
+
+    m = re.search(r"(rglru_bwd_\w+?_kernel)I(.*?)EEv", name)
+    if m is None:
+        return name
+    args = [a for a in re.split(r"E|Li|Lb", m.group(2)) if a]
+    names = {"t": "bf16", "f": "f32"}
+    return f"{m.group(1)}<{','.join(names.get(a, a) for a in args)}>"
+
+
+def check_rglru_bwd_spills(log: str) -> None:
+    """Phase 2: the registers, shared memory and spills ptxas reports for
+    every entry function of ``rglru_scan_bwd.cu`` (``rglru_bwd_*``); any
+    spill or missing entry fails."""
+    import re
+
+    seen = _ptxas_entries(log, lambda e: "rglru_bwd" in e)
+    smem, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and entry is not None:
+            smem[entry] = int(m.group(1))
+    if len(seen) != RG_BWD_ENTRIES:
+        raise AssertionError(f"ptxas reported {len(seen)} rglru_scan_bwd.cu "
+                             f"entry functions, not {RG_BWD_ENTRIES}")
+    for name, got in sorted(seen.items()):
+        short = _rglru_bwd_short(name)
+        print(f"  rglru_scan_bwd.cu {short}: {got['registers']} registers, "
+              f"{smem.get(name, 0)} bytes of static shared memory, spill "
+              f"stores and loads {got['spill']} bytes")
+        if got["spill"] != (0, 0):
+            raise AssertionError(f"{short} spills {got['spill']} bytes")
+
+
 def check_flash_bwd_kernel(ops, ref):
     """Phase 3g: ``flash_attention_bwd`` against its plain version
     (``ref.flash_attention_bwd_ref``) on the card, fed the kernel's own
@@ -1822,17 +1872,179 @@ def _rglru_bwd_bound(x, gate_vectors=None):
 RGLRU_BWD_OPS = 57
 
 
+def _sass_functions(text: str) -> dict:
+    """``{function: (instructions, labels)}`` from ``cuobjdump -sass``:
+    instructions as ``(address, text)``, labels as ``{name: address}``."""
+    import re
+
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                cur[1][label] = addr
+            pending = []
+            cur[0].append((addr, m.group(2)))
+    return funcs
+
+
+def _sass_loops(ins, labels) -> list:
+    """Each backward branch's range ``(first, last)`` of addresses."""
+    import re
+
+    loops = set()
+    for addr, text in ins:
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?"
+                      r"(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                      text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if target is not None and target <= addr:
+            loops.add((target, addr))
+    return sorted(loops)
+
+
+def _hot_path(ins, lo, hi, skip) -> list:
+    """The longest path of instructions from ``lo`` to the branch at ``hi``
+    (a loop's back edge) that reaches no CALL (a slow path): forward
+    branches taken or not, backward ones and branches out of the range not
+    taken, and instructions inside the ranges in ``skip`` (loops nested in
+    it) left out.  Returns the path's instruction texts."""
+    import re
+
+    body = [(a, t) for a, t in ins if lo <= a <= hi]
+    index = {a: k for k, (a, _) in enumerate(body)}
+    best, nxt = [None] * len(body), [None] * len(body)
+    for k in range(len(body) - 1, -1, -1):
+        addr, text = body[k]
+        if re.search(r"\bCALL\b", text):
+            continue
+        weight = 0 if any(s0 <= addr <= s1 for s0, s1 in skip) else 1
+        if k == len(body) - 1:
+            best[k] = weight
+            continue
+        m = re.search(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?"
+                      r"(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                      text)
+        succ = [k + 1]
+        if m and m.group(2) is not None:
+            target = int(m.group(2), 16)
+            if addr < target <= hi:
+                succ = [index[target]] + ([k + 1] if text.startswith("@")
+                                          else [])
+        options = [(best[s], s) for s in succ if best[s] is not None]
+        if options:
+            best[k], nxt[k] = max(options)
+            best[k] += weight
+    path, k = [], 0
+    while k is not None and best[k] is not None:
+        addr, text = body[k]
+        if not any(s0 <= addr <= s1 for s0, s1 in skip):
+            path.append(text)
+        k = nxt[k]
+    return path
+
+
+def sass_per_element(text: str, keep) -> dict:
+    """Instructions an element of each gated ``rglru_scan_bwd`` entry that
+    ``keep`` accepts, counted from its SASS (``cuobjdump -sass``).  The
+    math loop is the loop holding the most MUFU instructions (the
+    exponentials, reciprocals and roots); its hot path is the longest path
+    through it that calls no slow path (:func:`_hot_path`, the loops nested
+    in it without a MUFU, mbarrier waits and the parent design's walk,
+    left out), and that path's instructions over its global stores (one du
+    an element) are the math threads' instructions an element.  The walk's
+    instructions a step are the fewest instructions an FADD over the
+    MUFU-free loops (one FADD a step).  ``per_element`` is math + 32 walk /
+    lanes, in thread-instructions an element, with the walk's lanes
+    (channels a CTA) read from the entry's first template integer, or 16
+    where it has none (the parent's)."""
+    import re
+
+    out = {}
+    for name, (ins, labels) in _sass_functions(text).items():
+        if not keep(name):
+            continue
+
+        def count(lo, hi, pattern):
+            return sum(1 for a, t in ins
+                       if lo <= a <= hi and re.search(pattern, t))
+
+        loops = _sass_loops(ins, labels)
+        mufu = {lp: count(*lp, r"\bMUFU\.") for lp in loops}
+        if not loops or max(mufu.values()) == 0:
+            continue
+        main = max(loops, key=lambda lp: (mufu[lp], lp[1] - lp[0]))
+        nested = [lp for lp in loops if lp != main and main[0] <= lp[0]
+                  and lp[1] <= main[1] and mufu[lp] == 0]
+        path = _hot_path(ins, *main, nested)
+        stores = sum(1 for t in path if re.search(r"\bSTG\b", t))
+        walks = [count(*lp, r".") / count(*lp, r"\bFADD\b") for lp in loops
+                 if mufu[lp] == 0 and count(*lp, r"\bFADD\b")]
+        m = re.search(r"kernelILi(\d+)E", name)
+        lanes = int(m.group(1)) if m else 16
+        math = len(path) / max(stores, 1)
+        walk = min(walks) if walks else 0.0
+        out[_rglru_bwd_short(name)] = {
+            "static": len(ins), "math_loop": count(*main, r"."),
+            "hot_path": len(path), "math_stores": stores, "math": math,
+            "walk_per_step": walk, "walk_lanes": lanes,
+            "per_element": math + 32.0 * walk / lanes}
+    return out
+
+
+def rglru_bwd_sass(lib_path: str) -> dict:
+    """:func:`sass_per_element` of the gated entries in the built library
+    at ``lib_path``, by ``cuobjdump -sass`` from the toolkit beside nvcc;
+    the SASS is kept beside the library (``<library>.sass``)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    with open(lib_path + ".sass", "w") as f:
+        f.write(text)
+    return sass_per_element(
+        text, lambda e: "rglru_bwd_gated" in e or "rglru_bwd_kernelILb1E" in e)
+
+
+def _instr_floor_ms(elements: int, per_element: float) -> float:
+    """Least time for ``elements`` at ``per_element`` thread-instructions
+    an element, 32 a warp-instruction, at ``WARP_INSTR_PER_S``."""
+    return elements * per_element / 32.0 / WARP_INSTR_PER_S * 1e3
+
+
 def check_rglru_bwd_kernel(ops, ref):
     """Phase 3i: both forms of ``rglru_scan_bwd`` against their plain
     versions on the card, fed the forward kernel's own output: the read
     form (``ref.rglru_scan_bwd_ref``) bit for bit, the gated form
-    (``ref.rglru_gated_scan_bwd_ref``) with du and dh0 bit for bit and the
-    gate vectors' sums within ``RG_SUM_TOL``, at the training path's shape
-    (``RG_BWD_MAIN``, bf16 u and gate vectors), at S = 1, at widths off
-    the kernel's 16-channel block, in fp32 and with Λ so negative that the
-    clamp of 1 − a² binds.  A second gated launch at the main shape must
-    equal the first bit for bit; both forms are timed beside their bounds
-    and plain versions (no PyTorch call computes this function)."""
+    (``ref.rglru_gated_scan_bwd_ref``) with du and dh0 bit for bit, the
+    gate vectors' sums within ``RG_SUM_TOL`` and bit for bit against
+    ``ref.rglru_gated_scan_bwd_kernel_order_ref`` (the kernel's order), at
+    the training path's shape (``RG_BWD_MAIN``, bf16 u and gate vectors),
+    at S = 1, at S = 70 and widths off the channel blocks (2563, 100), in
+    fp32 and with Λ so negative that the clamp of 1 − a² binds.  A second
+    gated launch at the main shape must equal the first bit for bit; both
+    forms are timed (CUDA events over 100 launches) beside their bounds and
+    plain versions (no PyTorch call computes this function), and the gated
+    entries' instructions an element are counted from the build's SASS
+    (``rglru_bwd_sass``)."""
+    from repro_torch.kernels import rglru_scan_bwd as rgb
+
     card = _card_line()
     gen = torch.Generator(device="cuda").manual_seed(32)
     worst = 0.0
@@ -1843,7 +2055,8 @@ def check_rglru_bwd_kernel(ops, ref):
                                  f"{float((got - want).abs().max())!r}")
         return 0.0
 
-    for b, s, w in [(4, 4096, 2560), (2, 1, 100), (3, 70, 2563)]:
+    for b, s, w in [(4, 4096, 2560), (2, 1, 100), (3, 70, 2563),
+                    (2, 70, 100)]:
         a = 0.2 + 0.79 * torch.rand((b, s, w), generator=gen, device="cuda")
         x = 0.5 * torch.randn((b, s, w), generator=gen, device="cuda")
         h0 = torch.randn((b, w), generator=gen, device="cuda")
@@ -1854,13 +2067,14 @@ def check_rglru_bwd_kernel(ops, ref):
         torch.cuda.synchronize()
         if ops.launch_count("rglru_scan_bwd") != 1:
             raise AssertionError("rglru_scan_bwd did not count its launch")
+        what = f"rglru_scan_bwd read form B={b} S={s} W={w}"
         for name, g, ww in zip(("da", "db", "dh0"), got,
                                ref.rglru_scan_bwd_ref(a, h, h0, dh)):
-            same(g, ww, f"read form B={b} S={s} W={w} {name}")
-        print(f"rglru_scan_bwd read form B={b} S={s} W={w}: da, db and dh0 "
-              "bit for bit")
+            same(g, ww, f"{what} {name}")
+        print(f"{what}: da, db and dh0 bit for bit")
         if s == 4096:
-            read = {"ms": _time_ms(lambda: ops.rglru_scan_bwd(a, h, h0, dh)),
+            read = {"ms": _time_ms(lambda: ops.rglru_scan_bwd(a, h, h0, dh),
+                                   reps=100),
                     "plain_ms": _time_ms(lambda: ref.rglru_scan_bwd_ref(
                         a, h, h0, dh), reps=2)}
             read["bound_ms"], read["bound_by"] = _rglru_bwd_bound(a)
@@ -1870,6 +2084,7 @@ def check_rglru_bwd_kernel(ops, ref):
             RG_BWD_MAIN + (torch.bfloat16, 1.0),
             (2, 1, 100, torch.bfloat16, 1.0),
             (3, 70, 2563, torch.bfloat16, 1.0),
+            (2, 70, 100, torch.bfloat16, 1.0),
             (2, 13, 100, torch.float32, 1.0),
             (2, 200, 48, torch.float32, -20.0)]:
         u = (2.0 * torch.randn((b, s, w), generator=gen,
@@ -1881,12 +2096,13 @@ def check_rglru_bwd_kernel(ops, ref):
         args = (u, *gv, h0, h, dh)
         got = ops.rglru_gated_scan_bwd(*args)
         want = ref.rglru_gated_scan_bwd_ref(*args)
+        ordered = ref.rglru_gated_scan_bwd_kernel_order_ref(*args)
         what = (f"rglru_scan_bwd gated form B={b} S={s} W={w} "
                 f"{str(dtype).split('.')[-1]} u and gates, Λ ~ {lam_mean}")
         names = ("du", "dgate_a_w", "dgate_a_b", "dgate_x_w", "dgate_x_b",
                  "dsoftplus_lam", "dh0")
         errs = {}
-        for name, g, ww in zip(names, got, want):
+        for name, g, ww, wo in zip(names, got, want, ordered):
             if g.dtype != ww.dtype or g.shape != ww.shape:
                 raise AssertionError(f"{what}: {name} is {g.dtype}, not "
                                      f"{ww.dtype}")
@@ -1894,30 +2110,37 @@ def check_rglru_bwd_kernel(ops, ref):
                 errs[name] = same(g, ww, f"{what}: {name}")
             else:
                 errs[name] = _leaf_err(g, ww, RG_SUM_TOL, f"{what}: {name}")
+                same(g, wo, f"{what}: {name} against the kernel's order")
         worst = max(worst, *errs.values())
-        print(f"{what}: du and dh0 bit for bit; the gate vectors' sums "
-              f"within {json.dumps(errs)} of their largest entries "
-              f"(tolerance {RG_SUM_TOL})")
+        print(f"{what}: du and dh0 bit for bit; the gate vectors' sums bit "
+              f"for bit in the kernel's order and within {json.dumps(errs)} "
+              f"of the plain sums' largest entries (tolerance {RG_SUM_TOL})")
         if (b, s, w) == RG_BWD_MAIN:
             again = ops.rglru_gated_scan_bwd(*args)
             if not all(torch.equal(p, q) for p, q in zip(got, again)):
                 raise AssertionError("two rglru_gated_scan_bwd launches on "
                                      "the same inputs differ")
-            ms = _time_ms(lambda: ops.rglru_gated_scan_bwd(*args))
+            ms = _time_ms(lambda: ops.rglru_gated_scan_bwd(*args), reps=100)
             plain_ms = _time_ms(lambda: ref.rglru_gated_scan_bwd_ref(*args),
                                 reps=2)
             bound_ms, bound_by = _rglru_bwd_bound(u, gv)
+            sass = rglru_bwd_sass(rgb.LIBRARY.info["path"])
+            for entry, got_sass in sorted(sass.items()):
+                got_sass["floor_ms"] = _instr_floor_ms(u.numel(),
+                                                       got_sass["per_element"])
+                print(f"  {entry}: {json.dumps(got_sass)}")
             print(f"rglru_scan_bwd gated form at [1, 4096, 2560] bf16 u and "
                   f"gates: kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
                   f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms!r} of its "
                   f"bound; read form at [4, 4096, 2560] fp32: kernel "
-                  f"{read['ms']!r} ms, plain {read['plain_ms']!r} ms, bound "
-                  f"{read['bound_ms']!r} ms ({read['bound_by']}); two gated "
-                  f"launches equal bit for bit; no PyTorch call computes "
-                  f"this function, so library_ms is null ({card})")
-            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "read_form": read}
-        del u, gv, h0, dh, h, args, got, want
+                  f"{read['ms']!r} ms, plain {read['plain_ms']!r} ms, "
+                  f"bound {read['bound_ms']!r} ms ({read['bound_by']}); two "
+                  f"gated launches equal bit for bit; no PyTorch call "
+                  f"computes this function, so library_ms is null ({card})")
+            timing = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "read_form": read, "sass": sass}
+        del u, gv, h0, dh, h, args, got, want, ordered
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, **timing}
 
@@ -5468,6 +5691,7 @@ def main() -> None:
                 print("    ptxas:", line.strip())
     check_tensor_core_bwd_spills(flash_attention_bwd.LIBRARY.info["log"])
     check_rwkv6_bwd_spills(rwkv6_scan_bwd.LIBRARY.info["log"])
+    check_rglru_bwd_spills(rglru_scan_bwd.LIBRARY.info["log"])
 
     # phase 3 — each kernel against its plain version
     timing = check_kernel(ops, ref, prng, subsample_gather)

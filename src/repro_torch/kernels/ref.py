@@ -649,6 +649,33 @@ def rglru_gated_scan_bwd_ref(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
     the sums over B and S.  Returns ``(du, dw_a, db_a, dw_x, db_x,
     dsoftplus_lam, dh0)``: du in u's type, the gate vectors' gradients in
     theirs, the last two fp32."""
+    du, terms, dh0 = _rglru_gated_bwd_terms(
+        u, gate_a_w, gate_a_b, gate_x_w, gate_x_b, softplus_lam, h0, h, dh)
+    return _rglru_gated_bwd_out(u, (gate_a_w, gate_a_b, gate_x_w, gate_x_b),
+                                du, [t.sum((0, 1)) for t in terms], dh0)
+
+
+def rglru_gated_scan_bwd_kernel_order_ref(u, gate_a_w, gate_a_b, gate_x_w,
+                                          gate_x_b, softplus_lam, h0, h, dh):
+    """:func:`rglru_gated_scan_bwd_ref` with the five sums added in the
+    ``rglru_scan_bwd`` kernel's order (its source's header): row ``t0 + s +
+    32 j`` of a 64-step chunk belongs to slot ``s`` of 32; a slot's fp32 sum
+    adds its rows to 0 chunk by chunk from the last chunk, ``j = 0, 1`` in
+    order within one; a channel's partial adds its 32 slots to 0 in order;
+    the batch rows' partials add to 0 in order.  du and dh0 are the plain
+    version's; on the card the sums equal the kernel's bit for bit."""
+    du, terms, dh0 = _rglru_gated_bwd_terms(
+        u, gate_a_w, gate_a_b, gate_x_w, gate_x_b, softplus_lam, h0, h, dh)
+    return _rglru_gated_bwd_out(u, (gate_a_w, gate_a_b, gate_x_w, gate_x_b),
+                                du, [_kernel_order_sum(t) for t in terms],
+                                dh0)
+
+
+def _rglru_gated_bwd_terms(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
+                           softplus_lam, h0, h, dh):
+    """du (fp32), the five fp32 terms ``[B, S, W]`` the gate vectors' sums
+    take (dz_a u, dz_a, dz_x u, dz_x, dlog_a (−8 r)) and dh0, each element
+    by the chain rule of :func:`rglru_gated_scan_bwd_ref`."""
     uf = u.float()
     sp = softplus_lam.float()
     r = torch.sigmoid(gate_a_w * uf + gate_a_b)
@@ -666,12 +693,42 @@ def rglru_gated_scan_bwd_ref(u, gate_a_w, gate_a_b, gate_x_w, gate_x_b,
     dza = dr * (r * (1.0 - r))
     dzx = diu * uf * (i * (1.0 - i))
     du = dza * gate_a_w.float() + dzx * gate_x_w.float() + diu * i
-    dims = (0, 1)
-    return (du.to(u.dtype), (dza * uf).sum(dims).to(gate_a_w.dtype),
-            dza.sum(dims).to(gate_a_b.dtype),
-            (dzx * uf).sum(dims).to(gate_x_w.dtype),
-            dzx.sum(dims).to(gate_x_b.dtype),
-            (dlog_a * (-8.0 * r)).sum(dims), dh0)
+    return du, (dza * uf, dza, dzx * uf, dzx, dlog_a * (-8.0 * r)), dh0
+
+
+def _rglru_gated_bwd_out(u, gates, du, sums, dh0):
+    return (du.to(u.dtype),
+            *(t.to(g.dtype) for t, g in zip(sums, gates)), sums[4], dh0)
+
+
+RGLRU_BWD_CHUNK = 64             # the kernel's steps a chunk
+RGLRU_BWD_SLOTS = 32             # its row slots a chunk
+
+
+def _kernel_order_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t [B, S, W]`` fp32 summed over B and S in the kernel's order (see
+    :func:`rglru_gated_scan_bwd_kernel_order_ref`).  Rows past S are added
+    as +0, which leaves a sum started at +0 unchanged, as the kernel's
+    skipping them does."""
+    b, s, w = t.shape
+    chunks = -(-s // RGLRU_BWD_CHUNK)
+    padded = torch.zeros((b, chunks * RGLRU_BWD_CHUNK, w),
+                         dtype=torch.float32, device=t.device)
+    padded[:, :s] = t
+    rows = padded.view(b, chunks, RGLRU_BWD_CHUNK // RGLRU_BWD_SLOTS,
+                       RGLRU_BWD_SLOTS, w)
+    slots = torch.zeros((b, RGLRU_BWD_SLOTS, w), dtype=torch.float32,
+                        device=t.device)
+    for k in range(chunks - 1, -1, -1):
+        for j in range(rows.shape[2]):
+            slots = slots + rows[:, k, j]
+    part = torch.zeros((b, w), dtype=torch.float32, device=t.device)
+    for sl in range(RGLRU_BWD_SLOTS):
+        part = part + slots[:, sl]
+    total = torch.zeros((w,), dtype=torch.float32, device=t.device)
+    for bi in range(b):
+        total = total + part[bi]
+    return total
 
 
 def attention_mask(sq: int, skv: int, *, causal: bool, window: int,

@@ -1,14 +1,19 @@
 """The ``rglru_scan`` backward Hopper kernel: build, load and launch.
 
 The kernel is CUDA C++ in ``csrc/rglru_scan_bwd.cu`` (its header says
-what it computes, what bounds it and how it is laid out): one reverse
-walk along S a channel serves both forms of the forward, the read form
-(``da`` and ``db`` out) and the gated form (``a`` and the gated input
-formed again from ``u``, the chain rule through the gates in the kernel,
-``du`` out, and the gate vectors' gradients summed a batch row into
-partials that a second launch adds over B in order).  ``kernels._build``
-compiles it with ``nvcc`` at first use; this module declares its C
-interface and launches it on PyTorch's current stream.
+what it computes, what bounds it, how it is laid out and in what order it
+sums): one pipelined body a CTA serves both forms of the forward.  A load
+warp fills a shared-memory ring with ``dh`` and ``h_{t-1}`` by
+``cp.async`` from the last chunk back, a walk warp runs the reverse scan
+``g_t = dh_t + a_{t+1} g_{t+1}`` one sequential chain a channel, and math
+warps, a chunk behind, turn ``g`` into the gradients: in the read form
+``da`` and ``db``; in the gated form they first form the gates from ``u``
+once an element (``a`` for the walk, the rest kept in each thread's own
+shared memory for the chain rule), then ``du`` and the gate vectors' sums
+into partials that a second launch adds over B in order.
+``kernels._build`` compiles the source with ``nvcc`` at first use; this
+module declares its C interface and launches it on PyTorch's current
+stream.
 """
 
 from __future__ import annotations

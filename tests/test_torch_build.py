@@ -207,6 +207,96 @@ def test_rwkv6_bwd_spill_check_fails(log, error):
         chip_smoke.check_rwkv6_bwd_spills(log)
 
 
+def _rglru_bwd_log(spill: int = 0, drop: int = 0) -> str:
+    """ptxas' lines for ``rglru_scan_bwd.cu``'s entry functions (the read
+    form at two copy widths, the gated form the same for two types of u,
+    the sum over B for two types), ``spill`` bytes of spill stores for the
+    first, the last ``drop`` left out."""
+    entries = [f"21rglru_bwd_read_kernelILi32ELi{vec}EEEvPKfS2_S2_S2_PfS3_"
+               for vec in (4, 1)]
+    entries += [f"22rglru_bwd_gated_kernelILi8ELi{vec}E{ty}EEvPKT1_PKv"
+                for vec in (4, 1) for ty in ("f", "t")]
+    entries += [f"20rglru_bwd_sum_kernelI{ty}EEvPKfPT_S3_S3_S3_Pfll"
+                for ty in ("f", "t")]
+    lines = []
+    for n, entry in enumerate(entries[:len(entries) - drop]):
+        lines += [
+            "ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__"
+            f"0c4e8a1b_17_rglru_scan_bwd_cu_3f1a2b6c{entry}' for 'sm_90a'",
+            f"    0 bytes stack frame, {spill if n == 0 else 0} bytes "
+            "spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 96 registers, used 2 barriers, 368 bytes "
+            "cmem[0]"]
+    return "\n".join(lines) + "\n"
+
+
+def test_rglru_bwd_spill_check_passes_a_clean_log(capsys):
+    import chip_smoke
+
+    chip_smoke.check_rglru_bwd_spills(_rglru_bwd_log())
+    out = capsys.readouterr().out
+    assert out.count("rglru_scan_bwd.cu") == chip_smoke.RG_BWD_ENTRIES == 8
+    assert "rglru_bwd_gated_kernel<8,4,bf16>" in out
+    assert "rglru_bwd_sum_kernel<f32>" in out
+
+
+@pytest.mark.parametrize("log,error", [
+    (_rglru_bwd_log(spill=8), "spills"),
+    (_rglru_bwd_log(drop=1), "not 8"),
+    ("", "reported 0"),
+], ids=["spill", "one-missing", "empty"])
+def test_rglru_bwd_spill_check_fails(log, error):
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match=error):
+        chip_smoke.check_rglru_bwd_spills(log)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN50_GLOBAL__N__0c4e8a1b_17_rglru_scan_bwd_cu_3f1a2b6c22rglru_bwd_gated_kernelILi8ELi4EtEEvPKT1_PKv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.EX2 R2, R3 ;
+        /*0020*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R4], R5 ;
+        /*0030*/               @!P0 BRA 0x20 ;
+        /*0040*/                   ISETP.GT.U32.AND P1, PT, R2, R6, PT ;
+        /*0050*/                @P1 BRA P3, 0x80 ;
+        /*0060*/                   CALL.REL.NOINC 0x140 ;
+        /*0070*/                   BRA 0x90 ;
+        /*0080*/                   MUFU.RCP R7, R2 ;
+        /*0090*/                   FADD R8, R7, R2 ;
+        /*00a0*/                   STG.E.U16 desc[UR4][R10.64], R8 ;
+        /*00b0*/                   STG.E.U16 desc[UR4][R12.64], R8 ;
+        /*00c0*/                @P2 BRA 0x10 ;
+.L_x_1:
+        /*00d0*/                   LDS R1, [R2] ;
+        /*00e0*/                   FMUL R3, R4, R5 ;
+        /*00f0*/                   FADD R5, R3, R1 ;
+        /*0100*/                   FMUL R3, R4, R5 ;
+        /*0110*/                   FADD R5, R3, R1 ;
+        /*0120*/                @P3 BRA `(.L_x_1) ;
+        /*0130*/                   EXIT ;
+        /*0140*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def test_sass_count_takes_the_hot_path_of_the_math_loop():
+    """On a made-up listing: the math loop (0x10-0xc0, two MUFU) without
+    its nested wait loop and its slow-path CALL is 8 instructions over two
+    stores; the walk loop is 6 instructions over two FADD steps; 8 lanes."""
+    import chip_smoke
+
+    got = chip_smoke.sass_per_element(_SASS, lambda e: "rglru_bwd" in e)
+    assert list(got) == ["rglru_bwd_gated_kernel<8,4,bf16>"]
+    one = got["rglru_bwd_gated_kernel<8,4,bf16>"]
+    assert one["static"] == 21 and one["math_loop"] == 12
+    assert one["hot_path"] == 8 and one["math_stores"] == 2
+    assert one["math"] == 4.0 and one["walk_per_step"] == 3.0
+    assert one["walk_lanes"] == 8
+    assert one["per_element"] == 4.0 + 32 * 3.0 / 8
+    assert chip_smoke._instr_floor_ms(32 * 528, 1.0) == 1e3 / 1.98e9
+
+
 # -- each wrapper's ctypes declarations against its source's C interface -----
 
 _C_TYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,

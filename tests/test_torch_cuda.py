@@ -1705,7 +1705,8 @@ def test_rwkv6_function_backward_launches_the_kernel(cuda):
 
 # rglru_scan_bwd: the read form and the gated form's du and dh0 take the
 # plain version's operations one by one, bit for bit; the gate vectors'
-# sums add in another order
+# sums add in another order than torch.sum's (the kernel's, which
+# ref.rglru_gated_scan_bwd_kernel_order_ref repeats bit for bit)
 RG_SUM_TOL = 1e-4
 
 
@@ -1732,6 +1733,7 @@ def test_rglru_bwd_kernel_read_form_equals_plain_version(cuda, b, s, w):
     (1, 4096, 2560, torch.bfloat16, 1.0),      # the model's path
     (2, 1, 100, torch.bfloat16, 1.0),          # S = 1
     (3, 70, 2563, torch.bfloat16, 1.0),        # W off the channel block
+    (2, 70, 100, torch.bfloat16, 1.0),         # W off it, a short chunk
     (2, 130, 48, torch.float32, -20.0),        # the clamp binds
 ])
 def test_rglru_bwd_kernel_gated_form_matches_plain_version(cuda, b, s, w,
@@ -1752,6 +1754,9 @@ def test_rglru_bwd_kernel_gated_form_matches_plain_version(cuda, b, s, w,
     for p, q in zip(got[1:6], want[1:6]):
         _held(p, q, RG_SUM_TOL)
         assert p.dtype == q.dtype
+    # the sums in the kernel's documented order: bit for bit
+    ordered = ref.rglru_gated_scan_bwd_kernel_order_ref(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, ordered))
     again = ops.rglru_gated_scan_bwd(*args)
     assert all(torch.equal(p, q) for p, q in zip(got, again))
 
