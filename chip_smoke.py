@@ -265,6 +265,21 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    RG-LRU, local pattern): the loss within 1e-4, gradients and parameters
    within 14b's bounds (``rwkv6-7b``'s gradients within 1e-3,
    ``RWKV_CARD_CPU_TOL``).
+17. After phase 16: the multi-device training layer and the dry run,
+   under 60 s.  17a the collectives of ``repro_torch.parallel.collectives``
+   over a mesh of four streams of the one card (as 12c builds one), 1 GiB
+   of fp32 an entry: ``ring_all_reduce`` equal bit for bit to a plain sum
+   in the ring's order and ``allclose`` to ``sum``, ``reduce_scatter``
+   against the sum's slices, ``compressed_psum`` within one quantization
+   step an entry, each timed beside the bytes it moves over 3.35 TB/s.
+   17b ``launch.dryrun`` in-process on the single-pod mesh with
+   calibration, every LM arch at ``train_4k`` and ``decode_32k``, its
+   ``report.dryrun_table`` and ``roofline_table`` printed.  17c the dry
+   run of 14a's shape (``musicgen-medium`` whole, batch 8 × 2,048, 4
+   microbatches, mesh ``(1, 1)``) held against the card: the predicted
+   state bytes against ``torch.cuda.memory_allocated()`` after the state
+   is built, the predicted peak against 14a's ``max_memory_allocated``,
+   and the counted FLOPs of a step over 14a's step time.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the script then
@@ -284,10 +299,27 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+
+
+def _load_hw():
+    """The port's table of the card's figures,
+    ``src/repro_torch/roofline/hw.py``, loaded by its path (it imports
+    nothing), so that this checkout's figures hold whichever ``src`` is
+    on the path (``chip_phases.py --root``)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                        "repro_torch", "roofline", "hw.py")
+    spec = importlib.util.spec_from_file_location("_repro_torch_hw", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_HW = _load_hw()
+HBM_BYTES_PER_S = _HW.HBM_BW            # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+BF16_FLOPS_PER_S = _HW.PEAK_FLOPS_BF16  # H100 SXM bf16 tensor cores, dense
 INT32_OPS_PER_S = 16.7e12      # derived: 64 INT32 results a clock an SM x
                                # 132 SMs x 1.98 GHz (the clock behind the
                                # 67 TFLOP/s fp32 peak); no data-sheet rate
@@ -3722,6 +3754,10 @@ def service_on_the_card(ops, prng, ss, samples, months, eaglet, step4,
 
     from repro_torch.platform import PlatformService
 
+    # the baseline without earlier phases' garbage: a crashed run's
+    # arena (10d) can wait in a reference cycle for the collector, which
+    # 11e runs, and would read as memory the service freed
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem_before = torch.cuda.memory_allocated()
@@ -5652,6 +5688,247 @@ def train_recurrent_on_the_card(ops):
     return out
 
 
+# phase 17 — the multi-device training layer and the dry run
+#
+# 17a: the collectives over four streams of one card, 1 GiB of fp32 an
+# entry ([262,144, 1,024]: the leading axis splits into four chunks)
+COLL_STREAMS = 4
+COLL_SHAPE = (1 << 18, 1 << 10)
+# ring_all_reduce and reduce_scatter against the plain sum (torch.stack
+# .sum, another order of the same four fp32 terms of order 1): a few ulps
+COLL_RTOL, COLL_ATOL = 1e-5, 1e-5
+# 17b: the shapes the dry run sweeps in-process, every LM arch at each
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# 17c: the predicted state bytes against memory_allocated(): the caching
+# allocator rounds each tensor up to 512 bytes, so they may part by up to
+# 512 bytes a leaf; the predicted peak within PEAK_FACTOR of 14a's
+# max_memory_allocated either way: the dry run tracks the plain versions'
+# storage on meta (the attention scores at S = 2,048, which the kernels
+# never hold) and extrapolates each phase's peak from two depths
+ALLOC_ROUND = 512
+PEAK_FACTOR = 1.15
+
+
+def _ring_order_sum(xs, start: int):
+    """The sum the ring forms in each chunk, as plain torch ops: chunk c
+    starts at entry (c + start) and takes each next entry's own chunk
+    first (``own + received``), around the ring."""
+    n = len(xs)
+    parts = []
+    for c in range(n):
+        chunks = [x.chunk(n)[c] for x in xs]
+        acc = chunks[(c + start) % n].clone()
+        for m in range(start + 1, start + n):
+            acc = chunks[(c + m) % n] + acc
+        parts.append(acc)
+    return torch.cat(parts)
+
+
+def _host_ms_sync(fn, reps: int = 3):
+    """Each of ``reps`` calls' host ms from a synchronized start to a
+    synchronized end (the collectives span four streams), after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def collectives_on_the_card():
+    """17a: ``ring_all_reduce``, ``reduce_scatter`` and ``compressed_psum``
+    over a mesh of four streams of the one card, 1 GiB of fp32 an entry,
+    each entry's shard made on its own stream."""
+    from repro_torch.launch.mesh import WaveMesh
+    from repro_torch.parallel.collectives import (compressed_psum,
+                                                  reduce_scatter,
+                                                  ring_all_reduce)
+    from repro_torch.parallel.compression import quantize_int8
+
+    card = _card_line()
+    mesh = WaveMesh((torch.device("cuda", 0),) * COLL_STREAMS)
+    streams = [mesh.stream(i) for i in range(COLL_STREAMS)]
+    n = COLL_STREAMS
+    xs = []
+    for i, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            gen = torch.Generator(device="cuda").manual_seed(1700 + i)
+            xs.append(torch.randn(COLL_SHAPE, generator=gen, device="cuda"))
+    torch.cuda.synchronize()
+    entry = xs[0].numel() * 4
+    out = {}
+
+    got = ring_all_reduce(xs, streams)
+    torch.cuda.synchronize()
+    want = _ring_order_sum(xs, 0)
+    total = torch.stack(xs).sum(dim=0)
+    for i, g in enumerate(got):
+        if not torch.equal(g, want):
+            raise AssertionError(f"17a: ring_all_reduce entry {i} is not "
+                                 "the ring-order sum bit for bit")
+        if not torch.allclose(g, total, rtol=COLL_RTOL, atol=COLL_ATOL):
+            raise AssertionError(f"17a: ring_all_reduce entry {i} off the "
+                                 "sum")
+    del got, want
+    rs = reduce_scatter(xs, streams)
+    torch.cuda.synchronize()
+    rows = COLL_SHAPE[0] // n
+    rs_want = _ring_order_sum(xs, 1)
+    for i, g in enumerate(rs):
+        part = slice(i * rows, (i + 1) * rows)
+        if not torch.allclose(g, total[part], rtol=COLL_RTOL,
+                              atol=COLL_ATOL):
+            raise AssertionError(f"17a: reduce_scatter entry {i} off its "
+                                 "slice of the sum")
+        if not torch.equal(g, rs_want[part]):
+            raise AssertionError(f"17a: reduce_scatter entry {i} is not the "
+                                 "ring-order sum bit for bit")
+    del rs, rs_want
+    cp = compressed_psum(xs, streams)
+    torch.cuda.synchronize()
+    bound = sum(float(quantize_int8(x)[1].max()) / 2 for x in xs) + 1e-5
+    worst = max(float((g - total).abs().max()) for g in cp)
+    if worst > bound:
+        raise AssertionError(f"17a: compressed_psum off by {worst!r}, over "
+                             f"half a quantization step an entry {bound!r}")
+    del cp, total
+    torch.cuda.empty_cache()
+    # bytes moved, all entries.  The ring and the reduce-scatter: what
+    # they read and write, a clone (2 S), then per step a chunk copied in
+    # (2 C) and added (3 C) or kept (2 C).  The compressed sum: its
+    # payload's least, x read, the int8 values and row scales written,
+    # every entry's payload read and the fp32 sum written (its quantize
+    # and dequantize passes read and write more)
+    s_b, c_b = entry, entry // n
+    scale_b = COLL_SHAPE[0] * 4
+    moved = {
+        "ring_all_reduce": n * (2 * s_b + (n - 1) * (5 + 4) * c_b),
+        "reduce_scatter": n * (2 * s_b + (n - 1) * 5 * c_b),
+        "compressed_psum": n * (s_b + s_b // 4 + scale_b
+                                + n * (s_b // 4 + scale_b) + s_b),
+    }
+    for name, fn in (("ring_all_reduce", ring_all_reduce),
+                     ("reduce_scatter", reduce_scatter),
+                     ("compressed_psum", compressed_psum)):
+        ms = _host_ms_sync(lambda fn=fn: fn(xs, streams))
+        torch.cuda.empty_cache()
+        out[name] = {"ms": ms, "bytes": moved[name],
+                     "bytes_ms": moved[name] / HBM_BYTES_PER_S * 1e3}
+        print(f"17a: {name} over {n} streams, 1 GiB of fp32 an entry: "
+              f"{json.dumps(ms)} ms (host clock, synchronized), "
+              f"{moved[name]} bytes moved, "
+              f"{out[name]['bytes_ms']!r} ms at 3.35 TB/s ({card})")
+    print(f"17a: ring_all_reduce ≡ the ring-order sum bit for bit and "
+          f"allclose to sum; reduce_scatter ≡ its slices; compressed_psum "
+          f"within {bound!r} (worst {worst!r}) ({card})")
+    del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_run_sweep():
+    """17b: ``launch.dryrun.run_cell`` in-process on the single-pod mesh
+    with calibration, every LM arch at ``DRYRUN_SHAPES``; the report's
+    tables printed."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+
+    cells, times = [], {}
+    t0 = time.perf_counter()
+    for arch in dryrun.LM_ARCHS:
+        for shape in DRYRUN_SHAPES:
+            t1 = time.perf_counter()
+            cell = dryrun.run_cell(arch, shape, "single")
+            times[f"{arch} {shape}"] = time.perf_counter() - t1
+            if cell["status"] != "ok":
+                raise AssertionError(f"17b: {arch} {shape}: {cell}")
+            if cell["roofline"]["collective_s"] is not None:
+                raise AssertionError("17b: a collective term was measured")
+            cells.append(cell)
+    wall = time.perf_counter() - t0
+    print("17b: dry run, single-pod mesh, per device (meta tensors, no "
+          "card)\n" + report.dryrun_table(cells) + "\n"
+          + report.roofline_table(cells))
+    print(f"17b: {len(cells)} cells in {wall!r} s: "
+          + json.dumps({k: round(v, 2) for k, v in times.items()}))
+    return {"seconds": wall, "cells": len(cells)}
+
+
+def dry_run_against_the_card(trained):
+    """17c: the dry run of 14a's shape held against the card: the state's
+    bytes, the step's peak and the counted FLOPs over 14a's step time."""
+    from repro_torch.config import (MeshConfig, ShapeConfig, TrainConfig,
+                                    get_config)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    from repro_torch.train import loop
+    from repro_torch.tree import tree_leaves
+
+    card = _card_line()
+    cfg = get_config("musicgen-medium")
+    shape = ShapeConfig("train", "train", 2048, 8)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=5)
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    cell = dryrun.dry_run(cfg, shape, mesh, tcfg)
+    dry_s = time.perf_counter() - t0
+    mem = cell["memory"]
+    model = Model(cfg)
+    inputs = sum(v.struct.numel() * v.struct.element_size()
+                 for v in model.input_specs(shape).values())
+    predicted_state = mem["argument_bytes"] - inputs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = loop.init_state(model, _train_run(cfg, 8, 2048, **dataclasses.
+                                              asdict(tcfg)))
+    torch.cuda.synchronize()
+    measured = torch.cuda.memory_allocated() - base
+    leaves = len(tree_leaves(state))
+    del state
+    torch.cuda.empty_cache()
+    if abs(measured - predicted_state) > ALLOC_ROUND * leaves:
+        raise AssertionError(f"17c: predicted state {predicted_state} "
+                             f"bytes, measured {measured} ({leaves} "
+                             "leaves)")
+    peak = trained["peak_bytes"]
+    ratio = mem["peak_bytes"] / peak
+    if not 1 / PEAK_FACTOR <= ratio <= PEAK_FACTOR:
+        raise AssertionError(f"17c: predicted peak {mem['peak_bytes']} "
+                             f"bytes against 14a's {peak}: {ratio!r}")
+    flops = cell["validation_cost"]["flops"]
+    steps = sorted(trained["step_s"][1:])
+    step_s = steps[len(steps) // 2]
+    tflops = flops / step_s / 1e12
+    print(f"17c: musicgen-medium whole, batch 8 x 2048, {cell['n_mb']} "
+          f"microbatches, mesh (1, 1): dry run in {dry_s!r} s; state "
+          f"predicted {predicted_state} bytes, measured {measured} "
+          f"({leaves} leaves, within {ALLOC_ROUND} a leaf); peak predicted "
+          f"{mem['peak_bytes']} bytes (arguments {mem['argument_bytes']}, "
+          f"step {mem['temp_bytes']}), 14a's {peak}: {ratio!r} (within "
+          f"{PEAK_FACTOR}x); counted {flops!r} FLOP a step over 14a's "
+          f"median step {step_s!r} s (steps 2-5 {trained['step_s'][1:]}): "
+          f"{tflops!r} TFLOP/s, {tflops / (BF16_FLOPS_PER_S / 1e12)!r} of "
+          f"989 TFLOP/s ({card})")
+    return {"state_predicted": predicted_state, "state_measured": measured,
+            "peak_predicted": mem["peak_bytes"], "peak_measured": peak,
+            "flops": flops, "tflops": tflops}
+
+
+def multi_device_layer_on_the_card(trained):
+    """Phase 17: 17a, 17b, 17c."""
+    t0 = time.perf_counter()
+    out = {"17a": collectives_on_the_card(), "17b": dry_run_sweep(),
+           "17c": dry_run_against_the_card(trained)}
+    took = time.perf_counter() - t0
+    print(f"phase 17: {took!r} s")
+    return out
+
+
 def main() -> None:
     _require_card()
     print(_card_line())
@@ -5872,6 +6149,11 @@ def main() -> None:
     p16 = train_recurrent_on_the_card(ops)
     print(f"phase 16: {time.perf_counter() - t0!r} s")
     rg16, rw16 = p16["recurrentgemma-2b"], p16["rwkv6-7b"]
+
+    # phase 17 — the multi-device training layer: the collectives over
+    # four streams of the card, the dry run in-process, and the dry run of
+    # 14a's shape held against 14a
+    multi_device_layer_on_the_card(trained)
 
     print(json.dumps({"kernels": [{
         "name": "subsample_stats", "route": "cuda",

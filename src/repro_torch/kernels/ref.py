@@ -181,7 +181,12 @@ def log_decay_sums(lw: torch.Tensor, dim: int):
     fp32, float64 in float64), ``logP_i = run_i − logw_i`` and
     ``logP_{i+1} = logP_i + logw_i``.  Returns ``(logP_i, logP_{i+1})``.
     (``torch.cumsum`` on the CPU accumulates fp32 in double, which parts
-    from the card's fp32 sums at large decays.)"""
+    from the card's fp32 sums at large decays.)  On ``meta`` tensors,
+    which carry shapes only (the dry run), one ``cumsum`` stands for the
+    row loop."""
+    if lw.is_meta:
+        lp = torch.cumsum(lw, dim) - lw
+        return lp, lp + lw
     run = torch.zeros_like(lw.select(dim, 0))
     sums = []
     for i in range(lw.shape[dim]):
@@ -575,11 +580,12 @@ def linear_scan_ref(a: torch.Tensor, b: torch.Tensor,
     Each step rounds the product before the sum, as the ``rglru_scan``
     kernel does, so the two agree bit for bit.  The reference's
     ``ref.linear_scan_ref`` computes the same recurrence as an associative
-    scan, whose other order of operations agrees to rounding."""
+    scan, whose other order of operations agrees to rounding.  On ``meta``
+    tensors (shapes only: the dry run) no step is taken."""
     af, bf = a.float(), b.float()
     h = h0.float()
     out = torch.empty_like(af)
-    for t in range(af.shape[1]):
+    for t in range(0 if out.is_meta else af.shape[1]):
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out
@@ -618,12 +624,13 @@ def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
     g_{t+1}`` (``g_{S−1} = dh_{S−1}``), one step after another, each
     product rounded before the sum as the ``rglru_scan_bwd`` kernel takes
     it, then ``da_t = g_t ⊙ h_{t−1}`` (``h_{−1} = h0``), ``db_t = g_t``
-    and ``dh0 = a_0 ⊙ g_0``.  Returns ``(da, db, dh0)`` fp32."""
+    and ``dh0 = a_0 ⊙ g_0``.  Returns ``(da, db, dh0)`` fp32.  On ``meta``
+    tensors (shapes only: the dry run) no step is taken."""
     af, dhf = a.float(), dh.float()
     g = torch.empty_like(dhf)
     acc = dhf[:, -1]
     g[:, -1] = acc
-    for t in range(af.shape[1] - 2, -1, -1):
+    for t in range(-1 if g.is_meta else af.shape[1] - 2, -1, -1):
         acc = dhf[:, t] + af[:, t + 1] * acc
         g[:, t] = acc
     hprev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], dim=1)

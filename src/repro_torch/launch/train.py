@@ -20,6 +20,12 @@ reference's launcher gives them, and the recurrent models ``rwkv6-7b``
 backward kernels of ``rglru_scan`` and ``flash_attention``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
       --batch 4 --seq 4096 --steps 3     # all 26 layers, one H100
+
+``--dry-run`` trains nothing: it runs the dry run
+(``repro_torch.launch.dryrun``) for ``--arch`` at ``train_4k`` on the
+single-pod mesh, on ``meta`` tensors (no card needed), and returns its
+cell:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-72b --dry-run
 """
 
 from __future__ import annotations
@@ -38,8 +44,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--reduced", action="store_true",
                     help="run a reduced same-family config")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and compile the full config on the "
-                         "production mesh (not ported)")
+                    help="count and size the full config's train_4k step "
+                         "on the single-pod mesh (repro_torch.launch."
+                         "dryrun); trains nothing")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -50,9 +57,8 @@ def main(argv: Optional[Sequence[str]] = None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     if args.dry_run:
-        raise NotImplementedError("--dry-run: the dry run (launch.dryrun, "
-                                  "roofline/) is not ported (ROADMAP Queue "
-                                  "1, item 9)")
+        from repro_torch.launch import dryrun
+        return dryrun.run_cell(args.arch, "train_4k", "single")
 
     import numpy as np
 

@@ -10,7 +10,8 @@ inputs come from an explicit ``torch.Generator`` on the model's device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -18,9 +19,18 @@ from repro_torch.config.base import ModelConfig, ShapeConfig
 from repro_torch.device import check_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.parallel.sharding import init_params
+from repro_torch.parallel.sharding import BATCH, SEQ, init_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """One model input of a cell without its data: ``struct`` a ``meta``
+    tensor of its shape and dtype (the reference's ``ShapeDtypeStruct``),
+    ``logical`` its logical axes."""
+    struct: torch.Tensor
+    logical: Tuple[Optional[str], ...]
 
 
 class Model:
@@ -112,6 +122,37 @@ class Model:
         return logits, new_caches
 
     # -- inputs --------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
+        """Stand-ins for every model input of this cell, the reference's
+        layout: int32 ``tokens`` (and ``labels`` for training) ``[B, S -
+        P]`` with ``patch_embeds [B, P, frontend_dim]`` where the model
+        has a patch frontend; one token and an int32 scalar ``pos`` for
+        decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        p = cfg.num_patches if cfg.frontend == "patch" else 0
+        specs: Dict[str, InputSpec] = {}
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        def tok(name, bb, ss):
+            specs[name] = InputSpec(meta((bb, ss), torch.int32),
+                                    (BATCH, SEQ))
+
+        if shape.kind in ("train", "prefill"):
+            tok("tokens", b, s - p)
+            if shape.kind == "train":
+                tok("labels", b, s - p)
+            if p:
+                specs["patch_embeds"] = InputSpec(
+                    meta((b, p, cfg.frontend_dim), self.dtype),
+                    (BATCH, SEQ, None))
+        else:  # decode: one new token against a seq_len cache
+            tok("tokens", b, 1)
+            specs["pos"] = InputSpec(meta((), torch.int32), ())
+        return specs
+
     def make_inputs(self, shape: ShapeConfig, generator: torch.Generator):
         """Random inputs for one (shape) cell, drawn from ``generator`` (on
         the model's device): ``tokens [B, S]`` for prefill, ``tokens [B,

@@ -37,9 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.parallel.sharding import EMBED, EXPERT, HEADS, ParamDef
+from repro_torch.parallel.sharding import (EMBED, EXPERT, HEADS, ParamDef,
+                                           hint)
 
 DISPATCH_MODE = "einsum"      # the mode where neither call nor config names one
+_DP = ("pod", "data")   # token-dim mesh axes for dispatch intermediates
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -103,10 +105,16 @@ def _route(cfg: ModelConfig, params, xf: torch.Tensor):
 
 
 def _expert_ffn(cfg, params, xe: torch.Tensor) -> torch.Tensor:
-    """xe [E, C, D] → [E, C, D] through each expert's gated MLP."""
+    """xe [E, C, D] → [E, C, D] through each expert's gated MLP.
+
+    The sharding hints are the reference's (experts over ``model``): the
+    identity outside the dry run's ``parallel.sharding.hint_mesh``."""
+    ff_ax = ("data", "pod") if cfg.opt_moe_ff_shard else None
+    xe = hint(xe, "model", None, None)
     h = torch.bmm(xe, params["we_i"])
     g = torch.bmm(xe, params["we_g"])
-    return torch.bmm(h * F.silu(g), params["we_d"])
+    h = hint(h * F.silu(g), "model", None, ff_ax)
+    return hint(torch.bmm(h, params["we_d"]), "model", None, None)
 
 
 def _slots(cfg, idx: torch.Tensor, c: int):
@@ -149,11 +157,13 @@ def _dispatch_einsum(cfg, params, xf, idx, gate):
     tok = torch.arange(t, device=xf.device).repeat_interleave(k)
     combine = gate.new_zeros((t + 1, e * c))
     combine.index_put_((torch.where(keep, tok, t), rows), gates)
-    combine = combine[:t].view(t, e, c)
-    # dispatch = (combine > 0) times the tokens: a row gather
+    combine = hint(combine[:t].view(t, e, c), _DP, "model", None)
+    # dispatch = (combine > 0) times the tokens: a row gather, so the
+    # reference's hint on the [T, E, C] dispatch tensor has no tensor here
     xe = _fill_experts(xf, rows, keep & (gates > 0), e, c)
     ye = _expert_ffn(cfg, params, xe)
-    return torch.einsum("tec,ecd->td", combine.to(ye.dtype), ye)
+    return hint(torch.einsum("tec,ecd->td", combine.to(ye.dtype), ye),
+                _DP, None)
 
 
 def _dispatch_scatter(cfg, params, xf, idx, gate):

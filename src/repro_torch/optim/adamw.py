@@ -12,9 +12,14 @@ The order of operations in each leaf's update is the reference's, so that
 one step from the same state agrees with it to rounding.  Divisions that
 the reference takes by a Python number are taken here by a tensor on the
 operand's device: PyTorch's CUDA division by a Python number multiplies by
-its fp32 reciprocal, which can part from a true division by one ulp.  The
-reference's GSPMD placement of the state (``init_structs``,
-``state_shardings``) comes with the logical-axis rules (ROADMAP Queue 1).
+its fp32 reciprocal, which can part from a true division by one ulp.
+
+``init_structs`` and ``state_shardings`` describe the state without
+allocating it, for the dry run: ``meta`` tensors of each leaf's shape and
+dtype, and each leaf's :class:`~repro_torch.parallel.sharding.NamedSharding`
+(the moments inherit the parameter's; an int8 moment's ``q`` keeps it and
+its row scales drop the last dimension's axis), as the reference lays
+them out for GSPMD.
 """
 
 from __future__ import annotations
@@ -120,6 +125,56 @@ def init(params, cfg: TrainConfig) -> AdamWState:
     device = tree_leaves(params)[0].device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
                       mu, nu)
+
+
+def _moment_struct(shape, cfg: TrainConfig, log_space: bool):
+    """A ``meta`` stand-in for one moment leaf (no storage)."""
+    if cfg.moment_dtype == "int8":
+        sshape = tuple(shape[:-1]) + (2 if log_space else 1,)
+        return QuantMoment(
+            torch.empty(shape, dtype=torch.int8, device="meta"),
+            torch.empty(sshape, dtype=torch.float32, device="meta"),
+            torch.empty((), dtype=torch.int32, device="meta"))
+    dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
+    return torch.empty(shape, dtype=dt, device="meta")
+
+
+def init_structs(param_structs, cfg: TrainConfig) -> AdamWState:
+    """An AdamWState of ``meta`` tensors in :func:`init`'s shapes and
+    dtypes, beside ``param_structs`` (anything with a ``shape``)."""
+    mu = tree_map(lambda p: _moment_struct(tuple(p.shape), cfg, False),
+                  param_structs)
+    nu = tree_map(lambda p: _moment_struct(tuple(p.shape), cfg, True),
+                  param_structs)
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                      mu, nu)
+
+
+def state_shardings(param_shardings, param_structs, cfg: TrainConfig,
+                    mesh, dp_spec) -> AdamWState:
+    """Shardings matching :func:`init_structs`.
+
+    fp32/bf16 moments inherit the parameter sharding exactly (FSDP/ZeRO);
+    int8 moments keep the parameter sharding for ``q`` and drop the last
+    dimension's axis for the row scales.  ``dp_spec`` is unused, as in the
+    reference."""
+    from repro_torch.parallel.sharding import NamedSharding
+
+    def one(p_shard, p_struct, log_space):
+        if cfg.moment_dtype != "int8":
+            return p_shard
+        ndim = len(p_struct.shape)
+        spec = tuple(p_shard.spec) + (None,) * (ndim - len(p_shard.spec))
+        scale_spec = spec[:-1] + (None,) if ndim else spec
+        return QuantMoment(p_shard, NamedSharding(mesh, scale_spec),
+                           NamedSharding(mesh, ()))
+
+    repl = NamedSharding(mesh, ())
+    mu = tree_map(lambda s, p: one(s, p, False), param_shardings,
+                  param_structs)
+    nu = tree_map(lambda s, p: one(s, p, True), param_shardings,
+                  param_structs)
+    return AdamWState(repl, mu, nu)
 
 
 def global_norm(tree) -> torch.Tensor:

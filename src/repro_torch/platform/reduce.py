@@ -35,10 +35,14 @@ class StreamingReduceTree:
     thread.  ``result()`` closes the stream and returns the root.
 
     ``estimator`` — when given — is a
-    :class:`~repro_torch.core.estimator.SubsampleEstimator` fed each leaf as
-    it is combined in; :meth:`estimate` then surfaces the running
-    online-aggregation snapshot (value + CI + tasks_in) without
-    disturbing the bit-identical full-reduce path (DESIGN.md §10).
+    :class:`~repro_torch.core.estimator.SubsampleEstimator` fed each leaf
+    by :meth:`offer` itself, on the producer's thread, before the leaf is
+    queued; :meth:`estimate` then surfaces the running online-aggregation
+    snapshot (value + CI + tasks_in) without disturbing the bit-identical
+    full-reduce path (DESIGN.md §10).  A stopping check made after an
+    ``offer`` returns therefore sees that leaf however far the combiner
+    lags (the reference observes on the combiner thread, so its ε stop
+    follows the combiner's timing).
     """
 
     def __init__(self, n_leaves: int,
@@ -67,6 +71,10 @@ class StreamingReduceTree:
 
     # -- producer side -------------------------------------------------------
     def offer(self, leaf: int, partial: Any) -> None:
+        if self._estimator is not None:
+            # idempotent for a speculative duplicate (clones are
+            # bit-identical by seed), so no dedup is needed here
+            self._estimator.observe(leaf, partial)
         self._queue.put((leaf, partial))
 
     # -- combiner thread -----------------------------------------------------
@@ -84,8 +92,6 @@ class StreamingReduceTree:
                 if leaf in seen:               # speculative re-execution dup
                     continue
                 seen.add(leaf)
-                if self._estimator is not None:
-                    self._estimator.observe(leaf, partial)
                 with self._node_lock:
                     self._insert(0, leaf, partial)
                     self.leaves_seen = len(seen)

@@ -52,26 +52,45 @@ def init_state(model: Model, run: RunConfig,
                       torch.zeros((), dtype=torch.int32, device=model.device))
 
 
-def make_train_step(model: Model, run: RunConfig, *,
-                    n_mb: Optional[int] = None
-                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
-                                  tuple]:
+def make_train_phases(model: Model, run: RunConfig, *,
+                      n_mb: Optional[int] = None):
+    """The two phases of a training step: ``gradients(state, batch) →
+    (loss, metrics, grads, error_feedback)`` over ``n_mb`` microbatches
+    (compressed where the run compresses), and ``apply(state, loss,
+    metrics, grads, error_feedback) → (state, metrics)``, AdamW at the
+    schedule's rate.  :func:`make_train_step` runs one after the other;
+    the dry run sizes each phase's memory apart."""
     n_mb = run.microbatches() if n_mb is None else n_mb
     tcfg = run.train
     accum_dtype = (torch.bfloat16 if tcfg.grad_accum_dtype == "bfloat16"
                    else torch.float32)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def gradients(state: TrainState, batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = accumulate_gradients(
             model.loss, state.params, batch, n_mb, accum_dtype=accum_dtype)
         ef = state.error_feedback
         if ef is not None:
             grads, ef = compression.compress_grads(grads, ef)
+        return loss, metrics, grads, ef
+
+    def apply(state: TrainState, loss, metrics, grads, ef):
         lr = adamw.lr_schedule(tcfg, state.step)
         new_params, new_opt, opt_metrics = adamw.update(
             grads, state.opt, state.params, lr, tcfg)
         metrics = dict(metrics, loss=loss, lr=lr, **opt_metrics)
         return TrainState(new_params, new_opt, ef, state.step + 1), metrics
+
+    return gradients, apply
+
+
+def make_train_step(model: Model, run: RunConfig, *,
+                    n_mb: Optional[int] = None
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                  tuple]:
+    gradients, apply = make_train_phases(model, run, n_mb=n_mb)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        return apply(state, *gradients(state, batch))
 
     return train_step
 

@@ -1903,3 +1903,31 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda, mode):
     scale = float(outs[0].abs().max())
     diff = (outs[1] - outs[0]).reshape(-1, cfg.d_model)[alike].abs().max()
     assert float(diff) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_collectives_on_four_streams_equal_the_cpu_mesh(cuda):
+    """``ring_all_reduce``, ``reduce_scatter`` and ``compressed_psum`` over
+    four streams of one card, each shard made on its entry's stream, equal
+    the same collectives over four CPU entries bit for bit (the same fp32
+    adds in the same order; the int8 payload's division by a tensor)."""
+    from repro_torch.launch.mesh import WaveMesh
+    from repro_torch.parallel.collectives import (compressed_psum,
+                                                  reduce_scatter,
+                                                  ring_all_reduce)
+
+    mesh = WaveMesh((cuda,) * 4)
+    streams = [mesh.stream(i) for i in range(4)]
+    rng = np.random.default_rng(34)
+    host = [torch.from_numpy(rng.standard_normal((4096, 256)).astype(
+        np.float32)) for _ in range(4)]
+    shards = []
+    for x, st in zip(host, streams):
+        with torch.cuda.stream(st):
+            shards.append(x.to(cuda))
+    for fn in (ring_all_reduce, reduce_scatter, compressed_psum):
+        want = fn(host)
+        got = fn(shards, streams)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert torch.equal(w, g.cpu()), fn.__name__

@@ -48,6 +48,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.train, repro_torch.train.loop\n"
         "import repro_torch.train.microbatch, repro_torch.data.pipeline\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.roofline, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.traffic, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.collprofile, repro_torch.roofline.hw\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"

@@ -18,6 +18,7 @@ max|sum|`` (tests/test_torch_subsample.py); counts and hits exactly."""
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -200,6 +201,46 @@ def test_sharded_epsilon_same_task_set():
         assert rep.tasks_executed == ref.tasks_executed, \
             f"mesh={mesh} early-stopped on a different task set"
         _assert_bitwise(ref.result, rep.result, f"mesh {mesh}")
+
+
+@pytest.mark.parametrize("path", ("run", "service"))
+@pytest.mark.parametrize("mesh", (None, 4))
+def test_epsilon_stop_independent_of_combiner_lag(monkeypatch, mesh, path):
+    """The stop is decided on every leaf emitted before the settlement
+    check, however far the reduce tree's combiner thread lags: a combiner
+    slowed by 20 ms an insert early-stops on the undelayed run's task set
+    and result, through ``Platform.run`` and through the service's pool
+    (the reference feeds its estimator on the combiner thread, so under
+    that lag its stop lands waves late or never)."""
+    rng = np.random.default_rng(1)
+    samples = {i: rng.normal(size=64).astype(np.float32) for i in range(48)}
+    months = {i: rng.integers(0, 12, 64).astype(np.int32) for i in samples}
+    spec = _spec(mesh, knee_bytes=256.0,
+                 approx=ApproxOptions(epsilon=5.0, min_tasks=4))
+    wl = MomentsSpec(**WL_SHAPE)
+
+    def run():
+        if path == "run":
+            rep = Platform(spec).run(samples, months, wl)
+            return rep.stop_reason, rep.tasks_executed, rep.result
+        with PlatformService(spec) as svc:
+            t = svc.submit(svc.register_dataset(samples, months), wl, seed=0)
+            result = t.result(timeout=120)
+            return t.stop_reason, t.tasks_executed, result
+
+    fast_reason, fast_n, fast_result = run()
+    assert fast_reason is not None and fast_n < 48
+    insert = StreamingReduceTree._insert
+
+    def slow_insert(self, level, idx, value):
+        time.sleep(0.02)
+        insert(self, level, idx, value)
+
+    monkeypatch.setattr(StreamingReduceTree, "_insert", slow_insert)
+    slow_reason, slow_n, slow_result = run()
+    assert slow_reason is not None
+    assert slow_n == fast_n, "the slowed combiner moved the stop"
+    _assert_bitwise(fast_result, slow_result, "slowed combiner")
 
 
 def test_resume_at_another_mesh_size(tmp_path):

@@ -601,5 +601,7 @@ def test_launch_train_runs_on_the_cpu(tmp_path):
     assert report.steps == 3 and len(report.losses) == 3
     assert all(np.isfinite(report.losses))
     assert CheckpointManager(str(tmp_path)).all_steps() == [3]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        launch_train.main(["--arch", "musicgen-medium", "--dry-run"])
+    cell = launch_train.main(["--arch", "musicgen-medium", "--dry-run"])
+    assert (cell["status"], cell["shape"], cell["mesh"]) == (
+        "ok", "train_4k", "single")
+    assert cell["roofline"]["collective_s"] is None
