@@ -4348,50 +4348,30 @@ def _kind_of(name):
 def _profiled_step(step_fn, state, batch, label):
     """One training step under ``torch.profiler``: the device time by kind
     (GEMMs, the attention forward and backward, AdamW's update: the
-    kernels launched inside ``adamw.update``, the rest: elementwise work
-    and reductions) and the device's busy share of the step's wall
-    time."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.optim import adamw
-
-    update = adamw.update
-
-    def annotated(*args, **kwargs):
-        with record_function("adamw.update"):
-            return update(*args, **kwargs)
+    kernels launched inside the program's ``train.optimizer`` span, the
+    rest: elementwise work and reductions) and the device's busy share of
+    the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    adamw.update = annotated
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = step_fn(state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        adamw.update = update
-    on_device = [e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    annotations = [e for e in on_device if e.name == "adamw.update"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in on_device if e.name != "adamw.update")
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
     if not dev:
         raise AssertionError(f"the profiler saw no device time in {label}")
     kinds = {}
     for start, end, name in dev:
         kinds[_kind_of(name)] = kinds.get(_kind_of(name), 0.0) + (
             end - start) / 1e3
-    # AdamW's kernels are elementwise: move them to their own kind (the
-    # device time of the kernels its range launched; where the profiler
-    # attributes none, the span of its range on the device)
-    opt_ms = sum(getattr(e, "device_time_total", 0.0) for e in prof.events()
-                 if e.name == "adamw.update"
-                 and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3
-    if opt_ms <= 0.0:
-        opt_ms = sum(e.time_range.end - e.time_range.start
-                     for e in annotations) / 1e3
+    # AdamW's kernels are elementwise: move them to their own kind
+    opt_ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == "repro_torch.train.optimizer") / 1e3
     if opt_ms > 0.0:
         kinds["AdamW"] = opt_ms
         kinds["elementwise and reductions"] -= opt_ms

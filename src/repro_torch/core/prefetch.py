@@ -15,6 +15,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
+from repro_torch.spans import span
+
 
 class PrefetchPipeline:
     """Wrap a producer iterator with a background prefetch thread whose
@@ -71,7 +73,7 @@ class PrefetchPipeline:
             a = 0.3
             self._consume_ema = (gap if self._consume_ema is None
                                  else (1 - a) * self._consume_ema + a * gap)
-        with self._cv:
+        with span("pipeline.wait"), self._cv:
             while not self._buf and not self._done:
                 self._cv.wait(timeout=0.05)
             if self._buf:

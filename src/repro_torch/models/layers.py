@@ -37,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.parallel.sharding import (
     BATCH, EMBED, HEADS, KV_SEQ, REPL, VOCAB, ParamDef,
 )
+from repro_torch.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -170,22 +171,23 @@ def attention_decode(
     if write_at >= s_max:
         raise ValueError(f"decode writes slot {write_at} of a {s_max}-slot "
                          "cache: grow it first (serving.grow_caches)")
-    if "k_scale" in cache:
-        # int8 cache: the new token quantized and written beside its
-        # scales, then the whole cache dequantized to k's type
-        new_cache = {n: t.clone() for n, t in cache.items()}
-        for n, t in (("k", k), ("v", v)):
-            vals, absmax = quantize_kv(t)
-            new_cache[n][:, write_at] = vals[:, 0]
-            new_cache[n + "_scale"][:, write_at] = absmax[:, 0]
-        ck = dequantize_kv(new_cache["k"], new_cache["k_scale"], k.dtype)
-        cv = dequantize_kv(new_cache["v"], new_cache["v_scale"], v.dtype)
-    else:
-        ck = cache["k"].clone()
-        cv = cache["v"].clone()
-        ck[:, write_at] = k[:, 0].to(ck.dtype)
-        cv[:, write_at] = v[:, 0].to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
+    with span("attention.cache"):
+        if "k_scale" in cache:
+            # int8 cache: the new token quantized and written beside its
+            # scales, then the whole cache dequantized to k's type
+            new_cache = {n: t.clone() for n, t in cache.items()}
+            for n, t in (("k", k), ("v", v)):
+                vals, absmax = quantize_kv(t)
+                new_cache[n][:, write_at] = vals[:, 0]
+                new_cache[n + "_scale"][:, write_at] = absmax[:, 0]
+            ck = dequantize_kv(new_cache["k"], new_cache["k_scale"], k.dtype)
+            cv = dequantize_kv(new_cache["v"], new_cache["v_scale"], v.dtype)
+        else:
+            ck = cache["k"].clone()
+            cv = cache["v"].clone()
+            ck[:, write_at] = k[:, 0].to(ck.dtype)
+            cv[:, write_at] = v[:, 0].to(cv.dtype)
+            new_cache = {"k": ck, "v": cv}
 
     scores = torch.einsum("bikgd,bjkd->bkgj", q.float(), ck.float()) * scale
     slot = torch.arange(s_max, device=x.device)

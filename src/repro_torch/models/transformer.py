@@ -46,6 +46,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import EMBED, LAYERS, ParamDef
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -202,51 +203,53 @@ def layer_apply(cfg: ModelConfig, kind: str, ffn_kind: str, params,
     h = L.rms_norm(params["ln1"], x, cfg.norm_eps)
     decode = mode == "decode"
 
-    if kind in (ATTN, LOCAL):
-        window = cfg.local_window if kind == LOCAL else 0
-        if decode:
-            mix_out, new_cache = L.attention_decode(
-                cfg, params["mix"], h, cache, pos, window=window)
-        else:
-            mix_out, new_cache = L.attention_apply(
-                cfg, params["mix"], h, positions, window=window)
-            s = h.shape[1]
-            if mode == "train":
-                new_cache = None
+    with span("layer.mix"):
+        if kind in (ATTN, LOCAL):
+            window = cfg.local_window if kind == LOCAL else 0
+            if decode:
+                mix_out, new_cache = L.attention_decode(
+                    cfg, params["mix"], h, cache, pos, window=window)
             else:
-                if window and window < s:
-                    # roll the tail of the sequence into the circular buffer
-                    slots = (torch.arange(s - window, s, device=x.device)
-                             % window)
-                    rolled = {}
-                    for n in ("k", "v"):
-                        buf = torch.zeros_like(new_cache[n][:, :window])
-                        buf[:, slots] = new_cache[n][:, -window:]
-                        rolled[n] = buf
-                    new_cache = rolled
-                new_cache = L.maybe_quantize_cache(cfg, new_cache)
-    elif kind in (RGLRU, RWKV):
-        state = cache if cache is not None else _zero_state(
-            cfg, kind, x.shape[0], x.device)
-        if kind == RGLRU:
-            fn = RG.rglru_decode if decode else RG.rglru_apply
+                mix_out, new_cache = L.attention_apply(
+                    cfg, params["mix"], h, positions, window=window)
+                s = h.shape[1]
+                if mode == "train":
+                    new_cache = None
+                else:
+                    if window and window < s:
+                        # roll the sequence's tail into the circular buffer
+                        slots = (torch.arange(s - window, s, device=x.device)
+                                 % window)
+                        rolled = {}
+                        for n in ("k", "v"):
+                            buf = torch.zeros_like(new_cache[n][:, :window])
+                            buf[:, slots] = new_cache[n][:, -window:]
+                            rolled[n] = buf
+                        new_cache = rolled
+                    new_cache = L.maybe_quantize_cache(cfg, new_cache)
+        elif kind in (RGLRU, RWKV):
+            state = cache if cache is not None else _zero_state(
+                cfg, kind, x.shape[0], x.device)
+            if kind == RGLRU:
+                fn = RG.rglru_decode if decode else RG.rglru_apply
+            else:
+                fn = RW.time_mix_decode if decode else RW.time_mix_apply
+            mix_out, new_cache = fn(cfg, params["mix"], h, state)
         else:
-            fn = RW.time_mix_decode if decode else RW.time_mix_apply
-        mix_out, new_cache = fn(cfg, params["mix"], h, state)
-    else:
-        raise ValueError(kind)
+            raise ValueError(kind)
     x = x + mix_out.to(x.dtype)
 
     h = L.rms_norm(params["ln2"], x, cfg.norm_eps)
-    if kind == RWKV:
-        ffn_out, new_cache = RW.channel_mix_apply(
-            cfg, params["ffn"], h, new_cache, decode)
-    elif ffn_kind == "moe":
-        ffn_out, aux = MOE.moe_apply(cfg, params["ffn"], h)
-        if cfg.moe_dense_residual:
-            ffn_out = ffn_out + L.mlp_apply(params["dense_res"], h)
-    else:
-        ffn_out = L.mlp_apply(params["ffn"], h)
+    with span("layer.ffn"):
+        if kind == RWKV:
+            ffn_out, new_cache = RW.channel_mix_apply(
+                cfg, params["ffn"], h, new_cache, decode)
+        elif ffn_kind == "moe":
+            ffn_out, aux = MOE.moe_apply(cfg, params["ffn"], h)
+            if cfg.moe_dense_residual:
+                ffn_out = ffn_out + L.mlp_apply(params["dense_res"], h)
+        else:
+            ffn_out = L.mlp_apply(params["ffn"], h)
     return x + ffn_out.to(x.dtype), new_cache, aux
 
 

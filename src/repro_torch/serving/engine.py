@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.serving.kvcache import grow_caches
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass
@@ -49,12 +50,15 @@ class ServingEngine:
         cfg = self.model.cfg
         self._sync()
         t0 = time.perf_counter()
-        logits, caches = self.model.prefill(self.params, batch)
+        with span("serve.prefill"):
+            logits, caches = self.model.prefill(self.params, batch)
         prompt_len = batch["tokens"].shape[1]
         if cfg.frontend == "patch" and "patch_embeds" in batch:
             prompt_len += batch["patch_embeds"].shape[1]
-        caches = grow_caches(caches, prompt_len + n_new, cfg.local_window)
-        caches = self.model.prefill_to_decode(caches)
+        with span("serve.cache_grow"):
+            caches = grow_caches(caches, prompt_len + n_new,
+                                 cfg.local_window)
+            caches = self.model.prefill_to_decode(caches)
         self._sync()
         t1 = time.perf_counter()
 
@@ -63,10 +67,11 @@ class ServingEngine:
                           device=logits.device)
         tok = torch.argmax(logits, dim=-1)[:, None]
         for i in range(n_new):
-            out[:, i] = tok[:, 0]
-            logits, caches = self.model.decode_step(
-                self.params, tok, caches, prompt_len + i)
-            tok = torch.argmax(logits, dim=-1)[:, None]
+            with span("serve.decode_step"):
+                out[:, i] = tok[:, 0]
+                logits, caches = self.model.decode_step(
+                    self.params, tok, caches, prompt_len + i)
+                tok = torch.argmax(logits, dim=-1)[:, None]
         self._sync()
         t2 = time.perf_counter()
         return GenerationResult(

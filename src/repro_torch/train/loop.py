@@ -25,6 +25,7 @@ from repro_torch.config.base import RunConfig
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
+from repro_torch.spans import span
 from repro_torch.train.microbatch import accumulate_gradients
 
 logger = logging.getLogger(__name__)
@@ -74,9 +75,10 @@ def make_train_phases(model: Model, run: RunConfig, *,
         return loss, metrics, grads, ef
 
     def apply(state: TrainState, loss, metrics, grads, ef):
-        lr = adamw.lr_schedule(tcfg, state.step)
-        new_params, new_opt, opt_metrics = adamw.update(
-            grads, state.opt, state.params, lr, tcfg)
+        with span("train.optimizer"):
+            lr = adamw.lr_schedule(tcfg, state.step)
+            new_params, new_opt, opt_metrics = adamw.update(
+                grads, state.opt, state.params, lr, tcfg)
         metrics = dict(metrics, loss=loss, lr=lr, **opt_metrics)
         return TrainState(new_params, new_opt, ef, state.step + 1), metrics
 
@@ -138,9 +140,13 @@ def train(
     t0 = time.perf_counter()
     start = int(state.step)
     for i in range(start, num_steps):
-        batch = to_device(next(batches), model.device)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
+        host_batch = next(batches)
+        with span("train.step"):
+            with span("train.to_device"):
+                batch = to_device(host_batch, model.device)
+            state, metrics = step_fn(state, batch)
+            with span("train.loss_read"):
+                loss = float(metrics["loss"])
         losses.append(loss)
         if i % log_every == 0:
             logger.info("step %d loss %.4f lr %.2e", i, loss,

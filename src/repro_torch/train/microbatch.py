@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -57,7 +58,8 @@ def accumulate_gradients(
     """Mean loss, metrics and grads over ``n_mb`` sequential
     microbatches."""
     if n_mb <= 1:
-        (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        with span("train.microbatch"):
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         return loss, metrics, grads
 
     mbs = split_microbatches(batch, n_mb)
@@ -68,13 +70,15 @@ def accumulate_gradients(
     grads_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                                device=p.device), params)
     for i in range(n_mb):
-        mb = {k: v[i] for k, v in mbs.items()}
-        (loss, metrics), grads = value_and_grad(loss_fn, params, mb)
-        for a, g in zip(tree_leaves(grads_acc), tree_leaves(grads)):
-            a.add_(g.to(a.dtype))
-        del grads
-        metrics_acc = {k: metrics_acc[k] + metrics[k] for k in metrics_acc}
-        loss_acc = loss_acc + loss
+        with span("train.microbatch"):
+            mb = {k: v[i] for k, v in mbs.items()}
+            (loss, metrics), grads = value_and_grad(loss_fn, params, mb)
+            for a, g in zip(tree_leaves(grads_acc), tree_leaves(grads)):
+                a.add_(g.to(a.dtype))
+            del grads
+            metrics_acc = {k: metrics_acc[k] + metrics[k]
+                           for k in metrics_acc}
+            loss_acc = loss_acc + loss
     inv = 1.0 / n_mb
     for a in tree_leaves(grads_acc):
         a.mul_(inv)
