@@ -11,7 +11,10 @@ SDPA's masked backward), ``3g-causal`` (its causal cases, the
 (``rwkv6_chunked_bwd``'s cases against its plain version, ``RW_BWD_MAIN``
 timed and split by pass), ``3i`` (``rglru_scan_bwd``'s cases against its
 plain version, both forms timed at their main shapes, the gated entries'
-instructions an element counted from the build's SASS), ``16a``
+instructions an element counted from the build's SASS), ``3j``
+(``attention_decode_int8``'s cases against its plain version, the kernel
+timed at ``deepseek-7b``'s decode beside its bound, the wrapper and the
+plain version), ``16a``
 (``recurrentgemma-2b`` trained whole:
 step seconds, launches, device time by kind), ``16b`` (``rwkv6-7b`` at 8
 layers, the same), ``16c`` (both recurrent models, one fp32 step on the
@@ -76,6 +79,7 @@ PHASES = {
     "3g-causal": lambda cs, ops, ref: cs.check_flash_bwd_kernel(ops, ref),
     "3h": _rwkv6_bwd,
     "3i": _rglru_bwd,
+    "3j": lambda cs, ops, ref: cs.check_attention_decode_int8(ops, ref),
     "16a": lambda cs, ops, ref: cs.train_recurrent_whole(
         ops, "16a", "recurrentgemma-2b", 26),
     "16b": lambda cs, ops, ref: cs.train_recurrent_whole(

@@ -6,10 +6,11 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
 (sm_90a).  It imports neither JAX nor the reference package ``repro``.
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the nine CUDA kernel sources from ``src/repro_torch``
+2. Builds the ten CUDA kernel sources from ``src/repro_torch``
    (``subsample_stats``, ``subsample_gather``, ``rwkv6_chunked``,
    ``rglru_scan``, ``flash_attention``, ``subsample_grid``,
-   ``flash_attention_bwd``, ``rwkv6_chunked_bwd`` and ``rglru_scan_bwd``),
+   ``flash_attention_bwd``, ``rwkv6_chunked_bwd``, ``rglru_scan_bwd`` and
+   ``attention_decode_int8``),
    one nvcc each, started together, and prints
    ptxas' registers, shared memory and spills; any spill in
    ``flash_attention_bwd``'s tensor-core kernels, ``rwkv6_scan_bwd.cu``
@@ -72,8 +73,16 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    order and within 1e-4 of the plain sums) at ``recurrentgemma-2b``'s
    ([1, 4096, 2560] bf16), S = 1, S = 70 and widths off both channel
    blocks, each case at both layouts of its form, and counts the gated
-   entries' instructions an element from the build's SASS.  Each new kernel
-   repeats bit for bit and is timed beside its bound and plain version.
+   entries' instructions an element from the build's SASS.  Phase 3j
+   holds ``attention_decode_int8`` (decode attention over the int8 KV
+   cache) against its plain version at ``deepseek-7b``'s decode shape
+   (pos 4,063, 4,095 and 0), at G = 4 with a window of 16 (wrapped and
+   filling), at G = 10 and at G = 6: the returned cache bit for bit, each
+   output within its budget (``tests/_decode_tol.py``), which emulated
+   kernels with bf16 scores or fp8 probabilities must exceed; HD 64 and
+   fp32, which the kernel is not built for, refused.  Each new
+   kernel repeats bit for bit and is timed beside its bound and plain
+   version.
 4. Runs the platform's main path at real size: the full Netflix Prize catalogue
    (17,770 movies, its published mean of 5,654 ratings per movie) through
    ``Platform.run`` with the ``moments`` workload, BTS sizing with a
@@ -147,8 +156,9 @@ From the root of a checkout, on a machine with a CUDA device and nvcc
    11008, vocab 102,400, the reference's int8 KV cache, bf16 weights from a
    seed) through ``ServingEngine.generate``: batch 4, a 4,064-token prompt,
    32 new tokens, so the cache ends at the model's 4,096-token context;
-   prefill must launch ``flash_attention`` 30 times and nothing else of
-   ``ops``.  Prints the cache's bytes against a bf16 cache's and checks
+   prefill must launch ``flash_attention`` 30 times and decode
+   ``attention_decode_int8`` 30 times a step, and nothing else of ``ops``
+   may launch.  Prints the cache's bytes against a bf16 cache's and checks
    every layer's int8 values and fp32 scales; one ``torch.profiler`` pass
    over a prefill and one over a decode step.  Then, fast:
    ``internlm2-20b`` at full width cut to 4 layers (a prefill of batch 4 at
@@ -2177,6 +2187,178 @@ def check_rglru_bwd_kernel(ops, ref):
     return {"max_abs_err": worst, **timing}
 
 
+# attention_decode_int8 vs its plain version.  Both write the new token
+# with the same quantize arithmetic, so the returned caches are equal bit
+# for bit, and both read the same dequantized values.  The outputs part by
+# the probabilities (fp32 in the kernel, rounded to bf16 in the plain
+# version) and by each side's rounding of its output to bf16: each output
+# has a budget of its own, 2^-8 * sum_j p_j |v_j| + 2^-7 * |want|
+# (tests/_decode_tol.py gives the reasoning and emulates wrong kernels).
+# deepseek-7b's decode in the serve-4k cell: batch 8, a 4,096-slot cache,
+# 32 KV heads of 128, one query head on each; b, s_max, kv, g, hd
+DECODE_MAIN = (8, 4096, 32, 1, 128)
+
+
+def _decode_int8_inputs(b, s_max, kv, g, hd, dtype, seed):
+    """q, the new k and v and an int8 cache whose rows span a factor of
+    about e^4 in magnitude, drawn on the card."""
+    from repro_torch.models.layers import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = rnd(b, 1, kv, g, hd).to(dtype)
+    k = (2.0 * rnd(b, 1, kv, hd)).to(dtype)
+    v = (2.0 * rnd(b, 1, kv, hd)).to(dtype)
+    cache = {}
+    for n in ("k", "v"):
+        rows = rnd(b, s_max, kv, hd) * torch.exp(rnd(b, s_max, kv, 1))
+        cache[n], cache[n + "_scale"] = quantize_kv(rows.to(dtype))
+        del rows
+    return q, k, v, cache
+
+
+def _decode_int8_bound(b, kv, g, hd, n_valid, esize=2):
+    """Least time for one call, bytes over 3.35 TB/s: the filled slots'
+    int8 k and v (HD bytes each) and fp32 scales read once, q and the new
+    token's k and v read once, out and the new slot's values and scales
+    written once.  Its operations (two products of HD multiply-adds a
+    slot and query head, and the dequantize) take a fifth of that at the
+    fp32 rate."""
+    nbytes = (b * kv * n_valid * (2 * hd + 8)
+              + b * kv * (2 * g * hd * esize + 2 * hd * esize + 2 * hd + 8))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_attention_decode_int8(ops, ref):
+    """Phase 3j: ``attention_decode_int8`` (one decode step's attention
+    over the int8 KV cache, the new token quantized and written in the
+    launch) against its plain version on the card: at ``deepseek-7b``'s
+    decode (q ``[8, 1, 32, 1, 128]`` bf16 over a 4,096-slot cache) at pos
+    4,063, 4,095 and 0; at G = 4 with a rolling window of 16, wrapped and
+    filling; at G = 10 (two CTAs a KV head) and G = 6.  The returned cache
+    must equal the plain version's bit for bit and the old cache stay as
+    it was; each output within its budget (``tests/_decode_tol.py``),
+    which the kernel's arithmetic with bf16 scores or fp8 probabilities,
+    emulated in torch ops on the same inputs, must exceed wherever more
+    than one slot is attended; a second launch
+    equal to the first.  HD 64 and fp32, which the kernel is not built
+    for, must be refused.  Then the kernel alone is timed at the main
+    shape (pos 4,063 and 4,095, and at 64, 128 and 256 slots a CTA),
+    beside its byte bound, the wrapper (the cache's copy and the kernel)
+    and the plain version."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _decode_tol  # tests/_decode_tol.py
+    from repro_torch.kernels import attention_decode_int8 as ad
+
+    cases = [
+        ("deepseek_7b_pos4063", DECODE_MAIN, 4063, 0, torch.bfloat16),
+        ("deepseek_7b_pos4095", DECODE_MAIN, 4095, 0, torch.bfloat16),
+        ("deepseek_7b_pos0", DECODE_MAIN, 0, 0, torch.bfloat16),
+        ("g4_window16_wrapped", (8, 16, 8, 4, 128), 100, 16, torch.bfloat16),
+        ("g4_window16_filling", (8, 16, 8, 4, 128), 9, 16, torch.bfloat16),
+        ("g10", (2, 700, 1, 10, 128), 650, 0, torch.bfloat16),
+        ("g6", (2, 1000, 8, 6, 128), 999, 0, torch.bfloat16),
+    ]
+    for name, (hd, dtype) in (("hd64", (64, torch.bfloat16)),
+                              ("fp32", (128, torch.float32))):
+        q, k, v, cache = _decode_int8_inputs(2, 64, 2, 1, hd, dtype, 39)
+        try:
+            ops.attention_decode_int8(q, k, v, cache, 10)
+        except (ValueError, TypeError) as e:
+            print(f"3j {name}: refused ({e})", flush=True)
+        else:
+            raise AssertionError(f"3j {name}: the wrapper took a shape the "
+                                 "kernel is not built for")
+    errors = {}
+    for i, (name, (b, s, kv, g, hd), pos, window, dtype) in enumerate(cases):
+        q, k, v, cache = _decode_int8_inputs(b, s, kv, g, hd, dtype, 40 + i)
+        kept = {n: t.clone() for n, t in cache.items()}
+        before = ops.launch_count("attention_decode_int8")
+        got, got_cache = ops.attention_decode_int8(q, k, v, cache, pos,
+                                                   window=window)
+        again, again_cache = ops.attention_decode_int8(q, k, v, cache, pos,
+                                                       window=window)
+        torch.cuda.synchronize()
+        launches = ops.launch_count("attention_decode_int8") - before
+        want, want_cache = ref.attention_decode_int8_ref(q, k, v, cache, pos,
+                                                         window=window)
+        for n in cache:
+            if not torch.equal(got_cache[n], want_cache[n]):
+                bad = int((got_cache[n] != want_cache[n]).sum())
+                raise AssertionError(f"3j {name}: the kernel's cache {n} "
+                                     f"parts from the plain version's in "
+                                     f"{bad} entries")
+            if not torch.equal(cache[n], kept[n]):
+                raise AssertionError(f"3j {name}: the old cache {n} changed")
+            if not torch.equal(again_cache[n], got_cache[n]):
+                raise AssertionError(f"3j {name}: a second launch wrote "
+                                     f"another cache {n}")
+        if not torch.equal(again, got) or launches != 2:
+            raise AssertionError(f"3j {name}: a second launch gave another "
+                                 f"output, or {launches} launches counted")
+        bound = _decode_tol.budget(q, want_cache, pos, window, want)
+        used = _decode_tol.share(got, want, bound)
+        wrong = {what: _decode_tol.share(_decode_tol.emulate(
+            q, want_cache, pos, window, **kw), want, bound) for what, kw in (
+                ("bf16_scores", {"scores_dtype": torch.bfloat16}),
+                ("fp8_probs", {"probs_dtype": torch.float8_e4m3fn}))}
+        errors[name] = float((got.float() - want.float()).abs().max())
+        print(f"3j {name}: b {b}, s_max {s}, kv {kv}, g {g}, hd {hd}, pos "
+              f"{pos}, window {window}, {dtype}: cache bit for bit, output "
+              f"max_abs_err {errors[name]!r}, {used!r} of its budget at "
+              f"most; emulated with bf16 scores {wrong['bf16_scores']!r}, "
+              f"with fp8 probabilities {wrong['fp8_probs']!r}; second "
+              "launch equal", flush=True)
+        if used > 1:
+            raise AssertionError(f"3j {name}: an output takes {used!r} of "
+                                 "its budget")
+        # one slot attended (pos 0) weighs it by exactly 1 in any type
+        attended = s if window and pos >= window else (
+            pos % window if window else pos) + 1
+        if attended > 1 and min(wrong.values()) <= 1:
+            raise AssertionError(f"3j {name}: a wrong kernel's emulation "
+                                 f"stays within the budget: {wrong}")
+        del q, k, v, cache, kept, got, got_cache, again, again_cache, want
+        del want_cache, bound
+        torch.cuda.empty_cache()
+
+    b, s, kv, g, hd = DECODE_MAIN
+    q, k, v, cache = _decode_int8_inputs(b, s, kv, g, hd, torch.bfloat16, 7)
+    work = {n: t.clone() for n, t in cache.items()}
+    timing = {}
+    for pos in (4063, 4095):
+        def kernel(chunk=0, pos=pos):
+            return ad.attention_decode_int8(
+                q, k, v, work["k"], work["v"], work["k_scale"],
+                work["v_scale"], write_at=pos, n_valid=pos + 1, chunk=chunk)
+
+        ms = _device_ms(kernel, reps=20)
+        by_chunk = {c: _device_ms(lambda c=c: kernel(c), reps=20)
+                    for c in (64, 128, 256)}
+        wrapper_ms = _device_ms(lambda: ops.attention_decode_int8(
+            q, k, v, cache, pos), reps=10)
+        plain_ms = _time_ms(lambda: ref.attention_decode_int8_ref(
+            q, k, v, cache, pos), reps=3)
+        bound_ms = _decode_int8_bound(b, kv, g, hd, pos + 1)
+        timing[f"pos{pos}"] = {
+            "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / ms, "ms_by_chunk": by_chunk,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms}
+        print(f"3j attention_decode_int8 at deepseek-7b's decode, pos {pos}: "
+              f"kernel {ms!r} ms (bound {bound_ms!r} ms by bytes, share "
+              f"{bound_ms / ms!r}), by slots a CTA {json.dumps(by_chunk)}; "
+              f"wrapper (the cache's copy and the kernel) {wrapper_ms!r} ms; "
+              f"plain version {plain_ms!r} ms ({_card_line()})", flush=True)
+    del q, k, v, cache, work
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errors, **timing["pos4095"], "pos4063":
+            timing["pos4063"]}
+
+
 def serve_recurrentgemma(ops):
     """Phase 8: ``recurrentgemma-2b`` at full width, bf16 weights from a
     seed, through ``ServingEngine.generate``; returns the launch counts of
@@ -2395,11 +2577,15 @@ def serve_dense(ops):
           f"{out.tokens_per_second!r}, peak device memory {peak} bytes; "
           f"launches {json.dumps(launches)}")
     others = {n: c for n, c in launches.items()
-              if n != "flash_attention" and c}
-    if launches["flash_attention"] != cfg.num_layers or others:
+              if n not in ("flash_attention", "attention_decode_int8") and c}
+    if (launches["flash_attention"] != cfg.num_layers or others
+            or launches["attention_decode_int8"] != cfg.num_layers * 32):
         raise AssertionError(f"prefill launched flash_attention "
                              f"{launches['flash_attention']} times, not "
-                             f"{cfg.num_layers}, and {others}")
+                             f"{cfg.num_layers}, decode "
+                             f"attention_decode_int8 "
+                             f"{launches['attention_decode_int8']} times, "
+                             f"not {cfg.num_layers * 32}, and {others}")
     if out.tokens.shape != (4, 32) or not (
             (out.tokens >= 0) & (out.tokens < cfg.vocab_size)).all():
         raise AssertionError(f"generated tokens: shape {out.tokens.shape}")
@@ -2422,7 +2608,8 @@ def serve_dense(ops):
         tok = torch.argmax(logits, dim=-1)[:, None]
         logits, _ = _profiled(
             "deepseek-7b decode step", lambda: model.decode_step(
-                params, tok, caches, DENSE_PROMPT), ("flash_attention",),
+                params, tok, caches, DENSE_PROMPT),
+            ("attention_decode_int8",), ran=("attention_decode_int8",),
             absent=("flash_attention",))
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("decode logits are not finite")
@@ -5918,8 +6105,9 @@ def main() -> None:
     from repro_torch import prng
     from repro_torch.core import subsample as ss
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
-                                     rglru_scan, rglru_scan_bwd, rwkv6_scan,
+    from repro_torch.kernels import (attention_decode_int8, flash_attention,
+                                     flash_attention_bwd, rglru_scan,
+                                     rglru_scan_bwd, rwkv6_scan,
                                      rwkv6_scan_bwd, subsample_gather,
                                      subsample_grid)
     from repro_torch.platform import MOMENTS, Platform
@@ -5929,7 +6117,7 @@ def main() -> None:
                  rwkv6_scan.LIBRARY, rglru_scan.LIBRARY,
                  flash_attention.LIBRARY, subsample_grid.LIBRARY,
                  flash_attention_bwd.LIBRARY, rwkv6_scan_bwd.LIBRARY,
-                 rglru_scan_bwd.LIBRARY)
+                 rglru_scan_bwd.LIBRARY, attention_decode_int8.LIBRARY)
 
     # phase 2 — build, one nvcc for each source, all started together
     t0 = time.perf_counter()
@@ -5960,6 +6148,7 @@ def main() -> None:
     rwb_timing = check_rwkv6_bwd_kernel(ops, ref, rwkv6_scan)
     rgb_timing = check_rglru_bwd_kernel(ops, ref)
     sg_timing = check_gather_kernel(ops, ref)
+    ad_timing = check_attention_decode_int8(ops, ref)
 
     # phase 4 — the main path at real size
     t0 = time.perf_counter()
@@ -6203,6 +6392,18 @@ def main() -> None:
         "main_path": "recurrentgemma-2b training whole (phase 16a), gated "
                      "form, u [1, 4096, 2560] bf16, 3 steps",
         "library_ms": None, **rgb_timing}, {
+        "name": "attention_decode_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention_decode_int8.cu",
+        "replaces": "src/repro/models/layers.py::attention_decode",
+        "replaces_note": "no TPU kernel: the reference decodes over its int8 "
+                         "cache with jnp ops (quantize, dequantize the whole "
+                         "cache, two einsums)",
+        "launches": dense_launches["attention_decode_int8"],
+        "main_path": "deepseek-7b decode as in the serve-4k cell (phase "
+                     "3j), q [8, 1, 32, 1, 128] bf16 over an int8 cache of "
+                     "4,096 slots filled to 4,096; launches from phase 13 "
+                     "(batch 4), 30 a step",
+        "library_ms": None, **ad_timing}, {
         "name": "subsample_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/subsample_gather.cu",
         "replaces": "src/repro/kernels/subsample_gather.py:64",

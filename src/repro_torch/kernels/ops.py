@@ -7,6 +7,10 @@ tensor that the kernel cannot take, or a build or launch that fails,
 raises.  Each wrapper counts its kernel launches, so a run can show that
 its main path went through the kernel.
 
+``attention_decode_int8`` is one decode step's attention over an int8 KV
+cache; it returns the new cache beside its output and leaves the old one
+untouched, as the model's decode does.
+
 ``flash_attention``, ``rwkv6_chunked``, ``rglru_scan`` and
 ``rglru_gated_scan`` are differentiable: with grad on and an input that
 requires it, each runs as a ``torch.autograd.Function`` whose forward
@@ -26,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import attention_decode_int8 as _ad
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ref
@@ -39,7 +44,7 @@ from repro_torch.kernels import subsample_grid as _sgrid
 KERNELS = ("subsample_stats", "rwkv6_chunked", "rglru_scan",
            "flash_attention", "subsample_gather", "subsample_grid",
            "threefry_randint", "flash_attention_bwd", "rwkv6_chunked_bwd",
-           "rglru_scan_bwd")
+           "rglru_scan_bwd", "attention_decode_int8")
 
 _COUNTERS = 2 ** 32                      # flat positions a threefry key draws
 _count_lock = threading.Lock()
@@ -796,3 +801,79 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      window=window, group=group)
     _counted("flash_attention_bwd")
     return grads
+
+
+_CACHE_KEYS = ("k", "k_scale", "v", "v_scale")
+
+
+def _check_attention_decode_int8(q, k, v, cache, pos: int,
+                                 window: int) -> None:
+    if q.dim() != 5 or q.shape[1] != 1:
+        raise ValueError("attention_decode_int8 takes q [B, 1, KV, G, HD]; "
+                         f"got {tuple(q.shape)}")
+    b, _, kv, _, hd = q.shape
+    if tuple(k.shape) != (b, 1, kv, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"the new k and v must be {(b, 1, kv, hd)}; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if set(cache) != set(_CACHE_KEYS):
+        raise ValueError(f"an int8 cache holds {_CACHE_KEYS}; got "
+                         f"{sorted(cache)}")
+    ck, cv, ks, vs = (cache[n] for n in ("k", "v", "k_scale", "v_scale"))
+    if ck.dtype != torch.int8 or cv.dtype != torch.int8:
+        raise TypeError(f"the cache's k and v must be int8; got {ck.dtype}, "
+                        f"{cv.dtype}")
+    if ck.dim() != 4 or tuple(ck.shape[::2]) != (b, kv) or ck.shape[3] != hd \
+            or tuple(cv.shape) != tuple(ck.shape):
+        raise ValueError(f"the cache's k and v must be [{b}, S_max, {kv}, "
+                         f"{hd}]; got {tuple(ck.shape)}, {tuple(cv.shape)}")
+    s_max = ck.shape[1]
+    if any(t.dtype != torch.float32 or tuple(t.shape) != (b, s_max, kv, 1)
+           for t in (ks, vs)):
+        raise ValueError(f"the scales must be fp32 {(b, s_max, kv, 1)}; got "
+                         f"{ks.dtype} {tuple(ks.shape)}, {vs.dtype} "
+                         f"{tuple(vs.shape)}")
+    if pos < 0 or window < 0:
+        raise ValueError(f"pos and window must be >= 0; got {pos}, {window}")
+    write_at = pos % window if window else pos
+    if write_at >= s_max:
+        raise ValueError(f"decode writes slot {write_at} of a {s_max}-slot "
+                         "cache")
+    if q.dtype not in _FLOATS or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError("q and the new k, v take one type, fp32 or bf16; "
+                        f"got {[t.dtype for t in (q, k, v)]}")
+    tensors = (q, k, v, ck, cv, ks, vs)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, k, v and the cache must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("attention_decode_int8 takes contiguous tensors")
+    if q.is_cuda:
+        _ad.check_supported(q)
+
+
+def attention_decode_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache, pos: int, *, window: int = 0):
+    """One decode step's attention over an int8 KV cache: ``q [B, 1, KV,
+    G, HD]`` and the new token's ``k, v [B, 1, KV, HD]`` (after RoPE; fp32
+    or bf16, one type), the cache ``{k, v [B, S_max, KV, HD] int8,
+    k_scale, v_scale [B, S_max, KV, 1] fp32}``, ``pos`` the current length
+    (a Python int) → ``(out [B, KV, G, HD]`` in q's type, the new
+    cache``)``.  The new token is quantized and written at ``pos`` (at
+    ``pos % window`` in a rolling buffer of ``window`` > 0); slots past the
+    write are masked until the buffer has wrapped.  The cache is not
+    written in place: on the card the four tensors are copied and the
+    kernel, built for HD 128 in bf16 alone, writes the copy; on the CPU
+    (and on ``meta``) it runs :func:`kernels.ref.attention_decode_int8_ref`
+    for any HD and either type."""
+    _check_attention_decode_int8(q, k, v, cache, pos, window)
+    if not q.is_cuda:
+        return ref.attention_decode_int8_ref(q, k, v, cache, pos,
+                                             window=window)
+    new_cache = {n: t.clone() for n, t in cache.items()}
+    s_max = cache["k"].shape[1]
+    write_at = pos % window if window else pos
+    n_valid = s_max if window and pos >= window else write_at + 1
+    out = _ad.attention_decode_int8(
+        q, k, v, new_cache["k"], new_cache["v"], new_cache["k_scale"],
+        new_cache["v_scale"], write_at=write_at, n_valid=n_valid)
+    _counted("attention_decode_int8")
+    return out, new_cache

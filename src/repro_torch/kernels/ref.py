@@ -830,3 +830,42 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = dk.view(bh // group, group, skv, hd).sum(dim=1)
     dv = dv.view(bh // group, group, skv, hd).sum(dim=1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_decode_int8_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, cache, pos: int, *,
+                              window: int = 0):
+    """One decode step over an int8 cache, as torch ops: ``q [B, 1, KV, G,
+    HD]`` and the new token's ``k, v [B, 1, KV, HD]`` (after RoPE), the
+    cache ``{k, v [B, S_max, KV, HD] int8, k_scale, v_scale [B, S_max, KV,
+    1] fp32}`` → ``(out [B, KV, G, HD]`` in v's type, the new cache``)``.
+    The new token is quantized and written at ``pos`` (``pos % window`` in
+    a rolling buffer) into a copy of the cache, the whole copy dequantized
+    to the token's type, and the slots past the write are masked until the
+    buffer has wrapped; the probabilities are rounded to v's type before
+    the product with v.  The ``attention_decode_int8`` kernel computes the
+    same from the int8 values where they lie."""
+    # the cache format is the model layer's (imported here: it imports ops)
+    from repro_torch.models.layers import dequantize_kv, quantize_kv
+
+    s_max = cache["k"].shape[1]
+    write_at = pos % window if window else pos
+    new_cache = {n: t.clone() for n, t in cache.items()}
+    for n, t in (("k", k), ("v", v)):
+        vals, absmax = quantize_kv(t)
+        new_cache[n][:, write_at] = vals[:, 0]
+        new_cache[n + "_scale"][:, write_at] = absmax[:, 0]
+    ck = dequantize_kv(new_cache["k"], new_cache["k_scale"], k.dtype)
+    cv = dequantize_kv(new_cache["v"], new_cache["v_scale"], v.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bikgd,bjkd->bkgj", q.float(), ck.float()) * scale
+    slot = torch.arange(s_max, device=q.device)
+    if window:
+        valid = (slot <= write_at) | (pos >= window)
+    else:
+        valid = slot <= pos
+    scores = torch.where(valid[None, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgj,bjkd->bkgd", probs.to(cv.dtype), cv)
+    return out, new_cache

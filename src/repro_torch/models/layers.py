@@ -16,12 +16,15 @@ Prefill attention, full (``ATTN``) or sliding-window (``LOCAL``), runs
 through ``kernels.ops.flash_attention``: the hand-written CUDA kernel on
 the card, its plain version on the CPU.  The kernel keeps the softmax
 probabilities in fp32 where the reference's ``_attend_block`` rounds them
-to v's type before the product with v.  Decode attention is torch ops
-over the cache, as in the reference.  With ``kv_cache_dtype="int8"`` the
-cache holds int8 values and one fp32 absmax scale per (batch, position,
-KV head), ``k_scale``, ``v_scale [B, S_max, KV, 1]``, quantized and
-dequantized with the reference's arithmetic.  :func:`cross_entropy` is
-training's mean next-token loss.
+to v's type before the product with v.  With ``kv_cache_dtype="int8"``
+the cache holds int8 values and one fp32 absmax scale per (batch,
+position, KV head), ``k_scale``, ``v_scale [B, S_max, KV, 1]``, quantized
+with the reference's arithmetic, and decode attention over it runs
+through ``kernels.ops.attention_decode_int8``: the hand-written CUDA kernel
+on the card (the new token quantized and written, the int8 values and
+scales read in place), its plain version (the reference's torch ops) on
+the CPU.  Decode over an unquantized cache is torch ops, as in the
+reference.  :func:`cross_entropy` is training's mean next-token loss.
 """
 
 from __future__ import annotations
@@ -156,11 +159,13 @@ def attention_decode(
     the current length.  For windowed layers the cache is a rolling buffer
     written at ``pos % window``; slots past the write are masked until the
     buffer has wrapped.  The cache is not written in place: the new one is
-    returned, as the reference's is."""
+    returned, as the reference's is.  A cache that holds ``k_scale`` goes
+    through ``ops.attention_decode_int8``: one hand-written kernel on the
+    card, its plain version (``kernels.ref.attention_decode_int8_ref``) on
+    the CPU; any other cache through the torch ops below."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"attention_decode takes one token, got {s}")
-    scale = 1.0 / math.sqrt(cfg.head_dim)
     q, k, v = _qkv(cfg, params, x)
     where = torch.tensor([pos], device=x.device)
     q = apply_rope(q, where, cfg.rope_theta)
@@ -171,24 +176,19 @@ def attention_decode(
     if write_at >= s_max:
         raise ValueError(f"decode writes slot {write_at} of a {s_max}-slot "
                          "cache: grow it first (serving.grow_caches)")
+    if "k_scale" in cache:
+        with span("attention.cache"):
+            out, new_cache = ops.attention_decode_int8(q, k, v, cache, pos,
+                                                       window=window)
+        return out.reshape(b, 1, cfg.q_dim) @ params["wo"], new_cache
     with span("attention.cache"):
-        if "k_scale" in cache:
-            # int8 cache: the new token quantized and written beside its
-            # scales, then the whole cache dequantized to k's type
-            new_cache = {n: t.clone() for n, t in cache.items()}
-            for n, t in (("k", k), ("v", v)):
-                vals, absmax = quantize_kv(t)
-                new_cache[n][:, write_at] = vals[:, 0]
-                new_cache[n + "_scale"][:, write_at] = absmax[:, 0]
-            ck = dequantize_kv(new_cache["k"], new_cache["k_scale"], k.dtype)
-            cv = dequantize_kv(new_cache["v"], new_cache["v_scale"], v.dtype)
-        else:
-            ck = cache["k"].clone()
-            cv = cache["v"].clone()
-            ck[:, write_at] = k[:, 0].to(ck.dtype)
-            cv[:, write_at] = v[:, 0].to(cv.dtype)
-            new_cache = {"k": ck, "v": cv}
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[:, write_at] = k[:, 0].to(ck.dtype)
+        cv[:, write_at] = v[:, 0].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
 
+    scale = 1.0 / math.sqrt(cfg.head_dim)
     scores = torch.einsum("bikgd,bjkd->bkgj", q.float(), ck.float()) * scale
     slot = torch.arange(s_max, device=x.device)
     if window:

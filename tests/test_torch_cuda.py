@@ -24,6 +24,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import subsample_grid as sgrid
 from repro_torch.models import Model
 from repro_torch.models import layers as L
+import _decode_tol  # tests/_decode_tol.py, beside this file
 import _grid_order  # tests/_grid_order.py, beside this file
 
 # The kernel and its plain version add the same fp32 values in the same
@@ -725,6 +726,91 @@ def test_int8_quantize_on_the_card_equals_the_cpu(cuda, dtype):
     assert torch.equal(got_s.cpu(), want_s)
     assert torch.equal(L.dequantize_kv(got_q, got_s, dtype).cpu(),
                        L.dequantize_kv(want_q, want_s, dtype))
+
+
+# -- attention_decode_int8 ----------------------------------------------------
+
+def _decode_int8_inputs(b, s_max, kv, g, hd, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, 1, kv, g, hd), generator=gen).to(device, dtype)
+    k = (2.0 * torch.randn((b, 1, kv, hd), generator=gen)).to(device, dtype)
+    v = (2.0 * torch.randn((b, 1, kv, hd), generator=gen)).to(device, dtype)
+    cache = {}
+    for n in ("k", "v"):
+        rows = (torch.randn((b, s_max, kv, hd), generator=gen)
+                * torch.exp(torch.randn((b, s_max, kv, 1), generator=gen)))
+        cache[n], cache[n + "_scale"] = L.quantize_kv(rows.to(device, dtype))
+    return q, k, v, cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_max,kv,g,hd,pos,window,dtype", [
+    (2, 300, 4, 1, 128, 299, 0, torch.bfloat16),   # the last slot
+    (2, 300, 4, 1, 128, 0, 0, torch.bfloat16),     # the first write
+    (3, 16, 2, 4, 128, 37, 16, torch.bfloat16),    # a wrapped window
+    (3, 16, 2, 4, 128, 5, 16, torch.bfloat16),     # a window filling
+    (2, 40, 2, 6, 128, 20, 0, torch.bfloat16),     # G 6
+    (1, 600, 1, 10, 128, 555, 0, torch.bfloat16),  # G 10: two CTAs a head
+    (2, 1000, 2, 2, 128, 700, 0, torch.bfloat16),
+    (1, 5000, 1, 1, 128, 4999, 0, torch.bfloat16),  # many splits
+])
+def test_attention_decode_int8_kernel_equals_plain_version(
+        cuda, b, s_max, kv, g, hd, pos, window, dtype):
+    """The returned cache bit for bit (the same quantize arithmetic), the
+    old cache untouched, each output within its budget (tests/_decode_tol.py),
+    and a second launch equal to the first bit for bit (the splits combine
+    in a fixed order)."""
+    q, k, v, cache = _decode_int8_inputs(b, s_max, kv, g, hd, dtype,
+                                         s_max + pos, cuda)
+    kept = {n: t.clone() for n, t in cache.items()}
+    before = ops.launch_count("attention_decode_int8")
+    got, got_cache = ops.attention_decode_int8(q, k, v, cache, pos,
+                                               window=window)
+    again, _ = ops.attention_decode_int8(q, k, v, cache, pos, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_count("attention_decode_int8") == before + 2
+    want, want_cache = ref.attention_decode_int8_ref(q, k, v, cache, pos,
+                                                     window=window)
+    for n in cache:
+        assert torch.equal(got_cache[n], want_cache[n]), n
+        assert torch.equal(cache[n], kept[n]), n
+    assert got.dtype == dtype and torch.equal(got, again)
+    bound = _decode_tol.budget(q, want_cache, pos, window, want)
+    assert _decode_tol.share(got, want, bound) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype,error", [
+    (64, torch.bfloat16, ValueError), (256, torch.bfloat16, ValueError),
+    (128, torch.float32, TypeError)])
+def test_attention_decode_int8_refuses_what_the_kernel_is_not_built_for(
+        cuda, hd, dtype, error):
+    """The kernel is built for HD 128 in bf16: the wrapper refuses the
+    rest on the card, where the CPU runs the plain version for any."""
+    q, k, v, cache = _decode_int8_inputs(2, 64, 2, 1, hd, dtype, 3, cuda)
+    with pytest.raises(error):
+        ops.attention_decode_int8(q, k, v, cache, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 64, 256])
+def test_attention_decode_int8_any_split_agrees(cuda, chunk):
+    """Forced splits of 32, 64 and 256 slots a CTA write the same cache and
+    agree with the plain version."""
+    from repro_torch.kernels import attention_decode_int8 as ad
+
+    q, k, v, cache = _decode_int8_inputs(2, 700, 4, 2, 128, torch.bfloat16,
+                                         chunk, cuda)
+    want, want_cache = ref.attention_decode_int8_ref(q, k, v, cache, 650)
+    work = {n: t.clone() for n, t in cache.items()}
+    got = ad.attention_decode_int8(q, k, v, work["k"], work["v"],
+                                   work["k_scale"], work["v_scale"],
+                                   write_at=650, n_valid=651, chunk=chunk)
+    torch.cuda.synchronize()
+    for n in cache:
+        assert torch.equal(work[n], want_cache[n]), n
+    bound = _decode_tol.budget(q, want_cache, 650, 0, want)
+    assert _decode_tol.share(got, want, bound) <= 1
 
 
 # -- subsample_gather --------------------------------------------------------

@@ -229,14 +229,22 @@ def _numpy_tree(defs, seed):
     return jax.tree_util.tree_map_with_path(leaf, defs, is_leaf=is_param_def)
 
 
-@pytest.mark.parametrize("pos,window,s_max", [
-    (0, 0, 12),       # the first write, every other slot masked
-    (9, 0, 20),       # a full cache part filled
-    (19, 0, 20),      # the last slot
-    (21, 16, 16),     # a rolling buffer that has wrapped
-])
-def test_quantized_attention_decode_matches_reference(pos, window, s_max):
-    cfg = _cfg("deepseek-7b")
+# (pos, window, s_max, KV heads: None keeps the reduced config's 4, one
+# query head on each; 1 puts all 4 on one)
+INT8_DECODE_CASES = [
+    (0, 0, 12, None),       # the first write, every other slot masked
+    (9, 0, 20, None),       # a full cache part filled
+    (19, 0, 20, None),      # the last slot
+    (21, 16, 16, None),     # a rolling buffer that has wrapped
+    (9, 0, 20, 1),          # a group of 4 query heads on one KV head
+]
+
+
+@pytest.mark.parametrize("pos,window,s_max,kv_heads", INT8_DECODE_CASES)
+def test_quantized_attention_decode_matches_reference(pos, window, s_max,
+                                                      kv_heads):
+    cfg = (_cfg("deepseek-7b") if kv_heads is None
+           else _cfg("deepseek-7b", num_kv_heads=kv_heads))
     tree = _numpy_tree(LJ.attention_defs(cfg), seed=pos)
     jp = jax.tree.map(jnp.asarray, tree)
     tp = tree_map(torch.from_numpy, tree)
