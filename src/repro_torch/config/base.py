@@ -14,7 +14,7 @@ kneepoint tuner (``repro_torch.core.kneepoint``) rather than hard-coded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 # ---------------------------------------------------------------------------
 # Layer kinds used by ``layer_pattern`` (cycled over the depth of the model).
@@ -23,8 +23,9 @@ ATTN = "attn"        # full causal self-attention
 LOCAL = "local"      # sliding-window causal attention
 RGLRU = "rglru"      # RG-LRU recurrent block (recurrentgemma)
 RWKV = "rwkv"        # RWKV6 time-mix (attention-free)
+MLA = "mla"          # multi-head latent attention (DeepSeek-V2)
 
-VALID_LAYER_KINDS = (ATTN, LOCAL, RGLRU, RWKV)
+VALID_LAYER_KINDS = (ATTN, LOCAL, RGLRU, RWKV, MLA)
 VALID_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio", "subsample")
 
 
@@ -49,6 +50,16 @@ class ModelConfig:
     layer_pattern: Tuple[str, ...] = (ATTN,)
     logit_soft_cap: float = 0.0
 
+    # -- multi-head latent attention (MLA layers), the source's key names ----
+    # (q at full rank: the source's q_lora_rank null)
+    kv_lora_rank: int = 0                    # the latent that the cache holds
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0                # one roped key shared by heads
+    v_head_dim: int = 0
+    # RoPE scaling as the source's ``rope_scaling`` group (a dict is taken
+    # and kept as sorted (key, value) pairs); only "yarn" is known
+    rope_scaling: Tuple[Tuple[str, Any], ...] = ()
+
     # -- mixture of experts --------------------------------------------------
     num_experts: int = 0
     num_shared_experts: int = 0
@@ -59,6 +70,7 @@ class ModelConfig:
     first_dense_d_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    norm_topk_prob: bool = True              # renormalise the top-k gates
     # MoE token-plane tiny-tasking: the one-hot dispatch tensor [T,E,C] is
     # quadratic in tokens — long sequences are processed in segments of
     # this many positions (0 = unsegmented).  Segment length is a
@@ -92,7 +104,8 @@ class ModelConfig:
     #                                  dim (kills batch-wide logit gathers)
     opt_local_vocab: bool = False    # model-shard embedding d-dim + un-FSDP
     #                                  the head: no per-step table gathers
-    moe_dispatch: str = "einsum"     # "einsum" (baseline) | "scatter"
+    moe_dispatch: str = "einsum"     # "einsum" (baseline) | "scatter" |
+    #                                  "dropless" (experts sorted, no capacity)
     opt_moe_ff_shard: bool = False   # FSDP experts on the ff dim instead
     #                                  of d: kills per-layer expert-weight
     #                                  all-gathers (an activation-sized
@@ -114,6 +127,13 @@ class ModelConfig:
             assert kind in VALID_LAYER_KINDS, kind
         if self.num_heads:
             assert self.num_heads % max(1, self.num_kv_heads) == 0
+        if isinstance(self.rope_scaling, dict):
+            object.__setattr__(self, "rope_scaling",
+                               tuple(sorted(self.rope_scaling.items())))
+        if MLA in self.layer_pattern:
+            assert self.kv_lora_rank and self.qk_rope_head_dim % 2 == 0
+        if self.rope_scaling:
+            assert self.yarn.get("type") == "yarn", self.rope_scaling
 
     # -- derived -------------------------------------------------------------
     @property
@@ -131,6 +151,15 @@ class ModelConfig:
     @property
     def lru_dim(self) -> int:
         return self.lru_width or self.d_model
+
+    @property
+    def yarn(self) -> Dict[str, Any]:
+        """``rope_scaling`` as the source's dict (empty: plain RoPE)."""
+        return dict(self.rope_scaling)
+
+    @property
+    def mla_qk_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
     def layer_kind(self, i: int) -> str:
         return self.layer_pattern[i % len(self.layer_pattern)]
@@ -159,6 +188,12 @@ class ModelConfig:
                 w = self.lru_dim
                 n += 2 * d * w + w * d                 # in (x,gate), out proj
                 n += self.conv_width * w + 2 * w       # conv + lru gates a,x
+            elif kind == MLA:
+                h, r = self.num_heads, self.kv_lora_rank
+                n += d * h * self.mla_qk_dim           # wq
+                n += d * (r + self.qk_rope_head_dim) + r   # w_kva, kv norm
+                n += r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                n += h * self.v_head_dim * d           # wo
             elif kind == RWKV:
                 h = self.d_model
                 n += 4 * d * h + h * d                 # r,k,v,g + out

@@ -24,6 +24,7 @@ ARCH_IDS: List[str] = [
     "musicgen-medium",
     "recurrentgemma-2b",
     "paper-subsample",
+    "deepseek-v2-lite",
 ]
 
 _CACHE: Dict[str, ModelConfig] = {}

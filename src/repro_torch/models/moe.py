@@ -26,6 +26,19 @@ router picks the top k probabilities with ties broken to the lower expert
 index (``jax.lax.top_k``'s order; ``torch.topk`` breaks them otherwise),
 by a stable descending sort.  The expert products are batched matrix
 products (``torch.bmm``), as the reference's einsums.
+
+A third mode, which the reference lacks, is DeepSeek's own:
+
+* ``dropless`` — no capacity: the (token, choice) pairs are sorted by
+  expert (stably, so token-major within an expert), each expert's gated
+  MLP runs on its own rows only, as grouped products
+  (``torch._grouped_mm`` on the card, one product an expert elsewhere),
+  and a token's k outputs are summed in fp32 under their gates.  The
+  router's product is fp32.  Nothing is dropped, so ``moe_seq_chunk``
+  segments (any length; the last may be shorter) change memory only.
+
+``norm_topk_prob`` (default on, the reference's) renormalises the top-k
+gates.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.parallel.sharding import (EMBED, EXPERT, HEADS, ParamDef,
                                            hint)
+from repro_torch.spans import span
 
 DISPATCH_MODE = "einsum"      # the mode where neither call nor config names one
 _DP = ("pod", "data")   # token-dim mesh axes for dispatch intermediates
@@ -89,11 +103,19 @@ def top_k_lower_first(probs: torch.Tensor, k: int
 
 
 def _route(cfg: ModelConfig, params, xf: torch.Tensor):
-    """xf [T, D] → (expert_idx [T,k], gate [T,k], aux_loss, probs [T,E])."""
-    logits = (xf @ params["router"]).float()
+    """xf [T, D] → (expert_idx [T,k], gate [T,k], aux_loss, probs [T,E]).
+    The router's product is in the model's type, but fp32 in the
+    ``dropless`` mode (DeepSeek's)."""
+    if cfg.moe_dispatch == "dropless":
+        logits = xf.float() @ params["router"].float()
+    else:
+        logits = (xf @ params["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k_lower_first(probs, cfg.moe_top_k)
-    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    # read with a default: the tests hand the reference's configurations,
+    # which lack the field, to the port's MoE
+    if getattr(cfg, "norm_topk_prob", True):
+        gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch): E · Σ_e f_e · p_e
     e = cfg.num_experts
     experts = torch.arange(e, device=idx.device)
@@ -181,6 +203,46 @@ def _dispatch_scatter(cfg, params, xf, idx, gate):
     return out
 
 
+def _sort_pairs(cfg, idx: torch.Tensor):
+    """The (token, choice) pairs sorted by expert: (order [T*k], the pairs
+    in that order by their flat index; counts [E], each expert's rows).
+    The counts are a scatter-add, not ``torch.bincount``, which waits for
+    the card to size its output."""
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = flat_e.new_zeros((cfg.num_experts,))
+    return order, counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def _grouped_ffn(params, xs: torch.Tensor,
+                 counts: torch.Tensor) -> torch.Tensor:
+    """xs [N, D], rows sorted by expert with ``counts [E]`` rows each →
+    each expert's gated MLP on its own rows: ``torch._grouped_mm`` over
+    the groups on the card (offsets stay on the device), else one product
+    an expert (its row counts read on the host; on ``meta``, where no
+    count exists, the rows split evenly: the same products in all)."""
+    wi, wg, wd = params["we_i"], params["we_g"], params["we_d"]
+    if xs.is_cuda:
+        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        h = torch._grouped_mm(xs, wi, offs=offs)
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        return torch._grouped_mm(h * F.silu(g), wd, offs=offs)
+    n, e_all = xs.shape[0], wi.shape[0]
+    sizes = ([n // e_all + (e < n % e_all) for e in range(e_all)]
+             if xs.device.type == "meta" else counts.tolist())
+    outs = [(part @ wi[e]) * F.silu(part @ wg[e]) @ wd[e]
+            for e, part in enumerate(torch.split(xs, sizes))]
+    return torch.cat(outs) if outs else xs.new_zeros((0, xs.shape[1]))
+
+
+def _dispatch_dropless(cfg, params, xf, gate, order, counts):
+    t, d = xf.shape
+    k = cfg.moe_top_k
+    ys = _grouped_ffn(params, xf[order // k], counts)        # [T*k, D]
+    y = torch.empty_like(ys).index_copy_(0, order, ys)      # pair order
+    return (y.view(t, k, d).float() * gate[..., None].float()).sum(dim=1)
+
+
 def _shared_ffn(params, xf: torch.Tensor) -> torch.Tensor:
     sh = params["shared"]
     return ((xf @ sh["wi"]) * F.silu(xf @ sh["wg"])) @ sh["wd"]
@@ -192,30 +254,38 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
 
     Where ``cfg.moe_seq_chunk`` divides S and is shorter, the positions go
     in segments of that length, each holding every row (T = B · segment),
-    and the aux loss is the segments' mean, as in the reference.
+    and the aux loss is the segments' mean, as in the reference.  The
+    ``dropless`` mode takes any shorter segment, the last one shorter
+    where it does not divide S: its result does not depend on the cut.
     """
     b, s, d = x.shape
     seg = cfg.moe_seq_chunk
-    if seg and s > seg and s % seg == 0:
-        xs = x.reshape(b, s // seg, seg, d).movedim(1, 0)
+    mode = dispatch or cfg.moe_dispatch or DISPATCH_MODE
+    if seg and s > seg and (s % seg == 0 or mode == "dropless"):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         ys = []
-        for si in range(s // seg):
-            y, aux = moe_apply(cfg, params, xs[si], dispatch=dispatch)
+        for lo in range(0, s, seg):
+            y, aux = moe_apply(cfg, params, x[:, lo:lo + seg],
+                               dispatch=dispatch)
             aux_total = aux_total + aux
             ys.append(y)
-        y = torch.stack(ys).movedim(0, 1).reshape(b, s, d)
-        return y, aux_total / (s // seg)
+        return torch.cat(ys, dim=1), aux_total / len(ys)
     xf = x.reshape(b * s, d)
-    idx, gate, aux, _ = _route(cfg, params, xf)
-    mode = dispatch or cfg.moe_dispatch or DISPATCH_MODE
-    if mode == "scatter":
-        y = _dispatch_scatter(cfg, params, xf, idx, gate.to(xf.dtype))
-    elif mode == "einsum":
-        y = _dispatch_einsum(cfg, params, xf, idx, gate.float())
-    else:
-        raise ValueError(f"moe dispatch {mode!r}: einsum or scatter")
-    y = y.to(x.dtype)
+    with span("moe.route"):
+        idx, gate, aux, _ = _route(cfg, params, xf)
+        if mode == "dropless":
+            order, counts = _sort_pairs(cfg, idx)
+    with span("moe.experts"):
+        if mode == "scatter":
+            y = _dispatch_scatter(cfg, params, xf, idx, gate.to(xf.dtype))
+        elif mode == "einsum":
+            y = _dispatch_einsum(cfg, params, xf, idx, gate.float())
+        elif mode == "dropless":
+            y = _dispatch_dropless(cfg, params, xf, gate, order, counts)
+        else:
+            raise ValueError(f"moe dispatch {mode!r}: einsum or scatter "
+                             "(the reference's), or dropless")
+        y = y.to(x.dtype)
     if cfg.num_shared_experts:
         y = y + _shared_ffn(params, xf)
     return y.reshape(b, s, d), aux

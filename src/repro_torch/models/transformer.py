@@ -1,6 +1,8 @@
 """Decoder assembly (the reference's ``repro.models.transformer``) for
 every architecture family: RWKV6, RG-LRU, full (``ATTN``) and local
-(sliding-window) attention layers; each RG-LRU and attention layer with
+(sliding-window) attention layers, and multi-head latent attention
+(``MLA``, ``models.mla``, which the reference lacks, with its latent
+cache); each RG-LRU and attention layer with
 the dense gated MLP or, in a mixture-of-experts model past its leading
 dense layers, the MoE FFN (``models.moe``, with arctic's dense residual
 FFN beside it).  Attention caches are int8 with fp32 scales where the
@@ -40,8 +42,9 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from repro_torch.config.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
+from repro_torch.config.base import ATTN, LOCAL, MLA, RGLRU, RWKV, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as ML
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
@@ -77,8 +80,12 @@ def layer_defs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
         defs["mix"] = RW.time_mix_defs(cfg)
         defs["ffn"] = RW.channel_mix_defs(cfg)
         return defs
-    defs["mix"] = (RG.rglru_defs(cfg) if kind == RGLRU
-                   else L.attention_defs(cfg))
+    if kind == RGLRU:
+        defs["mix"] = RG.rglru_defs(cfg)
+    elif kind == MLA:
+        defs["mix"] = ML.mla_defs(cfg)
+    else:
+        defs["mix"] = L.attention_defs(cfg)
     if _ffn_kind(cfg, layer_idx) == "moe":
         defs["ffn"] = MOE.moe_defs(cfg)
         if cfg.moe_dense_residual:
@@ -96,6 +103,8 @@ def layer_cache_defs(cfg: ModelConfig, layer_idx: int, batch: int,
     if kind == LOCAL:
         w = min(cfg.local_window or seq, seq)
         return L.attention_cache_defs(cfg, batch, w, cache_dtype)
+    if kind == MLA:
+        return ML.mla_cache_defs(cfg, batch, seq, cache_dtype)
     if kind == RGLRU:
         return RG.rglru_state_defs(cfg, batch)
     if kind == RWKV:
@@ -227,6 +236,15 @@ def layer_apply(cfg: ModelConfig, kind: str, ffn_kind: str, params,
                             rolled[n] = buf
                         new_cache = rolled
                     new_cache = L.maybe_quantize_cache(cfg, new_cache)
+        elif kind == MLA:
+            if decode:
+                mix_out, new_cache = ML.mla_decode(cfg, params["mix"], h,
+                                                   cache, pos)
+            else:
+                mix_out, new_cache = ML.mla_apply(cfg, params["mix"], h,
+                                                  positions)
+                if mode == "train":
+                    new_cache = None
         elif kind in (RGLRU, RWKV):
             state = cache if cache is not None else _zero_state(
                 cfg, kind, x.shape[0], x.device)

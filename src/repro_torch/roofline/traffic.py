@@ -25,7 +25,7 @@ Model (per device, bf16 params/activations, fp32 accumulations):
 
 from __future__ import annotations
 
-from repro_torch.config.base import (ATTN, LOCAL, RGLRU, RWKV, MeshConfig,
+from repro_torch.config.base import (ATTN, LOCAL, MLA, RGLRU, RWKV, MeshConfig,
                                      ModelConfig, ShapeConfig, TrainConfig)
 from repro_torch.roofline.analysis import CellCost
 
@@ -59,6 +59,9 @@ def _cache_bytes_per_chip(cfg: ModelConfig, batch: int, seq: int,
             total += batch * cfg.lru_dim * 4 + batch * 3 * cfg.lru_dim * 4
         elif kind == RWKV:
             total += batch * cfg.d_model * cfg.rwkv_head_dim * 4
+        elif kind == MLA:                      # the latent and roped key
+            total += batch * seq * (cfg.kv_lora_rank
+                                    + cfg.qk_rope_head_dim) * 2
     return total / chips
 
 

@@ -3,9 +3,9 @@ reference's ``repro.serving.kvcache``).
 
 Prefill produces caches sized exactly to the prompt; decode needs head-room
 for generated tokens.  ``grow_caches`` pads every *sequence-indexed* cache
-(attention k/v, ``[.., B, S, KV, HD]``) to the target length with zeros;
-recurrent states (RWKV wkv/shift, RG-LRU h/conv) are fixed-size and pass
-through.  With a ``window`` (a model whose attention layers are all
+(attention k/v, ``[.., B, S, KV, HD]``; latent attention's ``c_kv`` and
+``k_pe``, ``[.., B, S, W]``) to the target length with zeros; recurrent
+states (RWKV wkv/shift, RG-LRU h/conv) are fixed-size and pass through.  With a ``window`` (a model whose attention layers are all
 local), a cache grows to ``min(window, target_len)``: the rolling buffer
 that decode writes at ``pos % window``.
 
@@ -23,15 +23,19 @@ import torch
 import torch.nn.functional as F
 
 _SEQ_KEYS = ("k", "v", "k_scale", "v_scale")
+_LATENT_KEYS = ("c_kv", "k_pe")
 
 
 def _grow_leaf(path, leaf: torch.Tensor, target_len: int,
                window: int) -> torch.Tensor:
-    if not any(key in path for key in _SEQ_KEYS):
+    if any(key in path for key in _SEQ_KEYS):
+        # attention cache [.., B, S, KV, HD] (leading stacked-layer dim
+        # possible); window buffers grow up to the window's length
+        seq_axis = leaf.dim() - 3
+    elif any(key in path for key in _LATENT_KEYS):
+        seq_axis = leaf.dim() - 2          # latent cache [.., B, S, W]
+    else:
         return leaf
-    # attention cache [.., B, S, KV, HD] (leading stacked-layer dim
-    # possible); window buffers grow up to the window's length
-    seq_axis = leaf.dim() - 3
     s = leaf.shape[seq_axis]
     if window:
         target_len = min(window, target_len)

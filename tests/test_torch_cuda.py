@@ -8,6 +8,7 @@ installed:
 """
 
 import dataclasses
+import math
 import re
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -628,6 +629,28 @@ def test_flash_kernel_bf16_with_large_score_gaps(cuda, hd):
     assert torch.isfinite(out.float()).all()
     rtol, atol = FA_TOL[torch.bfloat16]
     torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_padded_latent_attention(cuda, dtype):
+    """DeepSeek-V2's prefill form: q and k of 192 and v of 128 zero-padded
+    to HD 256, q carrying the model's softmax scale times sqrt(256) (as
+    ``mla.mla_apply`` lays it out).  The output equals the plain version,
+    and the padded columns are zeros."""
+    from repro_torch.models import mla
+    fold = (mla.softmax_scale(get_config("deepseek-v2-lite"))
+            * math.sqrt(mla.KERNEL_HD))
+    q, k, v = _attn_inputs(8, 1000, 1000, 256, 1, torch.float32, 41, cuda)
+    q[..., 192:] = 0
+    k[..., 192:] = 0
+    v[..., 128:] = 0
+    q, k, v = (x.to(dtype) for x in (q * fold, k, v))
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    assert not out[..., 128:].any()
 
 
 @pytest.mark.cuda
@@ -1949,6 +1972,84 @@ def test_moe_top_k_ties_go_to_the_lower_index_on_the_card(cuda):
     idx, _, _, _ = moe._route(cfg, {"router": same}, x)
     assert torch.equal(idx, torch.arange(cfg.moe_top_k, device=cuda)
                        .expand_as(idx))
+
+
+def _bf16_layer(params, device):
+    return {k: (v.to(device, torch.bfloat16) if torch.is_tensor(v)
+                else _bf16_layer(v, device)) for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [4, 3000])
+def test_dropless_moe_on_the_card_waits_for_nothing(cuda, tokens):
+    """DeepSeek-V2-Lite's MoE (64 experts, top 6, 2 shared) at width 256
+    in bf16, for a decode step's 4 tokens and a prefill's 3,000: the
+    grouped products over the pairs sorted by expert give one product an
+    expert's output (to bf16's rounding: the library may order a sum
+    otherwise for another number of rows), and the layer makes no
+    blocking wait for the card (``set_sync_debug_mode("error")`` raises
+    on one)."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), d_model=256,
+                              moe_seq_chunk=0)
+    params = _bf16_layer(_moe_layer(cfg, 11, "cpu"), cuda)
+    x = torch.randn((1, tokens, cfg.d_model),
+                    generator=torch.Generator().manual_seed(12)).to(
+                        cuda, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = moe.moe_apply(cfg, params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    xf = x[0]
+    idx, gate, _, _ = moe._route(cfg, params, xf)
+    want = torch.zeros(xf.shape, dtype=torch.float32, device=cuda)
+    for e in range(cfg.num_experts):
+        tok, choice = torch.nonzero(idx == e, as_tuple=True)
+        part = xf[tok]
+        y = ((part @ params["we_i"][e]) * torch.nn.functional.silu(
+            part @ params["we_g"][e])) @ params["we_d"][e]
+        want.index_add_(0, tok, y.float() * gate[tok, choice][:, None])
+    want = (want.to(torch.bfloat16) + moe._shared_ffn(params, xf))[None]
+    torch.testing.assert_close(got, want, rtol=1.6e-2,
+                               atol=1e-2 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_latent_decode_step_on_the_card_waits_for_nothing(cuda):
+    """A two-layer DeepSeek-V2-Lite (one dense layer, one dropless MoE
+    layer) at width 256: after prefill, a decode step through the latent
+    cache makes no blocking wait for the card, and its logits equal the
+    CPU's to bf16's rounding."""
+    from repro_torch.serving.kvcache import grow_caches
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), num_layers=2,
+                              d_model=256, num_heads=2, num_kv_heads=2,
+                              vocab_size=512, first_dense_d_ff=512)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(13))
+    from repro_torch.tree import tree_map
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(cpu_model.generator(0))
+    got = {}
+    for dev in ("cpu", cuda):
+        model = Model(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        with torch.inference_mode():
+            _, caches = model.prefill(params,
+                                      {"tokens": tokens[:, :39].to(dev)})
+            caches = model.prefill_to_decode(grow_caches(caches, 48))
+            last = tokens[:, 39:].to(dev)    # an upload waits: not the step's
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, _ = model.decode_step(params, last, caches, 39)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        got[dev] = logits.float().cpu()
+    torch.testing.assert_close(got[cuda], got["cpu"], rtol=5e-2,
+                               atol=5e-2 * float(got["cpu"].abs().max()))
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 from jax.sharding import AbstractMesh
 
+from repro.config import ARCH_IDS as REF_ARCH_IDS
 from repro.config import SHAPES as REF_SHAPES
 from repro.config import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
@@ -36,7 +37,10 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh as pmesh
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import report
 
-LM_ARCHS = [a for a in ARCH_IDS if a != "paper-subsample"]
+# the configurations both registries hold (the port's deepseek-v2-lite
+# has no reference to compare with)
+LM_ARCHS = [a for a in ARCH_IDS
+            if a != "paper-subsample" and a in REF_ARCH_IDS]
 REL = 1e-9
 MESH = make_mesh(SINGLE_POD_MESH)
 
@@ -192,6 +196,27 @@ def test_argument_bytes_equal_the_references(arch):
                 dryrun.train_config_for(arch))["argument_bytes"]
             assert got == _ref_argument_bytes(arch, shape_name, multi), (
                 shape_name, multi)
+
+
+def test_the_port_only_config_is_counted():
+    """``deepseek-v2-lite``, which the reference lacks, through the dry
+    run's placement: every cell's bytes, and a decode cell's outputs (the
+    logits and the new caches) hold the latent cache
+    (``kv_lora_rank + qk_rope_head_dim`` bf16 values a token and layer),
+    split over the 256 chips."""
+    arch = "deepseek-v2-lite"
+    cfg = get_config(arch)
+    tcfg = dryrun.train_config_for(arch)
+    got = {name: dryrun.placed_bytes(cfg, SHAPES[name],
+                                     pmesh(multi_pod=False), tcfg)
+           for name in SHAPES}
+    assert all(v["argument_bytes"] > 0 for v in got.values())
+    decode = SHAPES["decode_32k"]
+    latent = (cfg.num_layers * decode.global_batch * decode.seq_len
+              * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2)
+    logits = decode.global_batch * cfg.vocab_size * 4
+    out = got["decode_32k"]["output_bytes"] * 256
+    assert latent <= out <= latent + logits
 
 
 # -- the CLI and the report ----------------------------------------------------

@@ -12,6 +12,7 @@ from repro.config import SHAPES as REF_SHAPES
 from repro.config import get_config as ref_get_config
 from repro.config.base import MeshConfig as RefMeshConfig
 from repro.config.base import TrainConfig as RefTrainConfig
+from repro.config import ARCH_IDS as REF_ARCH_IDS
 from repro.roofline import analysis as ref_ra
 from repro.roofline import collprofile as ref_cp
 from repro.roofline import traffic as ref_rt
@@ -33,7 +34,10 @@ HLO = """
   %a2a = f32[16,16]{1,0} all-to-all(%w), dimensions={0}
   %dot = f32[128,128]{1,0} dot(%a, %b)
 """
-LM_ARCHS = [a for a in ARCH_IDS if a != "paper-subsample"]
+# the configurations both registries hold (the port's deepseek-v2-lite
+# has no reference to compare with)
+LM_ARCHS = [a for a in ARCH_IDS
+            if a != "paper-subsample" and a in REF_ARCH_IDS]
 
 
 def test_collective_parsing_kinds_and_bytes():
@@ -167,6 +171,22 @@ def test_model_flops_and_traffic_equal_the_references(arch):
                         ref_cfg, ref_shape, _ref_mesh(mesh), n_mb=n_mb,
                         tcfg=RefTrainConfig(moment_dtype=moment))
                     assert got == want, (shape_name, mesh, n_mb, moment)
+
+
+def test_the_port_only_config_in_the_arithmetic():
+    """``deepseek-v2-lite``, which the reference lacks: 2 FLOPs an active
+    parameter and token, and the decode traffic reads its latent cache of
+    576 bf16 values a token and layer."""
+    from repro_torch.roofline.traffic import _cache_bytes_per_chip
+    cfg = get_config("deepseek-v2-lite")
+    shape = SHAPES["prefill_32k"]
+    assert model_flops_per_step(cfg, shape) == (
+        2.0 * cfg.active_param_count() * shape.global_batch * shape.seq_len)
+    assert _cache_bytes_per_chip(cfg, 128, 32768, 1) == (
+        27 * 128 * 32768 * 576 * 2)
+    decode = SHAPES["decode_32k"]
+    assert memory_traffic(cfg, decode, SINGLE_POD_MESH) > (
+        _cache_bytes_per_chip(cfg, 128, 32768, 256))
 
 
 def test_collective_parsers_equal_the_references():

@@ -235,11 +235,20 @@ def test_grow_caches_matches_reference():
         _assert_trees_close(got, want)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
 def test_configs_equal_the_reference(arch):
-    assert ARCH_IDS == REF_ARCH_IDS
+    """Every configuration of the reference's registry, field for field;
+    the port's registry adds ``deepseek-v2-lite`` (which the reference
+    lacks) after them, and its fields that the reference lacks (latent
+    attention, YaRN, the router's options) hold their defaults here."""
+    assert [a for a in ARCH_IDS if a in REF_ARCH_IDS] == REF_ARCH_IDS
+    assert set(ARCH_IDS) - set(REF_ARCH_IDS) == {"deepseek-v2-lite"}
     ours, theirs = get_config(arch), ref_get_config(arch)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    mine, want = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+    extra = {f.name: f.default for f in dataclasses.fields(ours)
+             if f.name not in want}
+    assert {k: v for k, v in mine.items() if k in want} == want
+    assert {k: mine[k] for k in extra} == extra
     assert ours.param_count() == theirs.param_count()
 
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from repro.config import ARCH_IDS as REF_ARCH_IDS
 from repro.config import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro.optim import adamw as ref_adamw
@@ -45,7 +46,10 @@ class FakeMesh:
 SINGLE = FakeMesh({"data": 16, "model": 16})
 MULTI = FakeMesh({"pod": 2, "data": 16, "model": 16})
 MESHES = {"single": SINGLE, "multi": MULTI}
-LM_ARCHS = [a for a in ARCH_IDS if a != "paper-subsample"]
+# the configurations both registries hold (the port's deepseek-v2-lite
+# has no reference to compare with)
+LM_ARCHS = [a for a in ARCH_IDS
+            if a != "paper-subsample" and a in REF_ARCH_IDS]
 
 
 # -- the reference's rule tests ------------------------------------------------
@@ -91,7 +95,7 @@ def test_all_arch_param_dims_shard_on_production_mesh():
     """Every param leaf of every arch must shard (or cleanly fall back)
     on the 16×16 mesh — guards against new configs breaking divisibility."""
     for arch in ("qwen2-72b", "arctic-480b", "rwkv6-7b",
-                 "recurrentgemma-2b", "musicgen-medium"):
+                 "recurrentgemma-2b", "musicgen-medium", "deepseek-v2-lite"):
         defs = build_model(get_config(arch), device="cpu").param_defs()
         for _, leaf in tree_leaves_with_path(defs):
             spec = logical_to_spec(leaf.logical, SINGLE, TRAIN_RULES,
